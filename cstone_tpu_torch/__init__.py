@@ -1,0 +1,19 @@
+"""cstone-tpu's PyTorch/CUDA port: octrees and neighbor search on NVIDIA GPUs.
+
+The JAX package `cstone_tpu` is the reference this package is held
+against; this package imports torch and numpy only. Ported so far: the
+single-rank `Domain.sync` (SFC keys, cornerstone tree, linked octree,
+layout) and the cell-list neighbor counts and SPH density, whose stencil
+runs in a hand-written CUDA kernel (ops/stencil.py, csrc/stencil.cu).
+
+SFC keys are unsigned bit patterns held in int32/int64 tensors
+(ops/keys64.py). CUDA tensors always run the CUDA kernel; CPU tensors run
+its plain PyTorch version.
+"""
+
+from .interop import from_numpy_state
+from .sfc.box import FIXED, OPEN, PERIODIC, Box, make_box
+
+__version__ = "0.1.0"
+
+__all__ = ["Box", "OPEN", "PERIODIC", "FIXED", "make_box", "from_numpy_state"]

@@ -1,0 +1,74 @@
+"""SFC domain decomposition: assignment of key ranges to ranks
+(counterpart of cstone_tpu/domain/decomposition.py; reference:
+include/cstone/domain/domaindecomp.hpp)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+from ..ops.keys64 import umax, umin
+from ..ops.primitives import searchsorted
+
+__all__ = ["SfcAssignment", "uniform_bins", "make_sfc_assignment", "limit_boundary_shifts"]
+
+
+@dataclass(frozen=True)
+class SfcAssignment:
+    """Which part of the SFC belongs to which rank (domaindecomp.hpp:73-113).
+
+    boundaries: (n_ranks+1,) keys; rank r owns [boundaries[r], boundaries[r+1]).
+    counts:     (n_ranks,) int64 global particle count per rank.
+    """
+
+    boundaries: torch.Tensor
+    counts: torch.Tensor
+
+    @property
+    def n_ranks(self) -> int:
+        return self.boundaries.shape[0] - 1
+
+
+def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """a[idx] with indices clamped into range, as JAX gathers do: an
+    overflowed tree (n_nodes > capacity) still yields an assignment, and
+    the overflow is reported by the caller."""
+    return a[torch.clamp(idx, 0, a.shape[0] - 1)]
+
+
+def _count_scan(counts: torch.Tensor) -> torch.Tensor:
+    c = counts.to(torch.int64)
+    return torch.cat([c.new_zeros(1), torch.cumsum(c, 0)])
+
+
+def uniform_bins(counts: torch.Tensor, n_nodes, n_bins: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Histogram bins with uniform element count, in exact integer math
+    (domaindecomp.hpp:48-71). Returns (bins (n_bins+1,) node indices,
+    bin_counts (n_bins,))."""
+    scan = _count_scan(counts)
+    n_nodes = torch.as_tensor(n_nodes, dtype=torch.int64, device=counts.device)
+    total = _take(scan, n_nodes)
+    i = torch.arange(1, n_bins, dtype=torch.int64, device=counts.device)
+    targets = torch.div(i * total, n_bins, rounding_mode="floor")
+    mids = torch.minimum(torch.searchsorted(scan, targets), n_nodes)
+    bins = torch.cat([scan.new_zeros(1), mids, n_nodes[None]])
+    return bins, _take(scan, bins[1:]) - _take(scan, bins[:-1])
+
+
+def make_sfc_assignment(tree_keys, counts, n_nodes, n_ranks: int) -> SfcAssignment:
+    """Equal-count SFC split over the global tree (domaindecomp.hpp:115-124)."""
+    bins, bin_counts = uniform_bins(counts, n_nodes, n_ranks)
+    return SfcAssignment(boundaries=_take(tree_keys, bins), counts=bin_counts)
+
+
+def limit_boundary_shifts(old: SfcAssignment, new: SfcAssignment, tree_keys, counts) -> SfcAssignment:
+    """Allow boundaries to move only into the neighbor rank's old range
+    (domaindecomp.hpp:126-166); recounts after clamping."""
+    b = new.boundaries
+    inner = umin(umax(b[1:-1], old.boundaries[:-2]), old.boundaries[2:])
+    boundaries = torch.cat([b[:1], inner, b[-1:]])
+    scan = _count_scan(counts)
+    pos = searchsorted(tree_keys, boundaries, side="left")
+    return SfcAssignment(boundaries=boundaries, counts=_take(scan, pos[1:]) - _take(scan, pos[:-1]))

@@ -1,0 +1,77 @@
+"""Carry state from the JAX package into the port.
+
+`from_numpy_state` rebuilds a port DomainState or SphState from the JAX
+package's state of the same name. It reads the JAX object's fields with
+`numpy.asarray` only, so this module imports no jax: arrays convert by
+value (keys keep their bits, see ops/keys64.py), index arrays become
+int64, boolean flags become host bools.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .domain.decomposition import SfcAssignment
+from .domain.domain import DomainState
+from .models.sph import SphState
+from .ops.keys64 import from_numpy as keys_from_numpy
+from .sfc.box import Box
+from .tree.csarray import CsArray
+from .tree.octree import LinkedOctree
+
+__all__ = ["from_numpy_state"]
+
+
+def _t(a, device, dtype=None) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype in (np.uint32, np.uint64):
+        return keys_from_numpy(a, device)
+    t = torch.from_numpy(np.array(a))
+    if dtype is None and t.dtype in (torch.int32, torch.int16, torch.int8, torch.uint8):
+        dtype = torch.int64
+    return t.to(device=device, dtype=dtype)
+
+
+def _counts(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a).astype(np.int64)).to(device)
+
+
+def _domain_state(s, device) -> DomainState:
+    gt = s.global_tree
+    lk = s.linked
+    return DomainState(
+        box=Box(limits=_t(s.box.limits, device), boundaries=tuple(int(b) for b in s.box.boundaries)),
+        assignment=SfcAssignment(boundaries=_t(s.assignment.boundaries, device),
+                                 counts=_counts(s.assignment.counts, device)),
+        global_tree=CsArray(keys=_t(gt.keys, device), counts=_counts(gt.counts, device),
+                            n_nodes=_counts(gt.n_nodes, device)),
+        focus_leaves=_t(s.focus_leaves, device),
+        focus_n=_counts(s.focus_n, device),
+        first_call=bool(np.asarray(s.first_call)),
+        linked=LinkedOctree(
+            prefixes=_t(lk.prefixes, device),
+            child_offsets=_t(lk.child_offsets, device),
+            parents=_t(lk.parents, device),
+            level_range=_t(lk.level_range, device),
+            internal_to_leaf=_t(lk.internal_to_leaf, device),
+            leaf_to_internal=_t(lk.leaf_to_internal, device),
+            leaves=_t(lk.leaves, device),
+            n_leaf=_counts(lk.n_leaf, device),
+            n_internal=_counts(lk.n_internal, device),
+        ),
+        focus_converged=bool(np.asarray(s.focus_converged)),
+    )
+
+
+def from_numpy_state(state, device=None):
+    """Port DomainState (or SphState, when `state` has a `domain` field)
+    from the JAX package's state of the same name."""
+    if hasattr(state, "domain"):
+        return SphState(
+            domain=_domain_state(state.domain, device),
+            x=_t(state.x, device), y=_t(state.y, device), z=_t(state.z, device),
+            h=_t(state.h, device), m=_t(state.m, device),
+            n_local=_counts(state.n_local, device),
+        )
+    return _domain_state(state, device)

@@ -1,0 +1,59 @@
+"""3D Hilbert encoding in 32- and 64-bit (counterpart of
+cstone_tpu/sfc/hilbert.py; reference: include/cstone/sfc/hilbert.hpp:58-109).
+
+One Python loop over levels; each round is elementwise integer math over
+the whole coordinate array. Coordinates run in int64: the axis
+reflections flip bits above the key width, which never reach the key
+because each round reads only bit `level` < maxLevel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.keys64 import torch_key_dtype
+from .keys import max_tree_level
+
+__all__ = ["ihilbert"]
+
+
+def _morton_to_hilbert(octant: torch.Tensor) -> torch.Tensor:
+    """The {0,1,3,2,7,6,4,5} child reordering: grayCode(o) ^ (o >> 2)."""
+    return (octant ^ (octant >> 1)) ^ (octant >> 2)
+
+
+def ihilbert(px, py, pz, key_dtype) -> torch.Tensor:
+    """Hilbert key from integer grid coordinates in [0, 2^maxLevel)."""
+    lmax = max_tree_level(key_dtype)
+    px = px.to(torch.int64)
+    py = py.to(torch.int64)
+    pz = pz.to(torch.int64)
+    key = torch.zeros(torch.broadcast_shapes(px.shape, py.shape, pz.shape),
+                      dtype=torch.int64, device=px.device)
+    for level in range(lmax - 1, -1, -1):
+        xi = (px >> level) & 1
+        yi = (py >> level) & 1
+        zi = (pz >> level) & 1
+
+        octant = (xi << 2) | (yi << 1) | zi
+        key = (key << 3) + _morton_to_hilbert(octant)
+
+        not_yi = yi ^ 1
+        not_zi = zi ^ 1
+        # turn px, py, pz: x ^= -mask (mask in {0,1}; -1 == all ones)
+        mx = xi & (not_yi | zi)
+        my = (xi & (yi | zi)) | (yi & not_zi)
+        mz = (xi & not_yi & not_zi) | (yi & not_zi)
+        px = px ^ -mx
+        py = py ^ -my
+        pz = pz ^ -mz
+
+        # if zi: cyclic rotation (px,py,pz) <- (py,pz,px); elif !yi: swap px, pz
+        rot = zi == 1
+        swp = (zi == 0) & (yi == 0)
+        px, py, pz = (
+            torch.where(rot, py, torch.where(swp, pz, px)),
+            torch.where(rot, pz, py),
+            torch.where(rot, px, torch.where(swp, px, pz)),
+        )
+    return key.to(torch_key_dtype(key_dtype))

@@ -46,3 +46,8 @@ def golden():
         else:
             out[k] = np.asarray(v, dtype=np.uint32)
     return out
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips without them")
