@@ -31,6 +31,7 @@ from ..sfc.box import Box
 from ..sfc.encode import HILBERT, compute_sfc_keys
 from ..sfc.keys import remove_key
 from ..tree.csarray import CsArray, compute_node_counts, rebalance_decision, rebalance_tree, root_tree
+from ..traversal.neighbors import OctreeNsView, make_ns_view
 from ..tree.octree import LinkedOctree, build_linked_octree
 from .decomposition import SfcAssignment, limit_boundary_shifts, make_sfc_assignment
 from .layout import compute_node_layout
@@ -130,6 +131,7 @@ class Domain:
         focus_capacity: int = 0,
         exchange_mode: str = "p2p",
         device=None,
+        halo_search_ext: float = 1.0,
     ):
         if int(n_ranks) != 1 or int(rank) != 0:
             raise NotImplementedError(
@@ -149,6 +151,7 @@ class Domain:
                 "not ported yet (ROADMAP.md Queue 1, item 11: focus/)")
         self.key_dtype = np_key_dtype(key_dtype)
         self.curve = curve
+        self.halo_search_ext = float(halo_search_ext)
         self.device = torch.device(device) if device is not None else torch.device("cpu")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Domain(device='cuda') needs a CUDA device; none is available")
@@ -326,3 +329,9 @@ class Domain:
         input of the next sync with n_local = end_index - start_index
         (domain.hpp:389-409)."""
         return torch.roll(field, -int(result.start_index), 0)
+
+    # ------------------------------------------------------------------
+    def ns_view(self, result: SyncResult, box: Box) -> OctreeNsView:
+        """Neighbor-search view over the local buffers (domain.hpp:425-437)."""
+        return make_ns_view(result.tree, result.layout, box, self.curve,
+                            search_ext_factor=self.halo_search_ext)

@@ -1,7 +1,8 @@
 """Carry state from the JAX package into the port.
 
 `from_numpy_state` rebuilds a port DomainState or SphState from the JAX
-package's state of the same name. It reads the JAX object's fields with
+package's state of the same name, `from_numpy_tree` a LinkedOctree and
+`from_numpy_ns_view` an OctreeNsView. They read the JAX object's fields with
 `numpy.asarray` only, so this module imports no jax: arrays convert by
 value (keys keep their bits, see ops/keys64.py), index arrays become
 int64, boolean flags become host bools.
@@ -18,9 +19,10 @@ from .models.sph import SphState
 from .ops.keys64 import from_numpy as keys_from_numpy
 from .sfc.box import Box
 from .tree.csarray import CsArray
+from .traversal.neighbors import OctreeNsView
 from .tree.octree import LinkedOctree
 
-__all__ = ["from_numpy_state"]
+__all__ = ["from_numpy_state", "from_numpy_tree", "from_numpy_ns_view"]
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
@@ -37,9 +39,31 @@ def _counts(a, device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a).astype(np.int64)).to(device)
 
 
+def from_numpy_tree(lk, device=None) -> LinkedOctree:
+    """Port LinkedOctree from the JAX package's LinkedOctree."""
+    return LinkedOctree(
+        prefixes=_t(lk.prefixes, device),
+        child_offsets=_t(lk.child_offsets, device),
+        parents=_t(lk.parents, device),
+        level_range=_t(lk.level_range, device),
+        internal_to_leaf=_t(lk.internal_to_leaf, device),
+        leaf_to_internal=_t(lk.leaf_to_internal, device),
+        leaves=_t(lk.leaves, device),
+        n_leaf=_counts(lk.n_leaf, device),
+        n_internal=_counts(lk.n_internal, device),
+    )
+
+
+def from_numpy_ns_view(view, device=None) -> OctreeNsView:
+    """Port OctreeNsView from the JAX package's OctreeNsView."""
+    return OctreeNsView(
+        tree=from_numpy_tree(view.tree, device), layout=_t(view.layout, device),
+        centers=_t(view.centers, device), sizes=_t(view.sizes, device),
+        search_ext_factor=float(view.search_ext_factor))
+
+
 def _domain_state(s, device) -> DomainState:
     gt = s.global_tree
-    lk = s.linked
     return DomainState(
         box=Box(limits=_t(s.box.limits, device), boundaries=tuple(int(b) for b in s.box.boundaries)),
         assignment=SfcAssignment(boundaries=_t(s.assignment.boundaries, device),
@@ -49,17 +73,7 @@ def _domain_state(s, device) -> DomainState:
         focus_leaves=_t(s.focus_leaves, device),
         focus_n=_counts(s.focus_n, device),
         first_call=bool(np.asarray(s.first_call)),
-        linked=LinkedOctree(
-            prefixes=_t(lk.prefixes, device),
-            child_offsets=_t(lk.child_offsets, device),
-            parents=_t(lk.parents, device),
-            level_range=_t(lk.level_range, device),
-            internal_to_leaf=_t(lk.internal_to_leaf, device),
-            leaf_to_internal=_t(lk.leaf_to_internal, device),
-            leaves=_t(lk.leaves, device),
-            n_leaf=_counts(lk.n_leaf, device),
-            n_internal=_counts(lk.n_internal, device),
-        ),
+        linked=from_numpy_tree(s.linked, device),
         focus_converged=bool(np.asarray(s.focus_converged)),
     )
 

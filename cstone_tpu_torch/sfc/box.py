@@ -1,6 +1,7 @@
-"""Global coordinate bounding box with periodic-boundary support
+"""Coordinate bounding boxes with periodic-boundary support
 (counterpart of cstone_tpu/sfc/box.py; reference:
-include/cstone/sfc/box.hpp:97-191)."""
+include/cstone/sfc/box.hpp). `Box` holds float limits; `IBox` a batch of
+integer octree-coordinate boxes as stacked int64 tensors."""
 
 from __future__ import annotations
 
@@ -10,7 +11,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["OPEN", "PERIODIC", "FIXED", "Box", "make_box"]
+from .keys import max_tree_level
+
+__all__ = [
+    "OPEN", "PERIODIC", "FIXED", "Box", "IBox", "make_box",
+    "pbc_adjust", "pbc_distance", "apply_pbc", "center_and_size",
+]
 
 # boundary types (box.hpp:97-102)
 OPEN = 0
@@ -55,3 +61,55 @@ def make_box(
         boundaries = (boundaries, boundaries, boundaries)
     limits = torch.tensor([xmin, xmax, ymin, ymax, zmin, zmax], dtype=dtype, device=device)
     return Box(limits=limits, boundaries=tuple(int(b) for b in boundaries))
+
+
+@dataclass(frozen=True)
+class IBox:
+    """Batch of integer octree-coordinate boxes (box.hpp:269-321): each
+    field is an int64 tensor (int32 in the JAX version); bounds are
+    [min, max) in grid coordinates of [0, 2^maxLevel]."""
+
+    xmin: torch.Tensor
+    xmax: torch.Tensor
+    ymin: torch.Tensor
+    ymax: torch.Tensor
+    zmin: torch.Tensor
+    zmax: torch.Tensor
+
+
+# ----------------------------------------------------------------------------
+# periodic arithmetic (box.hpp:59-95)
+# ----------------------------------------------------------------------------
+
+def pbc_adjust(x: torch.Tensor, R: int) -> torch.Tensor:
+    """Map x in [-R, 2R) into [0, R)."""
+    ret = torch.where(x < 0, x + R, x)
+    return torch.where(ret >= R, ret - R, ret)
+
+
+def pbc_distance(x: torch.Tensor, R: int) -> torch.Tensor:
+    """Map x in [-R, R] into (-R/2, R/2]."""
+    ret = torch.where(x <= -R // 2, x + R, x)
+    return torch.where(ret > R // 2, ret - R, ret)
+
+
+def apply_pbc(dX: torch.Tensor, box: Box) -> torch.Tensor:
+    """Shortest periodic image of displacement dX, shape (..., 3)
+    (box.hpp:194-206); round half to even, as jnp.round."""
+    pbc = torch.as_tensor(box.periodic_mask, dtype=dX.dtype, device=dX.device)
+    lengths = box.lengths.to(dX.dtype)
+    il = 1.0 / lengths
+    return dX - pbc * lengths * torch.round(dX * il)
+
+
+def center_and_size(ibox: IBox, box: Box, key_dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """FP center and half-extent vectors of integer boxes (box.hpp:334-351),
+    each (..., 3) in the box's float type."""
+    fdt = box.limits.dtype
+    u_l = 1.0 / (1 << max_tree_level(key_dtype))
+    half = (0.5 * u_l) * box.lengths  # half unit-cell lengths (a power of 2 times L)
+    imins = torch.stack([ibox.xmin, ibox.ymin, ibox.zmin], dim=-1).to(fdt)
+    imaxs = torch.stack([ibox.xmax, ibox.ymax, ibox.zmax], dim=-1).to(fdt)
+    center = box.mins + (imaxs + imins) * half
+    size = (imaxs - imins) * half
+    return center, size

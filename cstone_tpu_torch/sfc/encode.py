@@ -1,19 +1,23 @@
-"""Float coordinates -> Morton/Hilbert keys (counterpart of
-cstone_tpu/sfc/encode.py; reference: include/cstone/sfc/sfc.hpp:157-292).
+"""Float coordinates -> Morton/Hilbert keys and back to integer boxes
+(counterpart of cstone_tpu/sfc/encode.py; reference:
+include/cstone/sfc/sfc.hpp:157-292).
 The default curve is Hilbert, like the reference (sfc.hpp:55)."""
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from . import hilbert as _hilbert
 from . import morton as _morton
-from .box import Box
+from .box import Box, IBox
 from .keys import max_tree_level, remove_key
 
-__all__ = ["MORTON", "HILBERT", "isfc_key", "sfc3d", "compute_sfc_keys"]
+__all__ = [
+    "MORTON", "HILBERT", "isfc_key", "decode_sfc", "sfc3d", "compute_sfc_keys", "sfc_ibox",
+]
 
 MORTON = "morton"
 HILBERT = "hilbert"
@@ -25,6 +29,15 @@ def isfc_key(ix, iy, iz, key_dtype, curve: str = HILBERT) -> torch.Tensor:
         return _morton.imorton(ix, iy, iz, key_dtype)
     if curve == HILBERT:
         return _hilbert.ihilbert(ix, iy, iz, key_dtype)
+    raise ValueError(f"unknown curve {curve!r}")
+
+
+def decode_sfc(key: torch.Tensor, curve: str = HILBERT):
+    """SFC key -> int64 integer coordinates (sfc.hpp:196-210)."""
+    if curve == MORTON:
+        return _morton.decode_morton(key)
+    if curve == HILBERT:
+        return _hilbert.decode_hilbert(key)
     raise ValueError(f"unknown curve {curve!r}")
 
 
@@ -60,3 +73,21 @@ def compute_sfc_keys(x, y, z, box: Box, key_dtype, curve: str = HILBERT,
         rk = remove_key(key_dtype)
         keys = torch.where(old_keys == rk, old_keys, keys)
     return keys
+
+
+def sfc_ibox(key_start: torch.Tensor, level, curve: str = HILBERT) -> IBox:
+    """Integer coordinate box of the node starting at key_start
+    (morton.hpp:177-184, hilbert.hpp:274-290). `level` is an int or an
+    integer tensor broadcasting with key_start."""
+    lmax = max_tree_level(key_start.dtype)
+    if isinstance(level, (int, np.integer)):
+        level = int(level)
+        cube = torch.full((), 1 << (lmax - level), dtype=torch.int64, device=key_start.device)
+    else:
+        cube = torch.ones_like(level, dtype=torch.int64) << (lmax - level.to(torch.int64))
+    ix, iy, iz = decode_sfc(key_start, curve)
+    if curve == HILBERT:
+        # Hilbert decodes an interior point of the node: round down to its corner
+        mask = ~(cube - 1)
+        ix, iy, iz = ix & mask, iy & mask, iz & mask
+    return IBox(ix, ix + cube, iy, iy + cube, iz, iz + cube)

@@ -11,10 +11,10 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.keys64 import torch_key_dtype
+from ..ops.keys64 import srl, torch_key_dtype
 from .keys import max_tree_level
 
-__all__ = ["ihilbert"]
+__all__ = ["ihilbert", "decode_hilbert"]
 
 
 def _morton_to_hilbert(octant: torch.Tensor) -> torch.Tensor:
@@ -57,3 +57,40 @@ def ihilbert(px, py, pz, key_dtype) -> torch.Tensor:
             torch.where(rot, px, torch.where(swp, px, pz)),
         )
     return key.to(torch_key_dtype(key_dtype))
+
+
+def decode_hilbert(key: torch.Tensor):
+    """Inverse of ihilbert (hilbert.hpp:145-188): int64 grid coordinates."""
+    lmax = max_tree_level(key.dtype)
+    px = torch.zeros(key.shape, dtype=torch.int64, device=key.device)
+    py = torch.zeros_like(px)
+    pz = torch.zeros_like(px)
+    for level in range(lmax):
+        octant = (srl(key, 3 * level) & 7).to(torch.int64)
+        xi = octant >> 2
+        yi = (octant >> 1) & 1
+        zi = octant & 1
+
+        # if yi^zi: cyclic rotation (px,py,pz) <- (pz,px,py);
+        # elif octant is 0 or 7: swap px and pz
+        rot = (yi ^ zi) == 1
+        swp = ~rot & ((octant == 0) | (octant == 7))
+        px, py, pz = (
+            torch.where(rot, pz, torch.where(swp, pz, px)),
+            torch.where(rot, px, py),
+            torch.where(rot, py, torch.where(swp, px, pz)),
+        )
+
+        not_xi, not_yi, not_zi = xi ^ 1, yi ^ 1, zi ^ 1
+        mask = (1 << level) - 1
+        mx = xi & (yi | zi)
+        my = (xi & (not_yi | not_zi)) | (not_xi & yi & zi)
+        mz = (xi & not_yi & not_zi) | (yi & zi)
+        px = px ^ (mask & -mx)
+        py = py ^ (mask & -my)
+        pz = pz ^ (mask & -mz)
+
+        px = px | (xi << level)
+        py = py | ((xi ^ yi) << level)
+        pz = pz | ((yi ^ zi) << level)
+    return px, py, pz

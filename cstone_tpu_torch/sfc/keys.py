@@ -30,6 +30,7 @@ __all__ = [
     "tree_level",
     "encode_placeholder_bit",
     "decode_prefix_length",
+    "decode_placeholder_bit",
     "octal_digit",
     "digit_weight",
 ]
@@ -99,6 +100,14 @@ def encode_placeholder_bit(code: torch.Tensor, prefix_length) -> torch.Tensor:
 def decode_prefix_length(code: torch.Tensor) -> torch.Tensor:
     """Number of key bits in a placeholder-bit key (common.hpp:208-212)."""
     return key_bits(code.dtype) - 1 - count_leading_zeros(code)
+
+
+def decode_placeholder_bit(code: torch.Tensor) -> torch.Tensor:
+    """Inverse of encode_placeholder_bit (common.hpp:222-230)."""
+    lmax = max_tree_level(code.dtype)
+    plen = decode_prefix_length(code).to(code.dtype)
+    ret = code ^ (torch.ones_like(code) << plen)
+    return ret << (3 * lmax - plen)
 
 
 def octal_digit(code: torch.Tensor, position) -> torch.Tensor:

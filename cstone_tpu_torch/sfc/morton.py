@@ -13,7 +13,9 @@ import torch
 from ..ops.keys64 import torch_key_dtype
 from .keys import max_tree_level
 
-__all__ = ["expand_bits", "imorton"]
+from ..ops.keys64 import srl
+
+__all__ = ["expand_bits", "compact_bits", "imorton", "decode_morton"]
 
 
 def expand_bits(v: torch.Tensor, bits: int) -> torch.Tensor:
@@ -33,3 +35,20 @@ def imorton(ix, iy, iz, key_dtype) -> torch.Tensor:
     lmax = max_tree_level(key_dtype)
     key = expand_bits(ix, lmax) * 4 + expand_bits(iy, lmax) * 2 + expand_bits(iz, lmax)
     return key.to(torch_key_dtype(key_dtype))
+
+
+def compact_bits(v: torch.Tensor) -> torch.Tensor:
+    """Inverse of expand_bits: keep every 3rd bit (morton.hpp:62-102).
+    int64; the 64-bit masks also give the 32-bit result for v < 2^30."""
+    v = v.to(torch.int64) & 0x1249249249249249
+    v = (v ^ (v >> 2)) & 0x10C30C30C30C30C3
+    v = (v ^ (v >> 4)) & 0x100F00F00F00F00F
+    v = (v ^ (v >> 8)) & 0x001F0000FF0000FF
+    v = (v ^ (v >> 16)) & 0x001F00000000FFFF
+    v = (v ^ (v >> 32)) & 0x00000000001FFFFF
+    return v
+
+
+def decode_morton(code: torch.Tensor):
+    """Integer grid coordinates (int64) from a Morton key (morton.hpp:143-168)."""
+    return compact_bits(srl(code, 2)), compact_bits(srl(code, 1)), compact_bits(code)

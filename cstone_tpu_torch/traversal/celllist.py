@@ -25,7 +25,12 @@ import numpy as np
 import torch
 
 from ..ops.keys64 import srl
-from ..ops.stencil import stencil_counts, stencil_counts_plain, stencil_density
+from ..ops.stencil import (
+    stencil_counts,
+    stencil_counts_asym,
+    stencil_counts_plain,
+    stencil_density,
+)
 from ..sfc.box import PERIODIC, Box
 from ..sfc.encode import HILBERT
 from ..sfc.keys import max_tree_level
@@ -119,9 +124,13 @@ def rowmajor_cell_perm(level: int, curve: str = HILBERT, device=None):
 
 
 def ell_pack(keys_sorted: torch.Tensor, perm: torch.Tensor, arrays, cap: int, level: int,
-             n_valid=None):
+             n_valid=None, cell_override=None):
     """Pack per-cell particle runs into (n_cells, cap) ELL rows in row-major
     cell order (the contract of the JAX ell_pack_gather).
+
+    `cell_override` (n,) replaces the cells derived from the keys: an
+    ascending array in which -1 marks particles before the packed set and
+    n_cells particles after it (the tiered path packs one tier at a time).
 
     Returns (packed arrays with INVALID_COORD in empty slots, valid,
     pidx (sorted particle index per slot, INT32_MAX in empty slots),
@@ -129,11 +138,14 @@ def ell_pack(keys_sorted: torch.Tensor, perm: torch.Tensor, arrays, cap: int, le
     """
     n = keys_sorted.shape[0]
     dev = keys_sorted.device
-    shift = 3 * (max_tree_level(keys_sorted.dtype) - level)
     n_cells = 1 << (3 * level)
-    # removeKey-flagged keys (unsigned >= 2^(3*maxLevel)) map past the last cell
-    cell = srl(keys_sorted, shift).to(torch.int64)
-    cell = torch.where((cell < 0) | (cell > n_cells), n_cells, cell)
+    if cell_override is not None:
+        cell = cell_override.to(torch.int64)
+    else:
+        # removeKey-flagged keys (unsigned >= 2^(3*maxLevel)) map past the last cell
+        shift = 3 * (max_tree_level(keys_sorted.dtype) - level)
+        cell = srl(keys_sorted, shift).to(torch.int64)
+        cell = torch.where((cell < 0) | (cell > n_cells), n_cells, cell)
     if n_valid is not None:
         i = torch.arange(n, device=dev)
         cell = torch.where(i < n_valid, cell, n_cells)
@@ -167,24 +179,38 @@ def stencil_neighbor_counts(px, py, pz, r2, valid, box: Box, level: int) -> torc
     return stencil_counts_plain(px, py, pz, r2, valid, box.lengths, _periodic_flags(box), level)
 
 
+_COUNT_IMPLS = {
+    "pallas": stencil_counts,  # B1 kernel (plain version on CPU tensors)
+    "pallas_asym": stencil_counts_asym,  # B4 kernel: one-sided, self subtracted
+    "xla": stencil_counts_plain,  # the plain roll stencil on any device
+}
+
+
 def cell_list_neighbor_counts(
     keys_sorted, xs, ys, zs, hs, box: Box, level: int, cap: int, curve: str = HILBERT,
-    n_valid=None, const_h: bool = False,
+    n_valid=None, impl: str = "pallas", const_h: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(n,) int32 neighbor counts in sorted particle order + overflow flag.
 
     Exact fixed-radius counts (neighbor iff d2 < (2 h_i)^2) provided the
     cell side at `level` is >= 2*max(hs): use choose_cell_level. Overflow
     True means some cell held more than `cap` particles and the result is
-    invalid. `const_h` (all hs equal) is accepted for API parity with the
-    JAX version and does not change the result.
+    invalid. `impl` names the JAX package's routes: "pallas" runs the
+    stencil kernel (B1), "pallas_asym" the one-sided route (B4), "xla" the
+    plain roll stencil; all three give the same counts. The port defaults
+    to the kernel, its main path (the JAX default is "xla"). `const_h`
+    (all hs equal) is accepted for API parity and does not change the
+    result.
     """
     del const_h
+    if impl not in _COUNT_IMPLS:
+        raise ValueError(f"impl must be one of {sorted(_COUNT_IMPLS)}, got {impl!r}")
     perm, _ = rowmajor_cell_perm(int(level), curve, device=xs.device)
     (px, py, pz, ph), valid, pidx, overflow = ell_pack(
         keys_sorted, perm, (xs, ys, zs, hs), cap, int(level), n_valid=n_valid)
     r2 = torch.where(valid, (2.0 * ph) * (2.0 * ph), -1.0)
-    counts_ell = stencil_counts(px, py, pz, r2, valid, box.lengths, _periodic_flags(box), int(level))
+    counts_ell = _COUNT_IMPLS[impl](px, py, pz, r2, valid, box.lengths, _periodic_flags(box),
+                                    int(level))
     return _scatter_back(counts_ell, valid, pidx, keys_sorted.shape[0]), overflow
 
 

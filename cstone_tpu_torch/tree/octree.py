@@ -19,6 +19,7 @@ from ..ops.keys64 import key_const, srl, usort
 from ..ops.primitives import multi_searchsorted
 from ..sfc.keys import (
     common_prefix,
+    decode_placeholder_bit,
     decode_prefix_length,
     digit_weight,
     encode_placeholder_bit,
@@ -28,7 +29,7 @@ from ..sfc.keys import (
     tree_level,
 )
 
-__all__ = ["LinkedOctree", "internal_capacity", "build_linked_octree"]
+__all__ = ["LinkedOctree", "internal_capacity", "build_linked_octree", "node_keys_and_levels"]
 
 
 @dataclass(frozen=True)
@@ -183,3 +184,16 @@ def build_linked_octree(leaves: torch.Tensor, n_leaf, cap_nodes: int | None = No
         n_leaf=n_leaf,
         n_internal=n_internal,
     )
+
+
+def node_keys_and_levels(tree: LinkedOctree):
+    """Plain (start_key, end_key, level) per sorted node slot
+    (octree.py:329-338 of the JAX package); padded slots decode as the root."""
+    dt = tree.prefixes.dtype
+    lmax = max_tree_level(dt)
+    valid = torch.arange(tree.prefixes.shape[0], device=tree.prefixes.device) < tree.n_nodes
+    safe_prefix = torch.where(valid, tree.prefixes, 1)
+    start = decode_placeholder_bit(safe_prefix)
+    level = torch.div(decode_prefix_length(safe_prefix), 3, rounding_mode="floor").to(torch.int32)
+    end = start + node_range(dt, torch.clamp(level, max=lmax))
+    return start, end, level

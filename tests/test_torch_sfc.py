@@ -13,10 +13,13 @@ import torch
 
 from cstone_tpu.sfc import compute_sfc_keys as jax_compute_sfc_keys
 from cstone_tpu.sfc import make_box as jax_make_box
+from cstone_tpu.sfc.encode import decode_sfc as jax_decode_sfc
+from cstone_tpu.sfc.encode import sfc_ibox as jax_sfc_ibox
 from cstone_tpu_torch.ops.bits import count_leading_zeros
 from cstone_tpu_torch.ops.keys64 import flip, from_numpy, srl, to_numpy
 from cstone_tpu_torch.ops.primitives import searchsorted
 from cstone_tpu_torch.sfc import compute_sfc_keys, isfc_key, make_box, sfc3d
+from cstone_tpu_torch.sfc.encode import decode_sfc, sfc_ibox
 from cstone_tpu_torch.sfc.keys import node_range, remove_key, tree_level
 
 PORT = pathlib.Path(__file__).resolve().parent.parent / "cstone_tpu_torch"
@@ -58,6 +61,26 @@ def test_sfc3d_float32_golden(golden):
     np.testing.assert_array_equal(to_numpy(sfc3d(x, y, z, box, np.uint64)), golden["sfc3d_hilbert64"])
 
 
+@pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64])
+@pytest.mark.parametrize("curve", ["hilbert", "morton"])
+def test_decode_and_ibox_match_jax(key_dtype, curve):
+    pos = _coords(2048, "gauss", seed=5)
+    jk = jax_compute_sfc_keys(*(jnp.asarray(pos[:, i]) for i in range(3)),
+                              jax_make_box(-1.0, 1.0), key_dtype, curve)
+    tk = from_numpy(np.asarray(jk))
+    for a, b in zip(decode_sfc(tk, curve), jax_decode_sfc(jk, curve)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b).astype(np.int64))
+    lmax = 10 if key_dtype == np.uint32 else 21
+    level = np.random.RandomState(2).randint(0, lmax + 1, size=2048)
+    # node start keys at each level: the key with its low bits cleared
+    shift = (3 * (lmax - level)).astype(key_dtype)
+    starts = np.asarray(jk) >> shift << shift
+    jb = jax_sfc_ibox(jnp.asarray(starts), jnp.asarray(level.astype(np.int32)), curve)
+    tb = sfc_ibox(from_numpy(starts), torch.from_numpy(level), curve)
+    for f in ("xmin", "xmax", "ymin", "ymax", "zmin", "zmax"):
+        np.testing.assert_array_equal(getattr(tb, f).numpy(), np.asarray(getattr(jb, f)).astype(np.int64))
+
+
 def test_unsigned_helpers_match_numpy():
     rng = np.random.RandomState(3)
     u = rng.randint(0, 2**63, size=512, dtype=np.uint64) * np.uint64(2) + rng.randint(0, 2, 512).astype(np.uint64)
@@ -92,6 +115,8 @@ def test_port_source_imports_no_jax():
 
 
 def test_port_import_loads_no_jax():
-    code = ("import sys, cstone_tpu_torch.models, cstone_tpu_torch.traversal; "
+    code = ("import sys, cstone_tpu_torch.models, cstone_tpu_torch.traversal, cstone_tpu_torch.domain, "
+            "cstone_tpu_torch.ops.neighbors_v1, cstone_tpu_torch.ops.neighbors_v2, "
+            "cstone_tpu_torch.utils.workloads; "
             "assert not [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'cstone_tpu.'))]")
     subprocess.run([sys.executable, "-c", code], cwd=PORT.parent, check=True)
