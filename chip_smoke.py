@@ -6,11 +6,14 @@
 Phases, each printed as it runs; any failure raises and exits non-zero:
   1. card: nvidia-smi name and power limit, torch's device name; refuses
      to run without CUDA (there is no CPU fallback);
-  2. build: compiles the three kernel sources (csrc/stencil.cu,
-     neighbors_v2.cu, neighbors_v1.cu) with nvcc, one process each, all
-     started together;
-  3. kernel vs plain version on the card: B1/B2 at levels 3 and 5, cap 64,
-     periodic and open, uniform and Gaussian; B1/B2 at level 2 with caps
+  2. build: compiles the four kernel sources (csrc/stencil_sym.cu,
+     stencil.cu, neighbors_v2.cu, neighbors_v1.cu) with nvcc, one process
+     each, all started together, and prints ptxas' registers, shared
+     memory and spills per kernel;
+  3. kernel vs plain version on the card: B1/B2 (the half-stencil kernel)
+     at levels 3 and 5, cap 64, periodic and open, uniform and Gaussian,
+     B1 launched twice (the same counts each launch); B1 on a pair across
+     each periodic edge whose d2 differs between its ends; B1/B2 at level 2 with caps
      1088 and 2496 (densest cell above 1024); B3 both legs at levels 2 and
      3 with unequal caps, periodic and open, count and density; B4 against
      impl="xla"; B5 and B6 on the arguments find_neighbors launched them
@@ -23,7 +26,9 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      steps, then 3 steps of the SPH density cell path. Checks overflow,
      mean neighbour count 57.9 +- 0.5, mean density within 2% of
      1 + 1/(pi h^3 n), the cornerstone invariants, and that B1/B2
-     launched; times the kernels against their plain versions;
+     launched; on the last step's inputs times B1/B2 against the
+     one-sided kernel (csrc/stencil.cu, self mask on) in turns (old, new,
+     new, old) and against their plain versions, with each kernel's bound;
   5. path A, the tiered adaptive-h cell list: 1M Gaussian particles (seed
      42) in the periodic unit box, h = adaptive_h(pos, 100 neighbours),
      bucket 64, tiers from choose_tier_levels(max_tiers=3) and tier_caps
@@ -45,7 +50,10 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      last B5 and B6 launches bit-equal to their plain versions on the
      arguments they were given.
 Each path's launch counts are set to 0 just before it is driven and read
-just after. Kernel-vs-plain checks of phases 3, 5 and 6 take the
+just after. Every kernel's bound is the larger of its FP32 operations over
+67 TFLOP/s and its bytes over 3.35 TB/s, counted from that run's inputs;
+no single PyTorch call computes any of these functions, so library_ms is
+null. Kernel-vs-plain checks of phases 3, 5 and 6 take the
 arguments and results of the path's own launches (record_launches). The
 line before last is the kernel summary JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -82,9 +90,10 @@ NB_KW = dict(group_size=256, cand_leaf_cap=320, cand_cap=4096, run_cap=48, front
 NB_TEST_KW = dict(group_size=32, cand_cap=8192, cand_leaf_cap=640)
 
 STENCIL_SRC = "cstone_tpu_torch/csrc/stencil.cu"
+SYM_SRC = "cstone_tpu_torch/csrc/stencil_sym.cu"
 KERNELS = {  # name: (source, TPU kernel it replaces)
-    "stencil_counts": (STENCIL_SRC, "cstone_tpu/ops/pallas_stencil.py:295"),
-    "stencil_density": (STENCIL_SRC, "cstone_tpu/ops/pallas_stencil.py:295"),
+    "stencil_counts": (SYM_SRC, "cstone_tpu/ops/pallas_stencil.py:295"),
+    "stencil_density": (SYM_SRC, "cstone_tpu/ops/pallas_stencil.py:295"),
     "stencil_cross": (STENCIL_SRC, "cstone_tpu/ops/pallas_stencil.py:589"),
     "stencil_counts_asym": (STENCIL_SRC, "cstone_tpu/ops/pallas_stencil.py:149"),
     "pairwise_count_runs": ("cstone_tpu_torch/csrc/neighbors_v2.cu",
@@ -92,6 +101,84 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
     "pairwise_count": ("cstone_tpu_torch/csrc/neighbors_v1.cu",
                        "cstone_tpu/ops/pallas_neighbors.py:31"),
 }
+
+
+# H100 SXM peaks (NVIDIA data sheet, 700 W): FP32 outside the tensor cores
+# and HBM3 bandwidth; a kernel's bound is the larger of flops / FP32_PEAK
+# and bytes / HBM_PEAK for the work of this run's inputs
+FP32_PEAK = 67e12
+HBM_PEAK = 3.35e12
+# FP32 operations the functions need: d2 of a pair = 3 sub + 3 mul + 2 add,
+# once per pair; one compare at each end that tests it (count: d2 < r2;
+# density: the q < 2 cut-off); the run-streaming route adds the
+# floor(d/L + 1/2) image (mul, add, mul, sub per axis). Density, at each end
+# with q < 2 only (W is 0 beyond): sqrt, scale by 1/h, the q < 1 compare,
+# the 1 <= q < 2 branch (2 - q, two muls, 0.25 *) and the sum; the q < 1
+# branch takes two more (six), a per-slot mass one more
+OPS_D2, OPS_CMP, OPS_IMAGE = 8, 1, 12
+OPS_NEAR, OPS_INNER = 8, 2
+
+
+def bound(flops, nbytes):
+    """(bound_ms, bound_by) of work of `flops` FP32 operations moving
+    `nbytes` bytes."""
+    t_ops, t_bytes = flops / FP32_PEAK * 1e3, nbytes / HBM_PEAK * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def stencil_pairs(valid_t, valid_c, periodic, level, same):
+    """Pairs of valid slots one stencil pass must test: unordered pairs of
+    one table (same=True: centre cell i < j plus the 13 forward cells), or
+    every target-candidate pair of two tables over the 27 cells. The cell
+    walk is ops/stencil.py's: its directions, rolls and open-edge test."""
+    from cstone_tpu_torch.ops import stencil
+
+    D = 1 << level
+    nt, nc = (v.sum(dim=1).double().reshape(D, D, D, 1) for v in (valid_t, valid_c))
+
+    def seen(n, d):  # n of cell c + d, 0 beyond an open edge
+        out = stencil._roll3(n, *d)
+        for axis, dd in enumerate(d):
+            if dd != 0 and not periodic[axis]:
+                out = out * (stencil._wrap_over(D, dd, axis, n.device) == 0)
+        return out
+
+    dirs = stencil._directions()
+    if not same:
+        return float(sum((nt * seen(nc, d)).sum() for d in dirs))
+    return float((nt * (nt - 1) / 2).sum() + sum((nt * seen(nt, d)).sum() for d in dirs[14:]))
+
+
+def stencil_bytes(valid, n_planes):
+    """Bytes a stencil function must move for one ELL table: valid read
+    and one 4-byte result written per slot, and the n_planes 4-byte
+    planes read at valid slots only (nothing reads an empty slot)."""
+    return valid.numel() * (1 + 4) + 4 * n_planes * float(valid.sum())
+
+
+def stencil_bound(valid, periodic, level, ends=None, mass=False):
+    """Bound of B1 (ends None) or B2 on one ELL table. B2 takes ends =
+    (ends with q < 2, ends with q < 1): the ordered pairs whose target end
+    adds a spline term, and those on its inner branch."""
+    pairs = stencil_pairs(valid, valid, periodic, level, same=True)
+    ops = pairs * (OPS_D2 + 2 * OPS_CMP)
+    if ends is None:
+        return bound(ops, stencil_bytes(valid, 4))
+    near, inner = ends
+    ops += near * (OPS_NEAR + int(mass)) + inner * OPS_INNER
+    return bound(ops, stencil_bytes(valid, 5 if mass else 4))
+
+
+def density_ends(px, py, pz, ph, valid, L, flags, level):
+    """(ends with q < 2, ends with q < 1) of the density pass, counted by
+    the plain stencil at r2 = (2h)^2 and h^2."""
+    import torch
+
+    from cstone_tpu_torch.ops import stencil
+
+    return tuple(int(stencil.stencil_counts_plain(
+        px, py, pz, torch.where(valid, (f * ph) * (f * ph), -1.0), valid, L, flags, level).sum())
+        for f in (2.0, 1.0))
 
 
 def check(cond, msg):
@@ -226,14 +313,16 @@ def flags_of(box):
 
 
 def compare_stencil(err, planes, box, level, what, asym=False):
-    """B1 (and B4) counts and B2 density, kernel vs plain."""
+    """B1 (and B4) counts and B2 density, kernel vs plain; B1 launched twice
+    (integer atomics: the same counts every launch)."""
     from cstone_tpu_torch.ops import stencil
 
     px, py, pz, ph, r2, pm, valid = planes
     flags, L = flags_of(box), box.lengths
     want = stencil.stencil_counts_plain(px, py, pz, r2, valid, L, flags, level)
-    err.counts("stencil_counts", stencil.stencil_counts(px, py, pz, r2, valid, L, flags, level),
-               want, what)
+    for launch in ("first", "second"):
+        err.counts("stencil_counts", stencil.stencil_counts(px, py, pz, r2, valid, L, flags, level),
+                   want, f"{what}, {launch} launch")
     if asym:  # B4 against impl="xla", the plain roll stencil
         err.counts("stencil_counts_asym",
                    stencil.stencil_counts_asym(px, py, pz, r2, valid, L, flags, level), want, what)
@@ -299,6 +388,7 @@ def kernel_vs_plain_phase(dev, err: Errors):
     from cstone_tpu_torch.ops import stencil
     from cstone_tpu_torch.ops.cuda_lib import record_launches
     from cstone_tpu_torch.traversal import neighbors
+    from cstone_tpu_torch.utils.workloads import wrap_threshold_ell
 
     for level, n in ((3, 2500), (5, 150_000)):  # fullest cell stays below cap 64
         for periodic in (True, False):
@@ -308,6 +398,18 @@ def kernel_vs_plain_phase(dev, err: Errors):
                 what = f"level {level} n {n} periodic {periodic} gauss {gauss}"
                 compare_stencil(err, planes, box, level, what, asym=True)
                 print(f"B1/B2/B4 vs plain: {what}: ok", flush=True)
+
+    # a pair across each periodic edge whose d2 differs between its ends,
+    # both radii between the two values: each end must test its own d2
+    for axis in range(3):
+        planes, valid, level, d2_i, d2_j = wrap_threshold_ell(axis)
+        px, py, pz, r2 = torch.from_numpy(planes).to(dev)
+        valid, L = torch.from_numpy(valid).to(dev), torch.ones(3, device=dev)
+        want = stencil.stencil_counts_plain(px, py, pz, r2, valid, L, (True,) * 3, level)
+        check(int(want.sum()) == 1, "the wrap case should hold one counted end")
+        err.counts("stencil_counts", stencil.stencil_counts(px, py, pz, r2, valid, L, (True,) * 3, level),
+                   want, f"wrap pair on axis {axis}, d2 {d2_i!r} / {d2_j!r}")
+    print("B1 vs plain: pairs across the periodic wrap with end-dependent d2: ok", flush=True)
 
     # caps above 1024: level 2, Gaussian, densest cell 1060 (n 16,500) and 2284 (n 35,000)
     for cap, n in ((1088, 16_500), (2496, 35_000)):
@@ -481,17 +583,44 @@ def main_path_phase(dev, card):
     L = sph.domain.box.lengths
     counts_args = (px, py, pz, r2, valid, L, flags, LEVEL)
     density_args = (px, py, pz, ph, valid, L, flags, LEVEL, pm)
-    times = {
-        name: (cuda_time_ms(lambda: getattr(stencil, name)(*args), 20),
-               cuda_time_ms(lambda: getattr(stencil, name + "_plain")(*args), 3))
-        for name, args in (("stencil_counts", counts_args), ("stencil_density", density_args),
-                           ("stencil_counts_asym", counts_args))
-    }
     shape = f"level {LEVEL}, cap {CAP}, {N} particles (phase-4 inputs)"
-    for k, (ms, plain) in times.items():
-        print(f"{k} at {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms [{card}]", flush=True)
+    ends = density_ends(px, py, pz, ph, valid, L, flags, LEVEL)
+    bounds = {"stencil_counts": stencil_bound(valid, flags, LEVEL),
+              "stencil_density": stencil_bound(valid, flags, LEVEL, ends, pm is not None)}
+    print(f"density pass: {ends[0]} ends with q < 2, {ends[1]} with q < 1", flush=True)
+    bounds["stencil_counts_asym"] = bounds["stencil_counts"]  # the same function as B1
+
+    # the half-stencil kernel against the one-sided kernel (csrc/stencil.cu
+    # with the self mask on) on the same inputs, in turns: old, new, new, old
+    one_sided = {
+        "stencil_counts": lambda: stencil._launch(False, (px, py, pz, r2, valid),
+                                                  (px, py, pz, None, valid), L, flags, LEVEL, True),
+        "stencil_density": lambda: stencil._launch(True, (px, py, pz, ph, valid),
+                                                   (px, py, pz, pm, valid), L, flags, LEVEL, True),
+    }
+    check(torch.equal(one_sided["stencil_counts"](), stencil.stencil_counts(*counts_args)),
+          "the half-stencil and one-sided kernels disagree on the phase-4 counts")
+    times = {}
+    for name, args in (("stencil_counts", counts_args), ("stencil_density", density_args)):
+        new = lambda: getattr(stencil, name)(*args)
+        turns = [cuda_time_ms(fn, 20) for fn in (one_sided[name], new, new, one_sided[name])]
+        old_ms, ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        plain = cuda_time_ms(lambda: getattr(stencil, name + "_plain")(*args), 3)
+        b_ms, b_by = bounds[name]
+        times[name] = (ms, plain)
+        print(f"{name} at {shape}: half-stencil kernel {turns[1]:.4f} / {turns[2]:.4f} ms, "
+              f"one-sided kernel {turns[0]:.4f} / {turns[3]:.4f} ms (turns old, new, new, old), "
+              f"speed-up {old_ms / ms:.3f}x; bound {b_ms:.4f} ms ({b_by}), share of bound: "
+              f"half-stencil {b_ms / ms:.4f}, one-sided {b_ms / old_ms:.4f}; plain {plain:.4f} ms "
+              f"[{card}]", flush=True)
+    ms = cuda_time_ms(lambda: stencil.stencil_counts_asym(*counts_args), 20)
+    plain = cuda_time_ms(lambda: stencil.stencil_counts_asym_plain(*counts_args), 3)
+    times["stencil_counts_asym"] = (ms, plain)
+    print(f"stencil_counts_asym at {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms [{card}]",
+          flush=True)
     launches = {k: launches[k] for k in ("stencil_counts", "stencil_density")}
-    return launches, err, {k: {"ms": ms, "plain_ms": p, "shape": shape} for k, (ms, p) in times.items()}
+    return launches, err, {k: {"ms": ms, "plain_ms": p, "shape": shape, "bound_ms": bounds[k][0],
+                               "bound_by": bounds[k][1]} for k, (ms, p) in times.items()}
 
 
 # ----------------------------------------------------------------------------
@@ -578,7 +707,7 @@ def tiered_phase(dev, card):
     # every B1 and B3 launch of the last step against its plain version on
     # the arguments it was given, timed at those shapes
     err = Errors()
-    cross_ms = cross_plain_ms = 0.0
+    cross_ms = cross_plain_ms = cross_flops = cross_bytes = 0.0
     names = sorted(name for name, _, _ in calls)
     check(names == ["stencil_counts"] * len(levels) + ["stencil_cross"] * len(cross),
           f"path A launched {names}")
@@ -591,8 +720,16 @@ def tiered_phase(dev, card):
             for g, w in zip(got, want):
                 err.counts(name, g, w, shape)
             cross_ms, cross_plain_ms = cross_ms + ms, cross_plain_ms + plain_ms
+            # both tables read once, both results written once; one d2 and
+            # a compare at each end per cross pair
+            cross_bytes += sum(stencil_bytes(t[4], 4) for t in (tgt, cand))
+            cross_flops += ((OPS_D2 + 2 * OPS_CMP)
+                            * stencil_pairs(tgt[4], cand[4], args[3], level, same=False))
         else:
-            shape = f"same tier, level {args[7]}, cap {args[0].shape[1]}"
+            valid, flags, level = args[4], args[6], args[7]
+            b_ms, b_by = stencil_bound(valid, flags, level)
+            shape = (f"same tier, level {level}, cap {args[0].shape[1]}, bound {b_ms:.4f} ms "
+                     f"({b_by})")
             err.counts(name, got, want, shape)
         print(f"{name} on path A, {shape}: bit-equal to plain; kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms (one call) [{card}]", flush=True)
@@ -626,9 +763,13 @@ def tiered_phase(dev, card):
 
     shape = (f"the {len(cross)} cross passes of one path-A step (pairs {sorted(cross)}, levels "
              f"{levels}), {N} Gaussian particles; times summed over the passes, both legs each")
+    b_ms, b_by = bound(cross_flops, cross_bytes)
+    print(f"stencil_cross, {shape}: kernel {cross_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+          f"share of bound {b_ms / cross_ms:.4f} [{card}]", flush=True)
     return ({"stencil_cross": launches["stencil_cross"],
              "stencil_counts_asym": asym_launches["stencil_counts_asym"]}, err,
-            {"stencil_cross": {"ms": cross_ms, "plain_ms": cross_plain_ms, "shape": shape}})
+            {"stencil_cross": {"ms": cross_ms, "plain_ms": cross_plain_ms, "shape": shape,
+                               "bound_ms": b_ms, "bound_by": b_by}})
 
 
 # ----------------------------------------------------------------------------
@@ -716,27 +857,50 @@ def find_neighbors_phase(dev, card):
         check(name == want_name, f"{want_name} expected, {name} launched")
         want, plain_ms = timed_ms(lambda: plain_of(name)(*args))
         err.counts(name, got, want, "phase-6 inputs")
+        b_ms, b_by = pairwise_bound(name, args)
         times[name] = {"ms": cuda_time_ms(lambda: getattr(mod, name)(*args), 10),
                        "plain_ms": plain_ms,
                        "shape": f"{N} particles, {args[0].shape[0]} groups of {args[0].shape[1]} "
-                                f"(phase-6 inputs; plain: one call)"}
+                                f"(phase-6 inputs; plain: one call)",
+                       "bound_ms": b_ms, "bound_by": b_by}
         print(f"{name} at {times[name]['shape']}: kernel {times[name]['ms']:.4f} ms, "
-              f"plain {times[name]['plain_ms']:.4f} ms [{card}]", flush=True)
+              f"plain {times[name]['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), share of bound "
+              f"{b_ms / times[name]['ms']:.4f} [{card}]", flush=True)
     return {k: launches[k] for k in ("pairwise_count_runs", "pairwise_count")}, err, times
 
 
+def pairwise_bound(name, args):
+    """Bound of B5 (pairwise_count_runs) or B6 (pairwise_count) on the
+    arguments a path launched it with: every target with r2 >= 0 against
+    its group's candidates, each input read once, one count written per
+    target."""
+    targets, r2 = args[0], args[1]
+    live = (r2 >= 0).sum(dim=1).double()
+    head = targets.numel() * 4 + r2.numel() * 4 + r2.numel() * 4  # targets, r2, the counts
+    if name == "pairwise_count_runs":
+        run_start, run_len, xs = args[2], args[3], args[4]
+        pairs = float((live * run_len.sum(dim=1).double()).sum())
+        nbytes = head + run_start.numel() * run_start.element_size() * 2 + 3 * xs.numel() * 4
+        return bound(pairs * (OPS_IMAGE + OPS_D2 + OPS_CMP), nbytes)
+    cand, cidx = args[2], args[3]
+    pairs = float((live * (cidx >= 0).sum(dim=1).double()).sum())
+    nbytes = head + cand.numel() * 4 + cidx.numel() * cidx.element_size()
+    return bound(pairs * (OPS_D2 + OPS_CMP), nbytes)
+
+
 def build_all():
-    """Build the three kernel libraries in parallel, one nvcc each."""
+    """Build the four kernel libraries in parallel, one nvcc each."""
     from cstone_tpu_torch.ops import neighbors_v1, neighbors_v2, stencil
 
-    libs = (stencil.LIBRARY, neighbors_v2.LIBRARY, neighbors_v1.LIBRARY)
+    libs = (stencil.SYM_LIBRARY, stencil.LIBRARY, neighbors_v2.LIBRARY, neighbors_v1.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda lib: lib.load(), libs))
-    print(f"3 kernel libraries built and loaded in {time.perf_counter() - t0:.3f} s", flush=True)
-    for lib in libs:
+    print(f"{len(libs)} kernel libraries built and loaded in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    for lib in libs:  # ptxas -v: registers, shared memory, spills per kernel
         for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if any(k in line for k in ("registers", "spill", "Compiling entry")) or "error" in line.lower():
                 print(f"  {lib.source.name}: " + line.strip(), flush=True)
 
 
@@ -779,7 +943,7 @@ def main():
     print(f"total time {time.perf_counter() - t_start:.3f} s [{card}]", flush=True)
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
-         "max_abs_err": err.max[name], **timing[name]}
+         "max_abs_err": err.max[name], "library_ms": None, **timing[name]}
         for name, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

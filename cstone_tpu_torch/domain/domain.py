@@ -33,6 +33,7 @@ from ..sfc.keys import remove_key
 from ..tree.csarray import CsArray, compute_node_counts, rebalance_decision, rebalance_tree, root_tree
 from ..traversal.neighbors import OctreeNsView, make_ns_view
 from ..tree.octree import LinkedOctree, build_linked_octree
+from ..utils.device import resolve_device
 from .decomposition import SfcAssignment, limit_boundary_shifts, make_sfc_assignment
 from .layout import compute_node_layout
 
@@ -116,7 +117,9 @@ class Domain:
     bucket_size is the global tree's leaf bucket; bucket_size_focus must
     equal it (0 means equal). tree_capacity bounds the global tree's leaf
     count, focus_capacity (0 = tree_capacity) must equal it. `device` is
-    where init_state puts the state; sync follows its inputs.
+    where init_state puts the state: the card unless the caller names
+    another (device="cpu"); without a card the default raises
+    RuntimeError. sync follows its inputs.
     """
 
     def __init__(
@@ -152,9 +155,7 @@ class Domain:
         self.key_dtype = np_key_dtype(key_dtype)
         self.curve = curve
         self.halo_search_ext = float(halo_search_ext)
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Domain(device='cuda') needs a CUDA device; none is available")
+        self.device = resolve_device(device)
 
     # ------------------------------------------------------------------
     def init_state(self, box: Optional[Box] = None, boundaries=(0, 0, 0)) -> DomainState:

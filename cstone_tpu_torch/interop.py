@@ -5,7 +5,8 @@ package's state of the same name, `from_numpy_tree` a LinkedOctree and
 `from_numpy_ns_view` an OctreeNsView. They read the JAX object's fields with
 `numpy.asarray` only, so this module imports no jax: arrays convert by
 value (keys keep their bits, see ops/keys64.py), index arrays become
-int64, boolean flags become host bools.
+int64, boolean flags become host bools. The tensors go to `device`: the
+card unless the caller names another (device="cpu").
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from .sfc.box import Box
 from .tree.csarray import CsArray
 from .traversal.neighbors import OctreeNsView
 from .tree.octree import LinkedOctree
+from .utils.device import resolve_device
 
 __all__ = ["from_numpy_state", "from_numpy_tree", "from_numpy_ns_view"]
 
@@ -41,6 +43,7 @@ def _counts(a, device) -> torch.Tensor:
 
 def from_numpy_tree(lk, device=None) -> LinkedOctree:
     """Port LinkedOctree from the JAX package's LinkedOctree."""
+    device = resolve_device(device)
     return LinkedOctree(
         prefixes=_t(lk.prefixes, device),
         child_offsets=_t(lk.child_offsets, device),
@@ -56,6 +59,7 @@ def from_numpy_tree(lk, device=None) -> LinkedOctree:
 
 def from_numpy_ns_view(view, device=None) -> OctreeNsView:
     """Port OctreeNsView from the JAX package's OctreeNsView."""
+    device = resolve_device(device)
     return OctreeNsView(
         tree=from_numpy_tree(view.tree, device), layout=_t(view.layout, device),
         centers=_t(view.centers, device), sizes=_t(view.sizes, device),
@@ -81,6 +85,7 @@ def _domain_state(s, device) -> DomainState:
 def from_numpy_state(state, device=None):
     """Port DomainState (or SphState, when `state` has a `domain` field)
     from the JAX package's state of the same name."""
+    device = resolve_device(device)
     if hasattr(state, "domain"):
         return SphState(
             domain=_domain_state(state.domain, device),

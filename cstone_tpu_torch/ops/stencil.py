@@ -1,12 +1,12 @@
-"""27-point cell-list stencil: the hand-written CUDA kernel, its plain
+"""27-point cell-list stencil: the hand-written CUDA kernels, their plain
 PyTorch versions, and the wrappers that choose between them.
 
 Replaces the Pallas TPU kernels of `cstone_tpu/ops/pallas_stencil.py`:
 
-  B1  `_kernel_sym` op="count" (:295)     -> stencil_counts
-  B2  `_kernel_sym` op="density" (:295)   -> stencil_density
-  B3  `_kernel_sym` cross=True (:589)     -> stencil_cross
-  B4  `_kernel` (:149), impl="pallas_asym" -> stencil_counts_asym
+  B1  `_kernel_sym` op="count" (:295)     -> stencil_counts      (csrc/stencil_sym.cu)
+  B2  `_kernel_sym` op="density" (:295)   -> stencil_density     (csrc/stencil_sym.cu)
+  B3  `_kernel_sym` cross=True (:589)     -> stencil_cross       (csrc/stencil.cu)
+  B4  `_kernel` (:149), impl="pallas_asym" -> stencil_counts_asym (csrc/stencil.cu)
 
 Contract (celllist.stencil_neighbor_counts, reference
 findneighbors.hpp:96-165): inputs are (n_cells, cap) ELL planes in
@@ -22,20 +22,23 @@ end; B4 counts the self pair and subtracts it afterwards, the JAX
 one-sided kernel's contract. Invalid slots give 0.
 
 All versions compute d2 as ((dx*dx + dy*dy) + dz*dz) in float32 with
-every operation rounded on its own (the kernel is compiled with
---fmad=false), from the target's end, so counts agree bit for bit; density
-sums differ only in summation order.
+every operation rounded on its own (the kernels are compiled with
+--fmad=false), from the end that tests it, so counts agree bit for bit;
+density sums differ only in summation order.
 
-Kernel design (csrc/stencil.cu): a fixed block of up to 256 threads per
-(cell, chunk of target slots), one thread per target slot, each candidate
-cell staged through shared memory in chunks of the block size; no atomics,
-deterministic results, any cap. On the H100 it is bound by FP32
-instruction issue on the distance tests, about 11 flops per pair. It
-evaluates each unordered pair twice (the TPU kernel's symmetric
-half-stencil once); restoring the symmetry with atomics is a later perf
-step (ROADMAP.md Queue 2).
+Kernel designs. csrc/stencil_sym.cu (B1/B2): a symmetric half stencil,
+one warp per (cell, 32 target slots), each unordered pair tested once
+and credited to both ends (candidate ends by warp ballot or shuffle sum,
+then global atomics into a zeroed output); candidate chunks packed as
+float4 and staged with double-buffered cp.async. Counts are
+deterministic; density sums are float atomics, so their last bits vary
+from run to run. csrc/stencil.cu (B3/B4): one-sided, a block of up to 256
+threads per (cell, chunk of target slots), one thread per target slot,
+no atomics, deterministic; it tests each pair from both ends.
+stencil_sym_plain mirrors the half-stencil decomposition in PyTorch for
+the tests.
 
-CPU tensors take the plain version; CUDA tensors always launch the kernel,
+CPU tensors take the plain version; CUDA tensors always launch a kernel,
 and a build or launch failure raises.
 """
 
@@ -57,6 +60,7 @@ __all__ = [
     "stencil_density_plain",
     "stencil_cross_plain",
     "stencil_counts_asym_plain",
+    "stencil_sym_plain",
     "load_library",
     "launches",
     "reset_launches",
@@ -69,7 +73,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.cstone_stencil.restype = i
 
 
+def _bind_sym(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.cstone_stencil_sym.argtypes = [i, p, p, p, p, p, p, i, p, i, i, i, i, p, p, p]
+    lib.cstone_stencil_sym.restype = i
+
+
 LIBRARY = CudaLibrary("stencil.cu", _bind)
+SYM_LIBRARY = CudaLibrary("stencil_sym.cu", _bind_sym)
 
 # launch counters: one per wrapper, incremented where the kernel launches
 stencil_counts_launches = 0
@@ -79,7 +90,9 @@ stencil_asym_launches = 0
 
 
 def load_library() -> ctypes.CDLL:
-    """Build csrc/stencil.cu (once per source version) and load it."""
+    """Build csrc/stencil.cu and csrc/stencil_sym.cu (once per source
+    version) and load them; returns the first."""
+    SYM_LIBRARY.load()
     return LIBRARY.load()
 
 
@@ -128,12 +141,15 @@ def _check(planes, valid, lengths, periodic, level) -> Tuple[int, int]:
 
 
 def _launch(density: bool, tgt, cand, lengths, periodic, level, self_mask: bool) -> torch.Tensor:
-    """One kernel launch. tgt = (x, y, z, r2 or h, valid); cand = (x, y,
-    z, mass or None, valid)."""
+    """One launch of csrc/stencil.cu. tgt = (x, y, z, r2 or h, valid); cand
+    = (x, y, z, mass or None, valid). The wrappers (B3, B4) pass
+    self_mask=False; self_mask=True is the one-sided B1/B2 route that
+    csrc/stencil_sym.cu replaced, kept only as the yardstick chip_smoke.py
+    times the half-stencil kernel against."""
     tx, ty, tz, tw, tvalid = tgt
     cx, cy, cz, cw, cvalid = cand
     dev = tx.device
-    lib = load_library()
+    lib = LIBRARY.load()
     lengths = lengths.to(device=dev, dtype=torch.float32).contiguous()
     out = torch.empty(tx.shape, dtype=torch.float32 if density else torch.int32, device=dev)
     err = lib.cstone_stencil(
@@ -142,6 +158,23 @@ def _launch(density: bool, tgt, cand, lengths, periodic, level, self_mask: bool)
         int(periodic[0]), int(periodic[1]), int(periodic[2]), int(level), int(self_mask),
         ptr(out), stream_of(tx))
     check_launch(err, "stencil")
+    return out
+
+
+def _launch_sym(density: bool, px, py, pz, w, mass, valid, lengths, periodic,
+                level) -> torch.Tensor:
+    """One launch of the half-stencil kernel (B1 with w = r2, B2 with
+    w = h and mass or None) into a zeroed output."""
+    dev = px.device
+    lib = SYM_LIBRARY.load()
+    lengths = lengths.to(device=dev, dtype=torch.float32).contiguous()
+    out = torch.zeros(px.shape, dtype=torch.float32 if density else torch.int32, device=dev)
+    row_counts = torch.empty(px.shape[0], dtype=torch.int32, device=dev)
+    err = lib.cstone_stencil_sym(
+        int(density), ptr(px), ptr(py), ptr(pz), ptr(w), ptr(mass), ptr(valid), px.shape[1],
+        ptr(lengths), int(periodic[0]), int(periodic[1]), int(periodic[2]), int(level),
+        ptr(row_counts), ptr(out), stream_of(px))
+    check_launch(err, "stencil_sym")
     return out
 
 
@@ -155,8 +188,7 @@ def stencil_counts(px, py, pz, r2, valid, lengths, periodic, level) -> torch.Ten
     _check((px, py, pz, r2), valid, lengths, periodic, level)
     if px.device.type == "cpu":
         return stencil_counts_plain(px, py, pz, r2, valid, lengths, periodic, level)
-    out = _launch(False, (px, py, pz, r2, valid), (px, py, pz, None, valid),
-                  lengths, periodic, level, self_mask=True)
+    out = _launch_sym(False, px, py, pz, r2, None, valid, lengths, periodic, level)
     stencil_counts_launches += 1
     note_launch("stencil_counts", (px, py, pz, r2, valid, lengths, periodic, level), out)
     return out
@@ -164,14 +196,15 @@ def stencil_counts(px, py, pz, r2, valid, lengths, periodic, level) -> torch.Ten
 
 def stencil_density(px, py, pz, h, valid, lengths, periodic, level, mass=None) -> torch.Tensor:
     """(n_cells, cap) float32 sums S_i = sum_{j != i} m_j W(r_ij / h_i) (B2);
-    m_j = 1 when `mass` is None."""
+    m_j = 1 when `mass` is None. On the card the terms are summed with
+    float atomics, so the last bits of a sum vary from run to run (within
+    rtol 1e-5 of stencil_density_plain)."""
     global stencil_density_launches
     planes = (px, py, pz, h) + (() if mass is None else (mass,))
     _check(planes, valid, lengths, periodic, level)
     if px.device.type == "cpu":
         return stencil_density_plain(px, py, pz, h, valid, lengths, periodic, level, mass)
-    out = _launch(True, (px, py, pz, h, valid), (px, py, pz, mass, valid),
-                  lengths, periodic, level, self_mask=True)
+    out = _launch_sym(True, px, py, pz, h, mass, valid, lengths, periodic, level)
     stencil_density_launches += 1
     note_launch("stencil_density", (px, py, pz, h, valid, lengths, periodic, level, mass), out)
     return out
@@ -239,19 +272,24 @@ def _roll3(a: torch.Tensor, dx: int, dy: int, dz: int) -> torch.Tensor:
     return torch.roll(a, shifts=(-dx, -dy, -dz), dims=(0, 1, 2))
 
 
+def _wrap_over(D: int, d: int, axis: int, dev) -> torch.Tensor:
+    """-1, 0 or +1 per target cell along `axis`: how direction d crosses
+    the grid's edge, shaped to broadcast over (D, D, D, cap)."""
+    over = torch.div(torch.arange(D, device=dev) + d, D, rounding_mode="floor")
+    shape = [1, 1, 1, 1]
+    shape[axis] = D
+    return over.reshape(shape)
+
+
 def _neighbour_planes(ex, ey, ez, ev, lengths, periodic, D, dx, dy, dz):
     """Candidate planes of direction (dx, dy, dz): rolled coordinates with
     the +-L wrap shift on periodic dims, validity masked on open dims."""
     cx, cy, cz, cv = (_roll3(a, dx, dy, dz) for a in (ex, ey, ez, ev))
-    idx = torch.arange(D, device=ex.device)
     coords = [cx, cy, cz]
     for axis, d in enumerate((dx, dy, dz)):
         if d == 0:
             continue
-        over = torch.div(idx + d, D, rounding_mode="floor")  # -1, 0 or +1 at the edges
-        shape = [1, 1, 1, 1]
-        shape[axis] = D
-        over = over.reshape(shape)
+        over = _wrap_over(D, d, axis, ex.device)
         if periodic[axis]:
             coords[axis] = coords[axis] + over.to(torch.float32) * lengths[axis]
         else:
@@ -359,3 +397,69 @@ def stencil_counts_asym_plain(px, py, pz, r2, valid, lengths, periodic, level) -
     counts = _stencil_plain(False, (px, py, pz, r2, valid), (px, py, pz, None, valid),
                             lengths, periodic, level, self_mask=False)
     return counts - (valid & (r2 > 0)).to(torch.int32)
+
+
+def stencil_sym_plain(density: bool, px, py, pz, w, valid, lengths, periodic, level,
+                      mass=None) -> torch.Tensor:
+    """Plain mirror of the half-stencil kernel's decomposition
+    (csrc/stencil_sym.cu): B1 with density=False and w = r2, B2 with
+    density=True, w = h and `mass` (None: unit mass). (n_cells, cap) int32
+    counts or float32 sums, equal to stencil_counts_plain bit for bit and to
+    stencil_density_plain up to summation order.
+
+    The centre cell's slot pairs j > i and the 13 forward directions each
+    give every unordered pair once; each end is credited with its own test
+    (its own r2, or its own 1/h and the other end's mass), and the
+    candidate-end sums are rolled back onto the candidate's cell. On a
+    direction that crosses a periodic edge the candidate end takes d2 from
+    its own end, x_j - (x_i - o L); elsewhere that equals the target end's
+    d2 bit for bit. Dense (cells, cap, cap) pair tensors: small grids only.
+    """
+    D = 1 << int(level)
+    full_cap = px.shape[1]
+    cap = max(1, int(valid.sum(dim=1).max()))
+    shp = (D, D, D, cap)
+    x, y, z, w, v = (a[:, :cap].reshape(shp) for a in (px, py, pz, w, valid))
+    m = None if mass is None else mass[:, :cap].reshape(shp)
+    dev = px.device
+    lengths = lengths.to(device=dev, dtype=torch.float32)
+    key = 1.0 / w if density else w  # the per-end value each test reads: 1/h or r2
+
+    def term(d2, own_key, other_m):
+        if not density:
+            return (d2 < own_key).to(torch.int32)
+        t = cubic_spline_w(torch.sqrt(d2) * own_key)
+        return t if other_m is None else t * other_m
+
+    dtype = torch.float32 if density else torch.int32
+
+    def sums(tgt, cand, ok):  # target-end sums over j, candidate-end sums over i
+        zero = torch.zeros((), dtype=tgt.dtype, device=dev)
+        return (torch.where(ok, tgt, zero).sum(dim=-1, dtype=dtype),
+                torch.where(ok, cand, zero).sum(dim=-2, dtype=dtype))
+
+    total = torch.zeros(shp, dtype=dtype, device=dev)
+    # centre cell: slot pairs j > i, one d2 serves both ends
+    d2 = _pair_d2(x, y, z, x, y, z)
+    ok = v[..., :, None] & v[..., None, :] & torch.ones(cap, cap, dtype=torch.bool, device=dev).triu(1)
+    mi = None if m is None else m[..., :, None]
+    mj = None if m is None else m[..., None, :]
+    at_i, at_j = sums(term(d2, key[..., :, None], mj), term(d2, key[..., None, :], mi), ok)
+    total += at_i + at_j
+    for dx, dy, dz in _directions()[14:]:  # the 13 forward directions
+        cx, cy, cz, cv = _neighbour_planes(x, y, z, v, lengths, periodic, D, dx, dy, dz)
+        rx, ry, rz, rkey = (_roll3(a, dx, dy, dz) for a in (x, y, z, key))
+        rm = None if m is None else _roll3(m, dx, dy, dz)
+        # the target as the candidate end sees it: shifted by -o L on wrapped axes
+        seen = [x, y, z]
+        for axis, d in enumerate((dx, dy, dz)):
+            if d != 0 and periodic[axis]:
+                over = _wrap_over(D, d, axis, dev)
+                seen[axis] = seen[axis] + (-over).to(torch.float32) * lengths[axis]
+        d2i = _pair_d2(x, y, z, cx, cy, cz)
+        d2j = _pair_d2(rx, ry, rz, *seen).transpose(-1, -2)
+        ok = v[..., :, None] & cv[..., None, :]
+        at_i, at_j = sums(term(d2i, key[..., :, None], None if rm is None else rm[..., None, :]),
+                         term(d2j, rkey[..., None, :], mi), ok)
+        total += at_i + torch.roll(at_j, shifts=(dx, dy, dz), dims=(0, 1, 2))
+    return torch.nn.functional.pad(total.reshape(D ** 3, cap), (0, full_cap - cap))

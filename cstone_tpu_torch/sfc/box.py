@@ -11,6 +11,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from .keys import max_tree_level
 
 __all__ = [
@@ -54,12 +55,14 @@ def make_box(
     xmin, xmax, ymin=None, ymax=None, zmin=None, zmax=None,
     boundaries=(OPEN, OPEN, OPEN), dtype=torch.float32, device=None,
 ) -> Box:
-    """Cubic if only (xmin, xmax) given."""
+    """Cubic if only (xmin, xmax) given. The limits live on `device`: the
+    card unless the caller names another (device="cpu")."""
     if ymin is None:
         ymin, ymax, zmin, zmax = xmin, xmax, xmin, xmax
     if isinstance(boundaries, int):
         boundaries = (boundaries, boundaries, boundaries)
-    limits = torch.tensor([xmin, xmax, ymin, ymax, zmin, zmax], dtype=dtype, device=device)
+    limits = torch.tensor([xmin, xmax, ymin, ymax, zmin, zmax], dtype=dtype,
+                          device=resolve_device(device))
     return Box(limits=limits, boundaries=tuple(int(b) for b in boundaries))
 
 

@@ -34,6 +34,7 @@ from ..ops.stencil import (
 from ..sfc.box import PERIODIC, Box
 from ..sfc.encode import HILBERT
 from ..sfc.keys import max_tree_level
+from ..utils.device import resolve_device
 
 __all__ = [
     "INVALID_COORD",
@@ -119,6 +120,9 @@ def _rowmajor_cell_perm_np(level: int, curve: str) -> Tuple[np.ndarray, np.ndarr
 
 
 def rowmajor_cell_perm(level: int, curve: str = HILBERT, device=None):
+    """(perm, inv_perm) as int64 tensors on `device` (the card unless the
+    caller names another)."""
+    device = resolve_device(device)
     perm, inv = _rowmajor_cell_perm_np(int(level), curve)
     return torch.from_numpy(perm).to(device), torch.from_numpy(inv).to(device)
 

@@ -26,6 +26,7 @@ import torch
 from ..ops.keys64 import torch_key_dtype
 from ..ops.primitives import searchsorted
 from ..sfc.keys import log8_ceil, max_tree_level, node_range, octal_digit, tree_level
+from ..utils.device import resolve_device
 
 __all__ = [
     "MAX_UINT32",
@@ -63,7 +64,9 @@ class CsArray:
 
 
 def root_tree(key_dtype, capacity: int, n_particles=0, device=None) -> CsArray:
-    """The single-root tree {0, nodeRange(0)} (csarray.hpp:458)."""
+    """The single-root tree {0, nodeRange(0)} (csarray.hpp:458), on
+    `device` (the card unless the caller names another)."""
+    device = resolve_device(device)
     kdt = torch_key_dtype(key_dtype)
     keys = torch.full((capacity + 1,), node_range(key_dtype, 0), dtype=kdt, device=device)
     keys[0] = 0
@@ -75,7 +78,9 @@ def root_tree(key_dtype, capacity: int, n_particles=0, device=None) -> CsArray:
 
 def uniform_tree(key_dtype, level: int, capacity: int, device=None) -> CsArray:
     """The complete uniform tree at `level` (8^level leaves): the warm start
-    of compute_octree."""
+    of compute_octree; on `device` (the card unless the caller names
+    another)."""
+    device = resolve_device(device)
     n_nodes = 1 << (3 * level)
     if n_nodes > capacity:
         raise ValueError("uniform level exceeds capacity")

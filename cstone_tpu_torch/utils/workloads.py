@@ -5,13 +5,15 @@ RandomGaussianCoordinates, test/coord_samples/plummer.hpp:21-80).
 
 `adaptive_h` assigns SPH-style smoothing lengths h_i ~ rho_i^{-1/3},
 calibrated so the MEAN neighbor count (d < 2h) hits a target: the input of
-the tiered cell list (traversal/tiered.py). Host-side numpy, set-up code."""
+the tiered cell list (traversal/tiered.py). `wrap_threshold_ell` builds
+the stencil input on which a half stencil that reused one end's d2 across
+a periodic wrap would miscount. Host-side numpy, set-up code."""
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["gaussian_coords", "plummer_coords", "adaptive_h", "grid_density"]
+__all__ = ["gaussian_coords", "plummer_coords", "adaptive_h", "grid_density", "wrap_threshold_ell"]
 
 
 def gaussian_coords(n: int, limits, seed: int = 42, dtype=np.float32) -> np.ndarray:
@@ -83,3 +85,37 @@ def adaptive_h(
     lims = np.asarray(limits, np.float64).reshape(3, 2)
     h_min = (lims[:, 1] - lims[:, 0]).min() * h_min_factor
     return np.maximum(h, h_min).astype(np.float32)
+
+
+def wrap_threshold_ell(axis: int, seed: int = 0):
+    """Level-2 ELL input of the periodic unit box holding one pair across
+    the periodic edge of `axis` whose float32 d2 differs between its ends,
+    ((x_i - (x_j + L))^2 against (x_j - (x_i - L))^2): particle i in the
+    last cell along `axis`, j in the first, both in cell 2 of the other
+    axes. Both radii are set to the larger d2, so exactly one end counts
+    the other, and a pass that reused one end's d2 at the other end gets
+    that end wrong.
+
+    Returns (planes (4, 64, 4) float32: x, y, z, r2 in row-major cell
+    order; valid (64, 4) bool; level 2; d2 from i's end; d2 from j's end).
+    """
+    f = np.float32
+    rng = np.random.RandomState(seed)
+    while True:
+        xi, xj = f(1.0) - f(rng.uniform(0.001, 0.1)), f(rng.uniform(0.001, 0.1))
+        di, dj = xi - (xj + f(1.0)), xj - (xi - f(1.0))
+        if di * di != dj * dj:
+            break
+    level, D, cap = 2, 4, 4
+    planes = np.zeros((4, D ** 3, cap), dtype=np.float32)
+    valid = np.zeros((D ** 3, cap), dtype=bool)
+    for coord, idx in ((xi, D - 1), (xj, 0)):
+        ijk = [2, 2, 2]
+        ijk[axis] = idx
+        cell = (ijk[0] * D + ijk[1]) * D + ijk[2]
+        pos = [f(0.6)] * 3
+        pos[axis] = coord
+        planes[:3, cell, 0] = pos
+        planes[3, cell, 0] = max(di * di, dj * dj)
+        valid[cell, 0] = True
+    return planes, valid, level, di * di, dj * dj

@@ -41,7 +41,7 @@ def _setup(n, periodic, seed, gauss=False, hval=None):
         pos = rng.uniform(-1, 1, size=(n, 3)).astype(np.float32)
     h = (np.full(n, hval) if hval else rng.uniform(0.04, 0.12, size=n)).astype(np.float32)
     b = PERIODIC if periodic else 0
-    jbox, tbox = jax_make_box(-1.0, 1.0, boundaries=b), make_box(-1.0, 1.0, boundaries=b)
+    jbox, tbox = jax_make_box(-1.0, 1.0, boundaries=b), make_box(-1.0, 1.0, boundaries=b, device="cpu")
     keys = np.asarray(jax_compute_sfc_keys(*(jnp.asarray(pos[:, i]) for i in range(3)), jbox, jnp.uint64))
     order = np.argsort(keys, kind="stable")
     x, y, z, h, keys = pos[order, 0], pos[order, 1], pos[order, 2], h[order], keys[order]
@@ -98,7 +98,7 @@ def test_pack_and_plain_stencil_match_jax(n_valid):
     level = 3
     cap = _cap(keys, level, 8)
     jperm, _ = jcl.rowmajor_cell_perm(level)
-    tperm, _ = tcl.rowmajor_cell_perm(level)
+    tperm, _ = tcl.rowmajor_cell_perm(level, device="cpu")
     np.testing.assert_array_equal(tperm.numpy(), np.asarray(jperm))
     jpacked, jvalid, jpidx, jovf = jcl.ell_pack_gather(
         jnp.asarray(keys), jperm, tuple(jnp.asarray(a) for a in (x, y, z, h)), cap, level,
@@ -149,7 +149,7 @@ def test_kernel_wrappers_take_plain_path_on_cpu(periodic):
     level = 3
     cap = _cap(arrs[4], level, 8)
     k, *cols = _port(arrs)
-    perm, _ = tcl.rowmajor_cell_perm(level)
+    perm, _ = tcl.rowmajor_cell_perm(level, device="cpu")
     (px, py, pz, ph), valid, _, _ = tcl.ell_pack(k, perm, tuple(cols), cap, level)
     r2 = torch.where(valid, (2.0 * ph) * (2.0 * ph), -1.0)
     flags = (periodic,) * 3
@@ -173,7 +173,7 @@ def test_asym_wrapper_subtracts_only_counted_self_pairs():
     arrs, jbox, tbox = _setup(600, True, seed=4, hval=0.1)
     level = 3
     k, *cols = _port(arrs)
-    perm, _ = tcl.rowmajor_cell_perm(level)
+    perm, _ = tcl.rowmajor_cell_perm(level, device="cpu")
     (px, py, pz, ph), valid, _, _ = tcl.ell_pack(k, perm, tuple(cols), _cap(arrs[4], level, 8), level)
     r2 = torch.where(valid, (2.0 * ph) * (2.0 * ph), -1.0)
     r2[valid.nonzero()[:5].unbind(1)] = 0.0
@@ -199,7 +199,7 @@ def test_cross_plain_matches_jax_cross_kernel(periodic, op):
         sub = tuple(a[sel] for a in arrs)
         cap = _cap(sub[4], level, 64) + 64 * int(not sel[0] == in_b[0])
         k, *cols = _port(sub)
-        perm, _ = tcl.rowmajor_cell_perm(level)
+        perm, _ = tcl.rowmajor_cell_perm(level, device="cpu")
         (px, py, pz, ph), valid, _, _ = tcl.ell_pack(k, perm, tuple(cols), cap, level)
         w = torch.where(valid, (2.0 * ph) * (2.0 * ph), -1.0) if op == "count" else ph
         ells.append((px, py, pz, w, valid))
@@ -229,7 +229,7 @@ def test_plain_stencil_cell_runs_give_the_same_result(op):
     level = 3
     k, *cols = _port(arrs)
     m = torch.from_numpy(np.random.RandomState(2).uniform(0.5, 1.5, 1500).astype(np.float32))
-    perm, _ = tcl.rowmajor_cell_perm(level)
+    perm, _ = tcl.rowmajor_cell_perm(level, device="cpu")
     (px, py, pz, ph, pm), valid, _, _ = tcl.ell_pack(k, perm, tuple(cols) + (m,),
                                                      _cap(arrs[4], level, 8), level)
     density = op == "density"

@@ -17,6 +17,7 @@ from cstone_tpu.sfc import make_box as jax_make_box
 from cstone_tpu_torch.domain import CAP_NAMES, Domain, sync_with_retry
 from cstone_tpu_torch.ops.keys64 import to_numpy
 from cstone_tpu_torch.sfc import make_box
+from cstone_tpu_torch.tree import root_tree
 
 N = 3000
 CAP_TREE = 1024
@@ -61,8 +62,8 @@ def _domains(periodic):
     b = PERIODIC if periodic else 0
     jd = JaxDomain(rank=0, n_ranks=1, bucket_size=16, key_dtype=jnp.uint64,
                    tree_capacity=CAP_TREE)
-    td = Domain(bucket_size=16, tree_capacity=CAP_TREE)
-    jbox, tbox = jax_make_box(-1.0, 1.0, boundaries=b), make_box(-1.0, 1.0, boundaries=b)
+    td = Domain(bucket_size=16, tree_capacity=CAP_TREE, device="cpu")
+    jbox, tbox = jax_make_box(-1.0, 1.0, boundaries=b), make_box(-1.0, 1.0, boundaries=b, device="cpu")
     js = jd.init_state(box=jbox if periodic else None, boundaries=jbox.boundaries)
     ts = td.init_state(box=tbox if periodic else None, boundaries=tbox.boundaries)
     return jd, td, js, ts
@@ -97,7 +98,7 @@ def test_sync_continues_from_jax_state():
     pos, h, drift = _particles(9)
     jd, td, js, _ = _domains(True)
     js, _ = _sync(jd, js, pos, h, port=False)
-    ts = cstone_tpu_torch.from_numpy_state(js)
+    ts = cstone_tpu_torch.from_numpy_state(js, device="cpu")
     assert ts.first_call is False
     pos = _advance(pos, drift, True)
     js, jr = _sync(jd, js, pos, h, port=False)
@@ -111,8 +112,9 @@ def test_sync_reports_tree_overflow_and_retry_grows_it():
 
     def run(caps):
         calls.append(dict(caps))
-        d = Domain(bucket_size=8, tree_capacity=caps["tree"])
-        s = d.init_state(box=make_box(-1.0, 1.0, boundaries=PERIODIC), boundaries=(1, 1, 1))
+        d = Domain(bucket_size=8, tree_capacity=caps["tree"], device="cpu")
+        s = d.init_state(box=make_box(-1.0, 1.0, boundaries=PERIODIC, device="cpu"),
+                         boundaries=(1, 1, 1))
         _, res = _sync(d, s, pos, h, port=True)
         return res
 
@@ -120,6 +122,24 @@ def test_sync_reports_tree_overflow_and_retry_grows_it():
     assert int(res.overflow) == 0
     assert len(calls) >= 2 and caps["tree"] > 64
     assert len(res.overflow_detail) == len(CAP_NAMES)
+
+
+def test_default_device_is_the_card():
+    # Domain and the port's other constructors run on the card unless the
+    # caller asks for the CPU; without a card the default raises
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for make in (lambda **kw: Domain(bucket_size=16, tree_capacity=256, **kw),
+                 lambda **kw: make_box(-1.0, 1.0, **kw),
+                 lambda **kw: root_tree(np.uint64, 64, **kw)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+        make(device="cpu")
+    d = Domain(bucket_size=16, tree_capacity=256, device="cpu")
+    pos, h, _ = _particles(3, n=500)
+    state, res = _sync(d, d.init_state(box=make_box(-1.0, 1.0, boundaries=PERIODIC, device="cpu"),
+                                       boundaries=(1, 1, 1)), pos, h, port=True)
+    assert int(res.overflow) == 0 and state.global_tree.keys.device.type == "cpu"
 
 
 def test_cuda_device_without_cuda_raises():

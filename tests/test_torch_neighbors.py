@@ -33,8 +33,8 @@ def _views(n, periodic, gauss=False, seed=1234, bucket=16, curve="hilbert", **se
     linked = build_linked_octree(tree.keys, tree.n_nodes)
     layout = leaf_layout_from_counts(tree.counts)
     jview = jax_make_ns_view(linked, layout, box, curve)
-    tbox = make_box(-1.0, 1.0, boundaries=int(periodic))
-    tview = from_numpy_ns_view(jview)
+    tbox = make_box(-1.0, 1.0, boundaries=int(periodic), device="cpu")
+    tview = from_numpy_ns_view(jview, device="cpu")
     cols = (x, y, z, h)
     return cols, box, jview, tbox, tview, linked
 
@@ -104,8 +104,8 @@ def test_domain_ns_view_counts_vs_bruteforce(periodic):
     n = 1200
     pos = rng.uniform(0.0, 1.0, size=(n, 3)).astype(np.float32)
     h = rng.uniform(0.02, 0.05, size=n).astype(np.float32)
-    box = make_box(0.0, 1.0, boundaries=int(periodic))
-    domain = Domain(bucket_size=16, tree_capacity=1024)
+    box = make_box(0.0, 1.0, boundaries=int(periodic), device="cpu")
+    domain = Domain(bucket_size=16, tree_capacity=1024, device="cpu")
     state = domain.init_state(box=box, boundaries=(int(periodic),) * 3)
     x, y, z, hh = _port((pos[:, 0], pos[:, 1], pos[:, 2], h))
     state, res = domain.sync(state, x, y, z, hh)

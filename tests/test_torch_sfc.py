@@ -42,7 +42,7 @@ def test_keys_match_jax(key_dtype, curve, dist):
     jk = jax_compute_sfc_keys(*(jnp.asarray(pos[:, i]) for i in range(3)),
                               jax_make_box(-1.0, 1.0), key_dtype, curve)
     tk = compute_sfc_keys(*(torch.from_numpy(pos[:, i].copy()) for i in range(3)),
-                          make_box(-1.0, 1.0), key_dtype, curve)
+                          make_box(-1.0, 1.0, device="cpu"), key_dtype, curve)
     np.testing.assert_array_equal(to_numpy(tk), np.asarray(jk))
 
 
@@ -56,7 +56,7 @@ def test_integer_keys_golden(golden, suffix, key_dtype, curve):
 
 def test_sfc3d_float32_golden(golden):
     x, y, z = (torch.from_numpy(golden[f"coords_{c}_bits"].view(np.float32).copy()) for c in "xyz")
-    box = make_box(-1.0, 1.0)
+    box = make_box(-1.0, 1.0, device="cpu")
     np.testing.assert_array_equal(to_numpy(sfc3d(x, y, z, box, np.uint32)), golden["sfc3d_hilbert32"])
     np.testing.assert_array_equal(to_numpy(sfc3d(x, y, z, box, np.uint64)), golden["sfc3d_hilbert64"])
 

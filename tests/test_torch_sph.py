@@ -31,8 +31,8 @@ def _initial(periodic):
     m = rng.uniform(0.5, 1.5, size=N).astype(np.float32)
     b = PERIODIC if periodic else 0
     jd = JaxDomain(rank=0, n_ranks=1, bucket_size=16, key_dtype=jnp.uint64, tree_capacity=1024)
-    td = Domain(bucket_size=16, tree_capacity=1024)
-    jbox, tbox = jax_make_box(-1.0, 1.0, boundaries=b), make_box(-1.0, 1.0, boundaries=b)
+    td = Domain(bucket_size=16, tree_capacity=1024, device="cpu")
+    jbox, tbox = jax_make_box(-1.0, 1.0, boundaries=b), make_box(-1.0, 1.0, boundaries=b, device="cpu")
     jstate = JaxSphState(
         domain=jd.init_state(box=jbox if periodic else None, boundaries=jbox.boundaries),
         x=jnp.asarray(pos[:, 0]), y=jnp.asarray(pos[:, 1]), z=jnp.asarray(pos[:, 2]),
@@ -71,7 +71,7 @@ def test_sph_step_matches_jax(periodic):
 def test_sph_step_continues_from_jax_state():
     jd, td, js, _ = _initial(True)
     js, _, _ = jax_sph_density_step(jd, js, cell_level=LEVEL, cell_cap=CAP, interpret=True)
-    ts = cstone_tpu_torch.from_numpy_state(js)
+    ts = cstone_tpu_torch.from_numpy_state(js, device="cpu")
     jout = jax_sph_density_step(jd, js, cell_level=LEVEL, cell_cap=CAP, interpret=True)
     tout = sph_density_step(td, ts, cell_level=LEVEL, cell_cap=CAP)
     _assert_step_same(jout, tout)

@@ -1,11 +1,13 @@
-"""The hand-written CUDA stencil kernel (cstone_tpu_torch/csrc/stencil.cu)
-against its plain PyTorch versions, on the card: B1/B2 (self-excluded
-counts and density), B1 at caps above 1024, B3 (cross pass between two
-disjoint sets, both legs) and B4 (the one-sided route, against
-impl="xla"), and every B1 and B3 launch of the tiered cell list on
-the arguments it made them with. Skips without an NVIDIA GPU and nvcc; chip_smoke.py phase 3
-runs the same checks. Tolerance: counts bit-equal, density sums within
-rtol 1e-5 (summation order differs)."""
+"""The hand-written CUDA stencil kernels against their plain PyTorch
+versions, on the card: B1/B2 (self-excluded counts and density, the
+half-stencil kernel csrc/stencil_sym.cu) on uniform and Gaussian grids, at
+caps above 1024, across a periodic wrap whose d2 differs between the two
+ends, and launch to launch; B3 (cross pass between two disjoint sets, both
+legs) and B4 (the one-sided route, against impl="xla") of csrc/stencil.cu;
+and every B1 and B3 launch of the tiered cell list on the arguments it made
+them with. Skips without an NVIDIA GPU and nvcc; chip_smoke.py phase 3 runs
+the same checks. Tolerance: counts bit-equal, density sums within rtol
+1e-5 (summation order differs, and varies from launch to launch)."""
 
 import numpy as np
 import pytest
@@ -16,7 +18,7 @@ from cstone_tpu_torch.ops.cuda_lib import nvcc_path, record_launches
 from cstone_tpu_torch.ops.keys64 import srl, usort
 from cstone_tpu_torch.sfc import compute_sfc_keys, make_box
 from cstone_tpu_torch.traversal import celllist, tiered
-from cstone_tpu_torch.utils.workloads import adaptive_h, gaussian_coords
+from cstone_tpu_torch.utils.workloads import adaptive_h, gaussian_coords, wrap_threshold_ell
 
 pytestmark = pytest.mark.cuda
 
@@ -100,6 +102,36 @@ def test_large_cap_matches_plain(cuda_device, cap, n, periodic):
     want = stencil.stencil_density_plain(px, py, pz, ph, valid, box.lengths, flags, 2, pm)
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_wrap_pair_matches_plain(cuda_device, axis):
+    # the candidate end must test its own d2 across the wrap (a reused d2
+    # flips this pair's count at one end)
+    planes, valid, level, _, _ = wrap_threshold_ell(axis)
+    px, py, pz, r2 = torch.from_numpy(planes).to(cuda_device)
+    valid = torch.from_numpy(valid).to(cuda_device)
+    L = torch.ones(3, device=cuda_device)
+    flags = (True,) * 3
+    got = stencil.stencil_counts(px, py, pz, r2, valid, L, flags, level)
+    want = stencil.stencil_counts_plain(px, py, pz, r2, valid, L, flags, level)
+    torch.cuda.synchronize()
+    assert int(want.sum()) == 1
+    assert torch.equal(got, want)
+
+
+def test_launches_repeat(cuda_device):
+    # integer atomics: counts identical launch to launch; float atomics:
+    # density sums agree within rtol 1e-5
+    px, py, pz, ph, pm, valid, box = _ell(cuda_device, 5, True, True, seed=3)
+    flags = (True,) * 3
+    r2 = _r2(ph, valid)
+    a, b = (stencil.stencil_counts(px, py, pz, r2, valid, box.lengths, flags, 5) for _ in range(2))
+    da, db = (stencil.stencil_density(px, py, pz, ph, valid, box.lengths, flags, 5, pm)
+              for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    np.testing.assert_allclose(da.cpu().numpy(), db.cpu().numpy(), rtol=1e-5, atol=1e-6)
 
 
 def cross_tables(dev, level, periodic, op, n=6000, seed=3):

@@ -38,7 +38,7 @@ def _clustered(n, periodic, seed=5, h_min=0.04):
     order = np.argsort(keys, kind="stable")
     keys = keys[order]
     assert (keys[1:] >= keys[:-1]).all(), "the tiered path takes SFC-sorted keys"
-    return pos[order], h[order], keys, jbox, make_box(-1.0, 1.0, boundaries=b)
+    return pos[order], h[order], keys, jbox, make_box(-1.0, 1.0, boundaries=b, device="cpu")
 
 
 def _cols(pos, h):
@@ -111,7 +111,7 @@ def test_tier_levels_caps_and_index_match_jax(case):
         elif case == "wide":
             h = h * np.float32(3.0)
         lims, side = (0.0, 1.0), 1.0
-        jbox, tbox = jax_make_box(0.0, 1.0, boundaries=1), make_box(0.0, 1.0, boundaries=1)
+        jbox, tbox = jax_make_box(0.0, 1.0, boundaries=1), make_box(0.0, 1.0, boundaries=1, device="cpu")
     levels = jt.choose_tier_levels(h, side, max_tiers=3)
     assert tt.choose_tier_levels(h, side, max_tiers=3) == levels
     for slack in (1.15, 1.3):
@@ -155,7 +155,7 @@ def test_cell_override_pack_matches_jax(tier):
     jperm, _ = jcl.rowmajor_cell_perm(level)
     jp, jv, jpi, jo = jcl.ell_pack_gather(jnp.asarray(ks), jperm, tuple(jnp.asarray(a) for a in cols),
                                           cap, level, cell_override=jnp.asarray(cell))
-    tperm, _ = tcl.rowmajor_cell_perm(level)
+    tperm, _ = tcl.rowmajor_cell_perm(level, device="cpu")
     tp, tv, tpi, to = tcl.ell_pack(from_numpy(ks), tperm, tuple(torch.from_numpy(a) for a in cols),
                                    cap, level, cell_override=torch.from_numpy(cell))
     assert bool(jo) == bool(to) is False

@@ -22,7 +22,7 @@ from tests.test_torch_neighbors import _views
 @pytest.mark.parametrize("gauss", [False, True])
 def test_node_geometry_matches_jax(curve, gauss):
     cols, box, jview, tbox, tview, linked = _views(2000, True, gauss, seed=5, curve=curve)
-    c, s = geometry.node_geometry(from_numpy_tree(linked), tbox, curve)
+    c, s = geometry.node_geometry(from_numpy_tree(linked, device="cpu"), tbox, curve)
     np.testing.assert_array_equal(c.numpy(), np.asarray(jview.centers))
     np.testing.assert_array_equal(s.numpy(), np.asarray(jview.sizes))
 

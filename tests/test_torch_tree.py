@@ -66,7 +66,7 @@ def test_update_octree_from_root_matches_jax(key_dtype):
     # the sign bit of the storage, which must still read as nonzero
     keys = _sorted_keys(3000, "gauss", key_dtype, seed=8)
     jt = jax_root_tree(key_dtype, 1024, n_particles=3000)
-    tt = root_tree(key_dtype, 1024, n_particles=3000)
+    tt = root_tree(key_dtype, 1024, n_particles=3000, device="cpu")
     jops, jconv = jax_rebalance_decision(jt.keys, jt.counts, jt.n_nodes, 16)
     tops, tconv = rebalance_decision(tt.keys, tt.counts, tt.n_nodes, 16)
     _assert_same(jops, tops)
