@@ -14,12 +14,16 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      at levels 3 and 5, cap 64, periodic and open, uniform and Gaussian,
      B1 launched twice (the same counts each launch); B1 on a pair across
      each periodic edge whose d2 differs between its ends; B1/B2 at level 2 with caps
-     1088 and 2496 (densest cell above 1024); B3 both legs at levels 2 and
-     3 with unequal caps, periodic and open, count and density; B4 against
-     impl="xla"; B5 and B6 on the arguments find_neighbors launched them
-     with after Domain.sync of 16K uniform and Gaussian particles with the
-     test_neighbors.py group settings. Counts bit-equal, density within
-     rtol 1e-5;
+     1088 and 2496 (densest cell above 1024); B3 (one symmetric launch for
+     both sides) at levels 2 and 3 with unequal caps, its lanes on each
+     table in turn, one lane-table cap above 1024, periodic and open,
+     count and density with masses, and on the wrap pair split across the
+     two tables; B4 against impl="xla"; B5 and B6 on the arguments
+     find_neighbors launched them with after Domain.sync of 16K uniform
+     and Gaussian particles with the test_neighbors.py group settings; B5
+     on tiles that need no image, one hoisted shift or the per-pair image,
+     with pairs at exactly +-L/2 (mixed_image_runs).
+     Counts bit-equal, density within rtol 1e-5;
   4. main path of the cell list at full size: 1M uniform particles in the
      periodic unit box, h = 0.012, bucket 64, cell level 5, ELL cap 64.
      Domain.sync + cell_list_neighbor_counts for 1 warm and 10 drift
@@ -33,9 +37,11 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      42) in the periodic unit box, h = adaptive_h(pos, 100 neighbours),
      bucket 64, tiers from choose_tier_levels(max_tiers=3) and tier_caps
      (slack 1.3). Domain.sync + cell_list_neighbor_counts_tiered for 1
-     warm and 3 drift steps; checks overflow 0, at least 2 tiers, B1 and
-     B3 launched, every B1 and B3 launch of the last step bit-equal to its
-     plain version on the arguments it was given, and the tiered counts
+     warm and 3 drift steps; checks overflow 0, at least 2 tiers, B1
+     launched and B3 launched once per tier pair and step, every B1 and B3
+     launch of the last step bit-equal to its plain version on the
+     arguments it was given and timed on them in device time (B3 also in turns old, new, new, old against the two one-sided
+     launches of csrc/stencil.cu it replaced), and the tiered counts
      bit-equal to one single-level pass at levels[0] by impl="pallas"
      (B1) and by impl="pallas_asym" (B4, its launches counted around that
      pass alone), the latter also bit-equal to its plain version;
@@ -54,7 +60,11 @@ just after. Every kernel's bound is the larger of its FP32 operations over
 67 TFLOP/s and its bytes over 3.35 TB/s, counted from that run's inputs;
 no single PyTorch call computes any of these functions, so library_ms is
 null. Kernel-vs-plain checks of phases 3, 5 and 6 take the
-arguments and results of the path's own launches (record_launches). The
+arguments and results of the path's own launches (record_launches).
+Kernel times: CUDA events around back-to-back launches (phases 4 and 6);
+in phase 5, whose short launches the host could not keep the card busy
+with, device time: CUDA events around launches queued behind a spin
+kernel (device_time_ms); plain times: one call. The
 line before last is the kernel summary JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -94,7 +104,7 @@ SYM_SRC = "cstone_tpu_torch/csrc/stencil_sym.cu"
 KERNELS = {  # name: (source, TPU kernel it replaces)
     "stencil_counts": (SYM_SRC, "cstone_tpu/ops/pallas_stencil.py:295"),
     "stencil_density": (SYM_SRC, "cstone_tpu/ops/pallas_stencil.py:295"),
-    "stencil_cross": (STENCIL_SRC, "cstone_tpu/ops/pallas_stencil.py:589"),
+    "stencil_cross": (SYM_SRC, "cstone_tpu/ops/pallas_stencil.py:589"),
     "stencil_counts_asym": (STENCIL_SRC, "cstone_tpu/ops/pallas_stencil.py:149"),
     "pairwise_count_runs": ("cstone_tpu_torch/csrc/neighbors_v2.cu",
                             "cstone_tpu/ops/pallas_neighbors_v2.py:103"),
@@ -110,12 +120,13 @@ FP32_PEAK = 67e12
 HBM_PEAK = 3.35e12
 # FP32 operations the functions need: d2 of a pair = 3 sub + 3 mul + 2 add,
 # once per pair; one compare at each end that tests it (count: d2 < r2;
-# density: the q < 2 cut-off); the run-streaming route adds the
-# floor(d/L + 1/2) image (mul, add, mul, sub per axis). Density, at each end
-# with q < 2 only (W is 0 beyond): sqrt, scale by 1/h, the q < 1 compare,
-# the 1 <= q < 2 branch (2 - q, two muls, 0.25 *) and the sum; the q < 1
+# density: the q < 2 cut-off). The run-streaming route's floor(d/L + 1/2)
+# image is charged nothing: it is constant over nearly every tile, so B5
+# takes it once per tile and axis, not per test. Density, at each end with
+# q < 2 only (W is 0 beyond): sqrt, scale by 1/h, the q < 1 compare, the
+# 1 <= q < 2 branch (2 - q, two muls, 0.25 *) and the sum; the q < 1
 # branch takes two more (six), a per-slot mass one more
-OPS_D2, OPS_CMP, OPS_IMAGE = 8, 1, 12
+OPS_D2, OPS_CMP = 8, 1
 OPS_NEAR, OPS_INNER = 8, 2
 
 
@@ -209,6 +220,33 @@ def cuda_time_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_time_ms(fn, reps):
+    """Device time of one call of fn, without the host's issue time: reps
+    calls after a warm-up are queued behind a spin kernel on the stream, and
+    CUDA events time them on the card from the first call's start to the
+    last one's end. CUDA events around calls issued to an idle card measure
+    the host's issue time instead where that is the longer, as it is for the
+    short launches of path A. The spin is lengthened until it outlasts the
+    issue of all reps calls, which the start event, still pending when the
+    last call is issued, proves. fn must not wait for the card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for spin in (1 << 24, 1 << 26, 1 << 28, 1 << 30):  # clock cycles, 8.5 ms up at 1.98 GHz
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+    raise RuntimeError("chip_smoke check failed: the calls' issue outlasted every spin kernel")
 
 
 def timed_ms(fn):
@@ -333,16 +371,17 @@ def compare_stencil(err, planes, box, level, what, asym=False):
                     what)
 
 
-def cross_tables(dev, level, periodic, op, n, seed=3):
+def cross_tables(dev, level, periodic, op, n, frac_b=0.3, seed=3):
     """Two disjoint sets of one Gaussian sample packed at `level` with
-    unequal caps (A: 70%, cap + 64; B: 30%): [((x, y, z, w, valid), mass)]
-    with w = r2 (count) or h (density)."""
+    unequal caps (B: a share frac_b of the particles; A: the rest, cap +
+    64): [((x, y, z, w, valid), mass)] with w = r2 (count) or h
+    (density)."""
     import torch
 
     from cstone_tpu_torch.ops.keys64 import srl
 
     keys, cols, box = sorted_sample(dev, n, periodic, True, seed, level)
-    in_b = torch.from_numpy(np.random.RandomState(seed).uniform(size=keys.shape[0]) < 0.3).to(dev)
+    in_b = torch.from_numpy(np.random.RandomState(seed).uniform(size=keys.shape[0]) < frac_b).to(dev)
     tables = []
     for sel, extra in ((~in_b, 64), (in_b, 0)):
         occ = int(torch.bincount(srl(keys[sel], 3 * (21 - level))).max())
@@ -385,10 +424,14 @@ def kernel_vs_plain_phase(dev, err: Errors):
     """Phase 3: every kernel against its plain version on small grids."""
     import torch
 
-    from cstone_tpu_torch.ops import stencil
+    from cstone_tpu_torch.ops import neighbors_v2, stencil
     from cstone_tpu_torch.ops.cuda_lib import record_launches
     from cstone_tpu_torch.traversal import neighbors
-    from cstone_tpu_torch.utils.workloads import wrap_threshold_ell
+    from cstone_tpu_torch.utils.workloads import (
+        mixed_image_runs,
+        wrap_threshold_cross,
+        wrap_threshold_ell,
+    )
 
     for level, n in ((3, 2500), (5, 150_000)):  # fullest cell stays below cap 64
         for periodic in (True, False):
@@ -422,20 +465,44 @@ def kernel_vs_plain_phase(dev, err: Errors):
             compare_stencil(err, planes, box, 2, what)
             print(f"B1/B2 vs plain: {what}: ok", flush=True)
 
-    # B3: both legs, unequal caps
-    for level, n in ((2, 20_000), (3, 50_000)):
+    # B3: one launch for both sides, unequal caps; the kernel puts its lanes
+    # on the 70% share, A in the first cases, B in the last, whose densest
+    # cell exceeds 1024
+    lanes_seen = set()
+    for level, n, frac_b in ((2, 20_000, 0.3), (3, 50_000, 0.3), (2, 35_000, 0.7)):
         for periodic in (True, False):
             for op in ("count", "density"):
-                ((ta, ma), (tb, mb)), box = cross_tables(dev, level, periodic, op, n)
+                ((ta, ma), (tb, mb)), box = cross_tables(dev, level, periodic, op, n, frac_b)
+                fullest = int(tb[4].sum(dim=1).max())
+                check(frac_b < 0.5 or fullest > 1024, f"densest B cell {fullest} should exceed 1024")
+                lanes = "B" if stencil.cross_lanes_on_b(ta[4], tb[4]) else "A"
+                check(lanes == ("B" if frac_b > 0.5 else "A"), f"lanes on {lanes}")
+                lanes_seen.add(lanes)
                 flags = flags_of(box)
                 mass = dict(mass_t=ma, mass_c=mb) if op == "density" else {}
                 got = stencil.stencil_cross(ta, tb, box.lengths, flags, level, op=op, **mass)
                 want = stencil.stencil_cross_plain(ta, tb, box.lengths, flags, level, op=op, **mass)
-                what = (f"level {level} n {n} caps {ta[0].shape[1]}/{tb[0].shape[1]} "
-                        f"periodic {periodic} {op}")
+                what = (f"level {level} n {n} caps {ta[0].shape[1]}/{tb[0].shape[1]} densest B "
+                        f"cell {fullest} periodic {periodic} {op}, lanes on {lanes}")
                 for g, w in zip(got, want):
                     (err.counts if op == "count" else err.density)("stencil_cross", g, w, what)
-                print(f"B3 vs plain, both legs: {what}: ok", flush=True)
+                print(f"B3 vs plain: {what}: ok", flush=True)
+
+    check(lanes_seen == {"A", "B"}, f"B3 should run with its lanes on each table: {lanes_seen}")
+
+    # the wrap pair split across the two tables, each end in turn the lane end
+    for axis in range(3):
+        for swap in (False, True):
+            planes, valid_a, valid_b, level, d2_a, d2_b = wrap_threshold_cross(axis, swap)
+            px, py, pz, r2 = torch.from_numpy(planes).to(dev)
+            ta, tb = ((px, py, pz, r2, torch.from_numpy(v).to(dev)) for v in (valid_a, valid_b))
+            L, flags = torch.ones(3, device=dev), (True,) * 3
+            want = stencil.stencil_cross_plain(ta, tb, L, flags, level)
+            check(sum(int(w.sum()) for w in want) == 1, "the cross wrap case should hold one counted end")
+            what = f"cross wrap pair on axis {axis}, d2 {d2_a!r} (A) / {d2_b!r} (B)"
+            for g, w in zip(stencil.stencil_cross(ta, tb, L, flags, level), want):
+                err.counts("stencil_cross", g, w, what)
+    print("B3 vs plain: the wrap pair split across the tables, each end in turn: ok", flush=True)
 
     # B5 and B6 on the arguments find_neighbors launched them with after Domain.sync
     for periodic in (True, False):
@@ -450,6 +517,15 @@ def kernel_vs_plain_phase(dev, err: Errors):
             for name, args, got in calls:
                 err.counts(name, got, plain_of(name)(*args), what)
             print(f"B5/B6 vs plain: {what}: ok", flush=True)
+
+    # B5 where tiles need no image, one hoisted shift or the per-pair image
+    for G, n_groups in ((32, 48), (256, 12)):
+        for periodic in (True, False):
+            args = tuple(torch.from_numpy(a).to(dev) for a in mixed_image_runs(G, n_groups, periodic))
+            want = neighbors_v2.pairwise_count_runs_plain(*args)
+            what = f"mixed images, {n_groups} groups of {G}, periodic {periodic}"
+            err.counts("pairwise_count_runs", neighbors_v2.pairwise_count_runs(*args), want, what)
+            print(f"B5 vs plain: {what}: ok", flush=True)
     torch.cuda.synchronize()
 
 
@@ -627,6 +703,18 @@ def main_path_phase(dev, card):
 # phase 5: path A, tiered adaptive-h cell list
 # ----------------------------------------------------------------------------
 
+def two_legs(tgt, cand, lengths, periodic, level, op="count", mass_t=None, mass_c=None):
+    """stencil_cross by the route the symmetric kernel replaced: the
+    one-sided kernel (csrc/stencil.cu) launched from each end."""
+    from cstone_tpu_torch.ops import stencil
+
+    density = op == "density"
+    ax, ay, az, _, av = tgt
+    bx, by, bz, _, bv = cand
+    return (stencil._launch(density, tgt, (bx, by, bz, mass_c, bv), lengths, periodic, level, False),
+            stencil._launch(density, cand, (ax, ay, az, mass_t, av), lengths, periodic, level, False))
+
+
 def tiered_phase(dev, card):
     import torch
 
@@ -682,12 +770,14 @@ def tiered_phase(dev, card):
     (domain, state, counts, res), _ = sync_with_retry(warm, {"tree": tree_capacity(N)})
     torch.cuda.synchronize()
     print(f"warm step (cold tree build): {1e3 * (time.perf_counter() - t0):.3f} ms [{card}]", flush=True)
-    step_ms, sgn = [], 1.0
+    step_ms, cross_per_step, sgn = [], [], 1.0
     for _ in range(TIERED_STEPS):
         xyz = drifted(xyz, drift, sgn)
+        before = all_launches()["stencil_cross"]
         with record_launches() as calls:  # the last step's launches are kept
             (state, counts, res), ms = timed_ms(lambda: step(domain, state, *xyz))
         step_ms.append(ms)
+        cross_per_step.append(all_launches()["stencil_cross"] - before)
         check(int(res.overflow) == 0, f"tiered overflow {res.overflow_detail.tolist()}")
         sgn = -sgn
     torch.cuda.synchronize()
@@ -695,6 +785,9 @@ def tiered_phase(dev, card):
     print(f"phase 5 launches (path A): {json.dumps(launches)}", flush=True)
     for k in ("stencil_counts", "stencil_cross"):
         check(launches[k] > 0, f"{k} was not launched on path A: {launches}")
+    print(f"stencil_cross launches in each drift step: {cross_per_step} ({len(cross)} tier pairs)",
+          flush=True)
+    check(cross_per_step == [len(cross)] * TIERED_STEPS, "B3 should launch once per tier pair and step")
     n_owned = int(res.end_index)
     check(n_owned == N, f"owned {n_owned} != {N}")
     mean_nb = float(counts[:N].double().mean())
@@ -705,33 +798,45 @@ def tiered_phase(dev, card):
     check(mean_nb > 0 and bool((counts[:N] >= 0).all()), "tiered counts must be non-negative")
 
     # every B1 and B3 launch of the last step against its plain version on
-    # the arguments it was given, timed at those shapes
+    # the arguments it was given, timed at those shapes; B3 also in turns
+    # against the two one-sided launches of csrc/stencil.cu it replaced
     err = Errors()
-    cross_ms = cross_plain_ms = cross_flops = cross_bytes = 0.0
+    cross_ms = cross_old_ms = cross_plain_ms = cross_flops = cross_bytes = 0.0
     names = sorted(name for name, _, _ in calls)
     check(names == ["stencil_counts"] * len(levels) + ["stencil_cross"] * len(cross),
           f"path A launched {names}")
     for name, args, got in calls:
         want, plain_ms = timed_ms(lambda: plain_of(name)(*args))
-        ms = cuda_time_ms(lambda: getattr(stencil, name)(*args), 5)
+        new = lambda: getattr(stencil, name)(*args)
         if name == "stencil_cross":
             tgt, cand, level = args[0], args[1], args[4]
-            shape = f"cross pass, both legs, level {level}, caps {tgt[0].shape[1]}/{cand[0].shape[1]}"
+            lanes = "B" if stencil.cross_lanes_on_b(tgt[4], cand[4]) else "A"
+            shape = (f"cross pass, level {level}, caps {tgt[0].shape[1]}/{cand[0].shape[1]}, "
+                     f"lanes on {lanes}")
             for g, w in zip(got, want):
                 err.counts(name, g, w, shape)
-            cross_ms, cross_plain_ms = cross_ms + ms, cross_plain_ms + plain_ms
+            old = lambda: two_legs(*args)
+            check(all(torch.equal(g, w) for g, w in zip(old(), want)), "the two-leg route disagrees")
+            turns = [device_time_ms(fn, 5) for fn in (old, new, new, old)]
+            ms, old_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+            pairs = stencil_pairs(tgt[4], cand[4], args[3], level, same=False)
+            shape += (f", {pairs:.6g} pairs; two one-sided legs {turns[0]:.4f} / {turns[3]:.4f} "
+                      f"ms, symmetric {turns[1]:.4f} / {turns[2]:.4f} ms (turns old, new, new, "
+                      f"old), {ms * 1e9 / max(pairs, 1.0):.4g} ps per pair")
+            cross_ms, cross_old_ms = cross_ms + ms, cross_old_ms + old_ms
+            cross_plain_ms += plain_ms
             # both tables read once, both results written once; one d2 and
             # a compare at each end per cross pair
             cross_bytes += sum(stencil_bytes(t[4], 4) for t in (tgt, cand))
-            cross_flops += ((OPS_D2 + 2 * OPS_CMP)
-                            * stencil_pairs(tgt[4], cand[4], args[3], level, same=False))
+            cross_flops += (OPS_D2 + 2 * OPS_CMP) * pairs
         else:
+            ms = device_time_ms(new, 5)
             valid, flags, level = args[4], args[6], args[7]
             b_ms, b_by = stencil_bound(valid, flags, level)
             shape = (f"same tier, level {level}, cap {args[0].shape[1]}, bound {b_ms:.4f} ms "
                      f"({b_by})")
             err.counts(name, got, want, shape)
-        print(f"{name} on path A, {shape}: bit-equal to plain; kernel {ms:.4f} ms, "
+        print(f"{name} on path A, {shape}: bit-equal to plain; kernel {ms:.4f} ms (device time), "
               f"plain {plain_ms:.4f} ms (one call) [{card}]", flush=True)
 
     # the single-level passes at levels[0] on the same sync, through the
@@ -762,10 +867,12 @@ def tiered_phase(dev, card):
           f"plain; plain {plain_ms:.4f} ms (one call) [{card}]", flush=True)
 
     shape = (f"the {len(cross)} cross passes of one path-A step (pairs {sorted(cross)}, levels "
-             f"{levels}), {N} Gaussian particles; times summed over the passes, both legs each")
+             f"{levels}), {N} Gaussian particles; times summed over the passes")
     b_ms, b_by = bound(cross_flops, cross_bytes)
-    print(f"stencil_cross, {shape}: kernel {cross_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-          f"share of bound {b_ms / cross_ms:.4f} [{card}]", flush=True)
+    print(f"stencil_cross, {shape}: symmetric kernel {cross_ms:.4f} ms, two one-sided legs "
+          f"{cross_old_ms:.4f} ms (speed-up {cross_old_ms / cross_ms:.3f}x), bound {b_ms:.4f} ms "
+          f"({b_by}), share of bound {b_ms / cross_ms:.4f} (two legs {b_ms / cross_old_ms:.4f}) "
+          f"[{card}]", flush=True)
     return ({"stencil_cross": launches["stencil_cross"],
              "stencil_counts_asym": asym_launches["stencil_counts_asym"]}, err,
             {"stencil_cross": {"ms": cross_ms, "plain_ms": cross_plain_ms, "shape": shape,
@@ -858,10 +965,9 @@ def find_neighbors_phase(dev, card):
         want, plain_ms = timed_ms(lambda: plain_of(name)(*args))
         err.counts(name, got, want, "phase-6 inputs")
         b_ms, b_by = pairwise_bound(name, args)
+        shape = f"{N} particles, {args[0].shape[0]} groups of {args[0].shape[1]}"
         times[name] = {"ms": cuda_time_ms(lambda: getattr(mod, name)(*args), 10),
-                       "plain_ms": plain_ms,
-                       "shape": f"{N} particles, {args[0].shape[0]} groups of {args[0].shape[1]} "
-                                f"(phase-6 inputs; plain: one call)",
+                       "plain_ms": plain_ms, "shape": shape + " (phase-6 inputs; plain: one call)",
                        "bound_ms": b_ms, "bound_by": b_by}
         print(f"{name} at {times[name]['shape']}: kernel {times[name]['ms']:.4f} ms, "
               f"plain {times[name]['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), share of bound "
@@ -872,8 +978,8 @@ def find_neighbors_phase(dev, card):
 def pairwise_bound(name, args):
     """Bound of B5 (pairwise_count_runs) or B6 (pairwise_count) on the
     arguments a path launched it with: every target with r2 >= 0 against
-    its group's candidates, each input read once, one count written per
-    target."""
+    its group's candidates, d2 and a compare per test, each input read
+    once, one count written per target."""
     targets, r2 = args[0], args[1]
     live = (r2 >= 0).sum(dim=1).double()
     head = targets.numel() * 4 + r2.numel() * 4 + r2.numel() * 4  # targets, r2, the counts
@@ -881,7 +987,7 @@ def pairwise_bound(name, args):
         run_start, run_len, xs = args[2], args[3], args[4]
         pairs = float((live * run_len.sum(dim=1).double()).sum())
         nbytes = head + run_start.numel() * run_start.element_size() * 2 + 3 * xs.numel() * 4
-        return bound(pairs * (OPS_IMAGE + OPS_D2 + OPS_CMP), nbytes)
+        return bound(pairs * (OPS_D2 + OPS_CMP), nbytes)
     cand, cidx = args[2], args[3]
     pairs = float((live * (cidx >= 0).sum(dim=1).double()).sum())
     nbytes = head + cand.numel() * 4 + cidx.numel() * cidx.element_size()

@@ -1,14 +1,13 @@
-// 27-point cell-list stencil for NVIDIA Hopper (sm_90a).
+// 27-point one-sided cell-list stencil for NVIDIA Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernels of cstone_tpu/ops/pallas_stencil.py:
-//   B1/B2  :295 _kernel_sym, op="count" / op="density" (self excluded);
-//   B3     :295 _kernel_sym with cross=True (_call_sym_cross :589): targets
-//          and candidates are two disjoint particle sets on one grid;
-//   B4     :149 _kernel (the one-sided stencil that counts the self pair;
-//          the wrapper subtracts it).
-// One kernel serves all four: target and candidate ELL tables are passed
+// Replaces the Pallas TPU kernel cstone_tpu/ops/pallas_stencil.py:149
+// _kernel (B4, the one-sided stencil that counts the self pair; the
+// wrapper subtracts it). Target and candidate ELL tables are passed
 // separately (they may have different caps), and `self_mask` turns the
-// centre-cell exclusion of slot i by slot i on (B1/B2) or off (B3, B4).
+// centre-cell exclusion of slot i by slot i on or off. With the mask on it
+// computes B1/B2, and launched once from each end of two disjoint tables
+// B3: the routes csrc/stencil_sym.cu replaced, kept as the yardstick
+// chip_smoke.py times the symmetric kernels against.
 //
 // Inputs are (n_cells, cap) ELL planes in row-major cell order of a D^3
 // grid, D = 2^level >= 4; valid slots form a prefix of each row (as
@@ -31,9 +30,8 @@
 // Bound on the H100: FP32 instruction issue on the distance tests (about
 // 11 flops and a dozen instructions per pair); shared-memory staging keeps
 // device-memory traffic at one read of each candidate chunk per target
-// chunk. Each unordered pair is tested from both ends (the TPU kernel's
-// symmetric half-stencil tests it once); symmetry with atomics,
-// cp.async/TMA staging and multi-cell CTAs are later work.
+// chunk. Each unordered pair is tested from both ends; the symmetric
+// kernels of csrc/stencil_sym.cu test it once.
 //
 // Rounding: d2 = ((dx*dx + dy*dy) + dz*dz) with each operation rounded on
 // its own (__fmul_rn/__fadd_rn, and the library is built with

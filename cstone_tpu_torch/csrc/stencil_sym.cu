@@ -1,52 +1,64 @@
-// Symmetric half-stencil cell-list kernel for NVIDIA Hopper (sm_90a):
-// neighbour counts (B1) and SPH density sums (B2) in one source.
+// Symmetric cell-list stencil kernels for NVIDIA Hopper (sm_90a): the
+// half stencil of one table for neighbour counts (B1) and SPH density sums
+// (B2), and the cross pass between two disjoint tables (B3), in one source.
 //
 // Replaces the Pallas TPU kernel cstone_tpu/ops/pallas_stencil.py:295
-// _kernel_sym, op="count" and op="density" (self excluded). The one-sided
-// kernel of csrc/stencil.cu keeps serving B3 (cross) and B4 (one-sided).
+// _kernel_sym, op="count" and op="density" (self excluded), and its
+// cross=True variant (_call_sym_cross :589). The one-sided kernel of
+// csrc/stencil.cu keeps serving B4 (one-sided) and is the yardstick.
 //
-// Contract (that of stencil.cu with self_mask on): inputs are (n_cells,
+// Contract (that of stencil.cu, once from each end): inputs are (n_cells,
 // cap) ELL planes in row-major cell order of a D^3 grid, D = 2^level >= 4;
-// valid slots form a prefix of each row. Slot i counts the slots j != i of
-// the 27 neighbour cells with d2 < r2_i, or sums m_j W(sqrt(d2) / h_i)
-// with the unnormalised cubic spline W. Periodic dims wrap with a +-L
-// shift; open dims skip the ghost cells. Invalid slots get 0.
+// valid slots form a prefix of each row. Slot i counts the slots j of the
+// 27 neighbour cells with d2 < r2_i, or sums m_j W(sqrt(d2) / h_i) with the
+// unnormalised cubic spline W: over its own table with j != i (B1/B2), or
+// over the other table (B3, both tables' results from one pass). Periodic
+// dims wrap with a +-L shift; open dims skip the ghost cells. Invalid slots
+// get 0.
 //
 // Design:
-// - Half stencil. Each unordered pair is tested once. A target cell T is
-//   paired with itself (slot pairs j > i only) and with its 13 "forward"
-//   neighbours (direction (dx, dy, dz) > (0, 0, 0) lexicographically);
-//   the other 13 neighbours see T as their forward neighbour. With D >= 4
-//   every unordered cell pair appears exactly once, wrap included.
+// - Each pair is tested once. B1/B2: a target cell T is paired with itself
+//   (slot pairs j > i only) and with its 13 "forward" neighbours (direction
+//   (dx, dy, dz) > (0, 0, 0) lexicographically); the other 13 neighbours
+//   see T as their forward neighbour. B3: the two sets are disjoint, so a
+//   cell of the lane table is paired with all 27 neighbour cells of the
+//   staged table, with no self mask. With D >= 4 every cell pair appears
+//   exactly once, wrap included.
 // - One d2 per pair, ((dx*dx + dy*dy) + dz*dz) with every operation rounded
 //   on its own (__f*_rn, --fmad=false), the plain version's order. Off the
 //   wrap, x_j - x_i = -(x_i - x_j) exactly, so both ends share it. For a
-//   forward cell reached across a periodic wrap (a warp-uniform branch) the
-//   candidate end recomputes its d2 from its own end with the opposite
-//   shift, x_j - (x_i - o L), as the one-sided plain version does. Counts
-//   are therefore bit-equal to stencil_counts_plain, and every density term
-//   has the plain version's arguments; only the sum order differs.
-// - Work unit: one warp per (target cell, chunk of 32 target slots), one
-//   lane per target slot, 4 warps per CTA, each with its own staging
-//   buffers. Grid order puts every cell's first chunk before any second
-//   chunk, so the warps of mostly empty second chunks retire together.
-//   Any cap launches: a warp walks as many candidate chunks as the rows
-//   hold, and a warp whose chunk is past its row's valid prefix exits at
-//   once. Row lengths come from a prologue kernel (one warp per row).
-// - Staging: each chunk of 32 candidates is packed into shared memory as
+//   cell reached across a periodic wrap (a warp-uniform branch) the staged
+//   end recomputes its d2 from its own end with the opposite shift,
+//   x_j - (x_i - o L), as the one-sided plain version does. Counts are
+//   therefore bit-equal to stencil_counts_plain / stencil_cross_plain, and
+//   every density term has the plain version's arguments; only the sum
+//   order differs.
+// - Work unit: one warp per (lane-table cell, chunk of 32 lane slots) that
+//   holds valid slots, one lane per slot, 4 warps per CTA, each with its
+//   own staging buffers. A prologue kernel takes each row's length (one
+//   warp per row) and a second lists the busy units, so no warp is spent on
+//   an empty chunk: a table of cap 2432 whose rows are mostly short costs
+//   what its filled chunks cost. The grid holds as many CTAs as the card
+//   keeps resident; each warp takes the next unit of the list with one
+//   atomicAdd until the list is spent. Any cap launches: a warp walks as
+//   many staged chunks as the rows hold. B3 puts the lanes on the table
+//   whose busy chunks hold more valid slots each, decided on the card from
+//   the two lists' totals: a lane chunk costs a full warp however few of
+//   its 32 slots are valid, while a staged chunk costs only its slots.
+// - Staging: each chunk of 32 staged slots is packed into shared memory as
 //   float4 (x, y, z, r2 | h) plus a mass plane, so one broadcast 16-byte
 //   load serves a pair. The copy is cp.async, 4 bytes per lane and plane
 //   (a 16-byte cp.async copies 4 slots of one plane and cannot interleave
 //   the planes), double-buffered: the next chunk of the walk is in flight
 //   while the current one is tested. Density then turns h into 1/h in
 //   place, one division per staged slot instead of one per pair.
-// - Candidate-end sums: lane k owns candidate k of the chunk. Counts take
-//   a warp __ballot_sync + __popc per candidate; density a butterfly
+// - Staged-end sums: lane k owns staged slot k of the chunk. Counts take a
+//   warp __ballot_sync + __popc per slot; density a butterfly
 //   __shfl_xor_sync sum, skipped when no lane has a term (__any_sync). Each
-//   lane flushes its candidate with one global atomicAdd per (target
-//   chunk, candidate chunk), and each target with one atomicAdd at the
-//   end, into an output the wrapper zeroed. Integer counts are therefore
-//   deterministic; float sums change order from run to run.
+//   lane flushes its staged slot with one global atomicAdd per (lane chunk,
+//   staged chunk), and its own slot with one atomicAdd at the end, into
+//   outputs the wrapper zeroed. Integer counts are therefore deterministic;
+//   float sums change order from run to run.
 // - Density skips the sqrt and spline of pairs with d2 / h^2 >= 4.0004
 //   (q >= 2 with margin): W is exactly 0 there, so the sums are unchanged.
 //
@@ -56,27 +68,29 @@
 // end, 10 a pair (4.1e9, 0.062 ms at 67 TFLOP/s FP32), against about
 // 27 MB (valid and result per slot, planes at valid slots: 0.008 ms at
 // 3.35 TB/s), so the bound is FP32 issue. Density adds the spline only
-// at the 5.8e7 ends with q < 2 (about 9 operations each): 0.070 ms. The
-// 67 TFLOP/s peak counts an FMA as two flops; bit parity forbids FMA
-// (--fmad=false), so one instruction does one flop and half that rate is
-// the reachable ceiling. The one-sided kernel tests each pair twice. This
-// one tests it once, feeds each test from one broadcast load, and overlaps
-// staging with the tests; what remains is the issue slots around the 8
-// flops of a test (shared load, two compares, the candidate-end ballot or
-// shuffle sum, the loop) and the idle lanes of warps whose chunk holds
-// few of a row's slots (rows of 33-64 slots take two warps).
+// at the 5.8e7 ends with q < 2 (about 9 operations each): 0.070 ms. B3 on
+// the tiered path (1M Gaussian, adaptive h) holds 4.9e8 cross pairs over
+// its three passes: 0.073 ms, likewise FP32 issue. The 67 TFLOP/s peak
+// counts an FMA as two flops; bit parity forbids FMA (--fmad=false), so one
+// instruction does one flop and half that rate is the reachable ceiling.
+// The one-sided kernel tests each pair twice. This one tests it once, feeds
+// each test from one broadcast load, and overlaps staging with the tests;
+// what remains is the issue slots around the 8 flops of a test (shared
+// load, two compares, the staged-end ballot or shuffle sum, the loop) and
+// the idle lanes of warps whose chunk holds few of a row's slots.
 //
-// C interface: the entry point launches on the given stream and returns
+// C interface: each entry point launches on the given stream and returns
 // cudaGetLastError() (0 on success).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int WARPS = 4;   // warps per CTA, one work unit each
-constexpr int NDIR = 14;   // the centre cell and 13 forward neighbours
+constexpr int WARPS = 4;  // warps per CTA, one work unit each
 constexpr float QCUT2 = 4.0004f;
 
 __device__ __forceinline__ float cubic_spline_w(float q) {
@@ -142,6 +156,57 @@ __global__ void row_counts_kernel(const uint8_t* __restrict__ valid, int cap, in
     if (lane == 0) counts[row] = n;
 }
 
+// The table's work list: the units a * n_cells + cell (lane chunk a of a
+// row) whose chunk holds valid slots, one thread per unit of the full grid
+// of n_grid = n_cells * ceil(cap / 32). Each block compacts its range of
+// the grid and reserves its place with one atomicAdd on stats[0], which
+// counts the table's busy chunks; stats[1] sums its valid slots. Blocks
+// reserve in about grid order, so the list runs chunk by chunk: the chunks
+// of one row are far apart in it, and the warps that run at once seldom
+// credit the same staged slots with their atomics. The order changes no
+// result but the order of float atomics.
+constexpr int LIST_THREADS = 1024;
+
+__global__ void __launch_bounds__(LIST_THREADS)
+work_list_kernel(const int32_t* __restrict__ counts, int n_cells, int64_t n_grid,
+                 int32_t* __restrict__ units, unsigned long long* __restrict__ stats) {
+    __shared__ int warp_busy[LIST_THREADS / 32];
+    __shared__ int warp_slots[LIST_THREADS / 32];
+    __shared__ unsigned long long block_base;
+    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+    const int64_t v = static_cast<int64_t>(blockIdx.x) * LIST_THREADS + threadIdx.x;
+    int slots = 0;
+    bool busy = false;
+    if (v < n_grid) {
+        const int a = static_cast<int>(v / n_cells);
+        const int n = counts[v - static_cast<int64_t>(a) * n_cells];
+        busy = a * 32 < n;
+        slots = a == 0 ? n : 0;  // each row's slots once
+    }
+    const unsigned bal = __ballot_sync(FULL, busy);
+    for (int o = 16; o > 0; o >>= 1) slots += __shfl_xor_sync(FULL, slots, o);
+    if (lane == 0) {
+        warp_busy[wid] = __popc(bal);
+        warp_slots[wid] = slots;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        unsigned long long total = 0, all_slots = 0;
+        for (int w = 0; w < LIST_THREADS / 32; ++w) {
+            const int c = warp_busy[w];
+            warp_busy[w] = static_cast<int>(total);  // exclusive prefix over the warps
+            total += c;
+            all_slots += warp_slots[w];
+        }
+        block_base = total ? atomicAdd(&stats[0], total) : 0;
+        if (all_slots) atomicAdd(&stats[1], all_slots);
+    }
+    __syncthreads();
+    if (busy) {
+        units[block_base + warp_busy[wid] + __popc(bal & ((1u << lane) - 1))] = static_cast<int32_t>(v);
+    }
+}
+
 template <bool DENSITY>
 __device__ __forceinline__ void stage_chunk(const Table& t, int64_t row, int n, Stage& s, int buf,
                                             int lane) {
@@ -159,19 +224,19 @@ __device__ __forceinline__ void stage_chunk(const Table& t, int64_t row, int n, 
     }
 }
 
-// The tests of one staged chunk of n candidates against the warp's targets.
+// The tests of one staged chunk of n slots against the warp's lane slots.
 // WRAP: the chunk's cell was reached across a periodic wrap; (sx, sy, sz)
-// is the shift o L added to the candidate at the target end, and
-// (txs, tys, tzs) = target - o L is the target seen from the candidate end.
-// kmin: candidate k pairs with lane only when k > kmin (the centre cell's
-// own chunk: slot j > slot i).
+// is the shift o L added to the staged slot at the lane end, and
+// (txs, tys, tzs) = lane slot - o L is the lane slot seen from the staged
+// end. kmin: staged slot k pairs with lane only when k > kmin (the centre
+// cell's own chunk of B1/B2: slot j > slot i).
 template <bool DENSITY, bool WRAP>
 __device__ __forceinline__ void test_chunk(const float4* __restrict__ c4, const float* __restrict__ cm,
                                            int n, int kmin, bool tv, float tx, float ty, float tz,
                                            float tw, float tm, float sx, float sy, float sz,
                                            float txs, float tys, float tzs, int lane, int& cnt,
                                            float& acc, int& ccnt, float& cacc) {
-#pragma unroll 4  // overlaps the independent tests of consecutive candidates
+#pragma unroll 4  // overlaps the independent tests of consecutive staged slots
     for (int k = 0; k < n; ++k) {
         const float4 c = c4[k];
         float d2i, d2j;
@@ -206,29 +271,25 @@ __device__ __forceinline__ void test_chunk(const float4* __restrict__ c4, const 
     }
 }
 
-template <bool DENSITY>
-__global__ void __launch_bounds__(WARPS * 32)
-sym_kernel(Table t, const int32_t* __restrict__ counts, int n_cells, int n_tchunks,
-           const float* __restrict__ lengths, int per_x, int per_y, int per_z, int level,
-           int32_t* __restrict__ out_i, float* __restrict__ out_f) {
-    __shared__ Stage stage[WARPS];
-    const int lane = threadIdx.x & 31;
-    const int wid = threadIdx.x >> 5;
-    const int64_t unit = static_cast<int64_t>(blockIdx.x) * WARPS + wid;
-    if (unit >= static_cast<int64_t>(n_cells) * n_tchunks) return;
-    const int a = static_cast<int>(unit / n_cells);  // target chunk
-    const int cell = static_cast<int>(unit - static_cast<int64_t>(a) * n_cells);
-    const int nT = counts[cell];
+// One work unit: lane chunk a of cell `cell` of the lane table t against
+// the staged table c (the same table when !CROSS), crediting out_t and
+// out_c. Every lane of the warp calls it with the same unit.
+template <bool DENSITY, bool CROSS>
+__device__ __forceinline__ void run_unit(const Table& t, const Table& c,
+                                         const int32_t* __restrict__ counts_t,
+                                         const int32_t* __restrict__ counts_c, int a, int cell,
+                                         const float* __restrict__ lengths, int per_x, int per_y,
+                                         int per_z, int level, void* out_t, void* out_c, Stage& s,
+                                         int lane) {
+    constexpr int NDIR = CROSS ? 27 : 14;
+    const int nT = counts_t[cell];
     const int t0 = a * 32;
-    if (t0 >= nT) return;  // warp-uniform: nothing to test
-    Stage& s = stage[wid];
 
     const int D = 1 << level;
     const int ix = cell >> (2 * level);
     const int iy = (cell >> level) & (D - 1);
     const int iz = cell & (D - 1);
-    const int cap = t.cap;
-    const int64_t trow = static_cast<int64_t>(cell) * cap;
+    const int64_t trow = static_cast<int64_t>(cell) * t.cap;
     const int ti = t0 + lane;
     const bool tv = ti < nT;
     float tx = 0.0f, ty = 0.0f, tz = 0.0f, tw = 1.0f, tm = 1.0f;
@@ -245,38 +306,45 @@ sym_kernel(Table t, const int32_t* __restrict__ counts, int n_cells, int n_tchun
     int f_cell = 0, f_n = 0;
     float f_sx = 0.0f, f_sy = 0.0f, f_sz = 0.0f;
     if (lane < NDIR) {
-        const int lin = 13 + lane;  // 13 = centre, 14..26 = forward in (dx, dy, dz) order
+        // (dx, dy, dz) in lexicographic order; B1/B2 start at 13, the centre
+        const int lin = CROSS ? lane : 13 + lane;
         const int cx = ix + lin / 9 - 1, cy = iy + (lin / 3) % 3 - 1, cz = iz + lin % 3 - 1;
         const int ox = cx < 0 ? -1 : (cx >= D ? 1 : 0);
         const int oy = cy < 0 ? -1 : (cy >= D ? 1 : 0);
         const int oz = cz < 0 ? -1 : (cz >= D ? 1 : 0);
         if ((ox == 0 || per_x) && (oy == 0 || per_y) && (oz == 0 || per_z)) {
             f_cell = ((cx - ox * D) * D + (cy - oy * D)) * D + (cz - oz * D);
-            f_n = counts[f_cell];
+            f_n = counts_c[f_cell];
             f_sx = static_cast<float>(ox) * lengths[0];
             f_sy = static_cast<float>(oy) * lengths[1];
             f_sz = static_cast<float>(oz) * lengths[2];
         }
     }
+    // from (d, b), the first (direction, staged chunk) of the walk that
+    // holds slots
+    auto skip_empty = [&](int& d, int& b) {
+        while (d < NDIR && b * 32 >= __shfl_sync(FULL, f_n, d)) {
+            ++d;
+            b = 0;
+        }
+    };
+    auto stage_at = [&](int d, int b, int buf) {
+        const int64_t row = static_cast<int64_t>(__shfl_sync(FULL, f_cell, d)) * c.cap + b * 32;
+        stage_chunk<DENSITY>(c, row, min(32, __shfl_sync(FULL, f_n, d) - b * 32), s, buf, lane);
+    };
 
     int cnt = 0;
     float acc = 0.0f;
-    // the walk: (direction d, candidate chunk b), starting at the centre
-    // cell's own chunk, which exists since t0 < nT
-    int d = 0, b = a, buf = 0;
-    stage_chunk<DENSITY>(t, trow + t0, min(32, nT - t0), s, 0, lane);
+    // B1/B2 start at the centre cell's own chunk, which exists since t0 < nT
+    int d = 0, b = CROSS ? 0 : a, buf = 0;
+    skip_empty(d, b);
+    if (d == NDIR) return;  // no staged slot in any neighbour cell
+    stage_at(d, b, 0);
     cp_async_commit();
     while (d < NDIR) {
         int nd = d, nb = b + 1;
-        while (nd < NDIR && nb * 32 >= __shfl_sync(FULL, f_n, nd)) {
-            ++nd;
-            nb = 0;
-        }
-        if (nd < NDIR) {
-            const int64_t nrow = static_cast<int64_t>(__shfl_sync(FULL, f_cell, nd)) * cap + nb * 32;
-            stage_chunk<DENSITY>(t, nrow, min(32, __shfl_sync(FULL, f_n, nd) - nb * 32), s, buf ^ 1,
-                                 lane);
-        }
+        skip_empty(nd, nb);
+        if (nd < NDIR) stage_at(nd, nb, buf ^ 1);
         cp_async_commit();
         cp_async_wait_one();  // this lane's copies of the current chunk are in
 
@@ -289,7 +357,7 @@ sym_kernel(Table t, const int32_t* __restrict__ counts, int n_cells, int n_tchun
         if (DENSITY && lane < n) s.c[buf][lane].w = __fdiv_rn(1.0f, s.c[buf][lane].w);
         __syncwarp();  // every lane's copies are visible to the warp
 
-        const int kmin = (d == 0 && b == a) ? lane : -1;
+        const int kmin = (!CROSS && d == 0 && b == a) ? lane : -1;
         int ccnt = 0;
         float cacc = 0.0f;
         if (sx != 0.0f || sy != 0.0f || sz != 0.0f) {
@@ -300,11 +368,11 @@ sym_kernel(Table t, const int32_t* __restrict__ counts, int n_cells, int n_tchun
             test_chunk<DENSITY, false>(s.c[buf], s.m[buf], n, kmin, tv, tx, ty, tz, tw, tm, 0.0f,
                                        0.0f, 0.0f, tx, ty, tz, lane, cnt, acc, ccnt, cacc);
         }
-        const int64_t cslot = static_cast<int64_t>(fcell) * cap + c0 + lane;
+        const int64_t cslot = static_cast<int64_t>(fcell) * c.cap + c0 + lane;
         if (DENSITY) {
-            if (cacc != 0.0f) atomicAdd(out_f + cslot, cacc);
+            if (cacc != 0.0f) atomicAdd(static_cast<float*>(out_c) + cslot, cacc);
         } else {
-            if (ccnt != 0) atomicAdd(out_i + cslot, ccnt);
+            if (ccnt != 0) atomicAdd(static_cast<int32_t*>(out_c) + cslot, ccnt);
         }
         __syncwarp();  // the buffer is read before the next stage overwrites it
         d = nd;
@@ -312,38 +380,156 @@ sym_kernel(Table t, const int32_t* __restrict__ counts, int n_cells, int n_tchun
         buf ^= 1;
     }
     if (DENSITY) {
-        if (acc != 0.0f) atomicAdd(out_f + trow + ti, acc);
+        if (acc != 0.0f) atomicAdd(static_cast<float*>(out_t) + trow + ti, acc);
     } else {
-        if (cnt != 0) atomicAdd(out_i + trow + ti, cnt);
+        if (cnt != 0) atomicAdd(static_cast<int32_t*>(out_t) + trow + ti, cnt);
     }
+}
+
+// Tables a and b with their row lengths and work lists; stats holds each
+// table's (busy chunks, valid slots) and, at [4], the units handed out.
+// CROSS = false (B1/B2): a and b are one table, walked over the centre
+// cell (slots j > i) and the 13 forward cells. CROSS = true (B3): two
+// disjoint tables; the lanes go on the one whose rows fill their 32-slot
+// chunks better (each lane chunk costs a full warp however few slots it
+// holds), and all 27 cells of the other are staged. out_a / out_b are the
+// tables' zeroed outputs (int32 counts or float32 sums; one array when
+// !CROSS). The grid holds at most as many warps as the card keeps resident;
+// each warp takes units from the lane table's list until it is spent.
+template <bool DENSITY, bool CROSS>
+__global__ void __launch_bounds__(WARPS * 32)
+sym_kernel(Table ta, Table tb, const int32_t* __restrict__ counts_a,
+           const int32_t* __restrict__ counts_b, const int32_t* __restrict__ units_a,
+           const int32_t* __restrict__ units_b, unsigned long long* __restrict__ stats,
+           int n_cells, const float* __restrict__ lengths, int per_x, int per_y, int per_z,
+           int level, void* out_a, void* out_b) {
+    __shared__ Stage stage[WARPS];
+    const int lane = threadIdx.x & 31;
+    const int wid = threadIdx.x >> 5;
+    // lanes on b when b's busy chunks hold more slots each: sb / cb > sa / ca
+    const bool lanes_b = CROSS && stats[3] * stats[0] > stats[1] * stats[2];
+    const Table t = lanes_b ? tb : ta;
+    const Table c = lanes_b ? ta : tb;
+    const int32_t* counts_t = lanes_b ? counts_b : counts_a;
+    const int32_t* counts_c = lanes_b ? counts_a : counts_b;
+    const int32_t* units = lanes_b ? units_b : units_a;
+    void* out_t = lanes_b ? out_b : out_a;
+    void* out_c = lanes_b ? out_a : out_b;
+    const long long n_units = static_cast<long long>(stats[lanes_b ? 2 : 0]);
+    for (;;) {
+        unsigned long long u = 0;
+        if (lane == 0) u = atomicAdd(&stats[4], 1ull);
+        u = __shfl_sync(FULL, u, 0);
+        if (static_cast<long long>(u) >= n_units) return;
+        const int unit = units[u];
+        const int a = unit / n_cells;  // lane chunk
+        run_unit<DENSITY, CROSS>(t, c, counts_t, counts_c, a, unit - a * n_cells, lengths, per_x,
+                                 per_y, per_z, level, out_t, out_c, stage[wid], lane);
+        __syncwarp();  // the warp's staging buffers are free for the next unit
+    }
+}
+
+// Blocks of the symmetric kernel the card keeps resident at once.
+template <bool DENSITY, bool CROSS>
+int resident_blocks() {
+    static int blocks = 0;
+    if (blocks == 0) {
+        int dev = 0, sms = 0, per_sm = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sym_kernel<DENSITY, CROSS>,
+                                                      WARPS * 32, 0);
+        blocks = sms * per_sm;
+    }
+    return blocks;
+}
+
+template <bool DENSITY, bool CROSS>
+void launch_sym(const Table& a, const Table& b, const int32_t* counts_a, const int32_t* counts_b,
+                const int32_t* units_a, const int32_t* units_b, unsigned long long* stats,
+                int n_cells, int64_t max_units, const float* lengths, int per_x, int per_y,
+                int per_z, int level, void* out_a, void* out_b, cudaStream_t s) {
+    const int64_t want = (max_units + WARPS - 1) / WARPS;
+    const int blocks = static_cast<int>(std::min<int64_t>(want, resident_blocks<DENSITY, CROSS>()));
+    if (blocks > 0) {
+        sym_kernel<DENSITY, CROSS><<<blocks, WARPS * 32, 0, s>>>(
+            a, b, counts_a, counts_b, units_a, units_b, stats, n_cells, lengths, per_x, per_y,
+            per_z, level, out_a, out_b);
+    }
+}
+
+// Row lengths, work lists and the symmetric kernel. units_* hold n_cells *
+// ceil(cap / 32) int32 each; stats is 5 zeroed-here unsigned 64-bit words.
+template <bool CROSS>
+int launch(int density, const Table& a, const uint8_t* a_valid, const Table& b,
+           const uint8_t* b_valid, const float* lengths, int per_x, int per_y, int per_z,
+           int level, int32_t* counts_a, int32_t* counts_b, int32_t* units_a, int32_t* units_b,
+           unsigned long long* stats, void* out_a, void* out_b, cudaStream_t s) {
+    const int n_cells = 1 << (3 * level);
+    const int64_t chunks = (std::max(a.cap, b.cap) + 31) / 32;
+    if (static_cast<int64_t>(n_cells) * chunks > INT32_MAX) {
+        return static_cast<int>(cudaErrorInvalidValue);  // a unit must fit in int32
+    }
+    cudaMemsetAsync(stats, 0, 5 * sizeof(unsigned long long), s);
+    auto list = [&](const Table& t, const uint8_t* valid, int32_t* counts, int32_t* units,
+                    unsigned long long* table_stats) {
+        const int64_t n_grid = static_cast<int64_t>(n_cells) * ((t.cap + 31) / 32);
+        row_counts_kernel<<<(n_cells + 7) / 8, 256, 0, s>>>(valid, t.cap, n_cells, counts);
+        work_list_kernel<<<static_cast<unsigned>((n_grid + LIST_THREADS - 1) / LIST_THREADS),
+                           LIST_THREADS, 0, s>>>(counts, n_cells, n_grid, units, table_stats);
+    };
+    list(a, a_valid, counts_a, units_a, stats);
+    if (CROSS) list(b, b_valid, counts_b, units_b, stats + 2);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int64_t max_units = static_cast<int64_t>(n_cells) * chunks;
+    if (density) {
+        launch_sym<true, CROSS>(a, b, counts_a, counts_b, units_a, units_b, stats, n_cells,
+                                max_units, lengths, per_x, per_y, per_z, level, out_a, out_b, s);
+    } else {
+        launch_sym<false, CROSS>(a, b, counts_a, counts_b, units_a, units_b, stats, n_cells,
+                                 max_units, lengths, per_x, per_y, per_z, level, out_a, out_b, s);
+    }
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// density = 0: counts (w = r2, out int32); density = 1: spline sums (w = h,
-// m = mass or null, out float32). `out` must be zeroed; `row_counts` is
-// (n_cells,) int32 scratch.
+// B1/B2. density = 0: counts (w = r2, out int32); density = 1: spline sums
+// (w = h, m = mass or null, out float32). `out` must be zeroed; scratch:
+// `row_counts` (n_cells,) int32, `units` (n_cells * ceil(cap / 32),)
+// int32, `stats` 5 unsigned 64-bit words.
 extern "C" int cstone_stencil_sym(int density, const float* x, const float* y, const float* z,
                                   const float* w, const float* m, const uint8_t* valid, int cap,
                                   const float* lengths, int per_x, int per_y, int per_z, int level,
-                                  int32_t* row_counts, void* out, void* stream) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int n_cells = 1 << (3 * level);
-    row_counts_kernel<<<(n_cells + 7) / 8, 256, 0, s>>>(valid, cap, n_cells, row_counts);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+                                  int32_t* row_counts, int32_t* units, void* stats, void* out,
+                                  void* stream) {
     const Table t{x, y, z, w, m, cap};
-    const int n_tchunks = (cap + 31) / 32;
-    const int64_t units = static_cast<int64_t>(n_cells) * n_tchunks;
-    const unsigned blocks = static_cast<unsigned>((units + WARPS - 1) / WARPS);
-    if (density) {
-        sym_kernel<true><<<blocks, WARPS * 32, 0, s>>>(t, row_counts, n_cells, n_tchunks, lengths,
-                                                       per_x, per_y, per_z, level, nullptr,
-                                                       static_cast<float*>(out));
-    } else {
-        sym_kernel<false><<<blocks, WARPS * 32, 0, s>>>(t, row_counts, n_cells, n_tchunks, lengths,
-                                                        per_x, per_y, per_z, level,
-                                                        static_cast<int32_t*>(out), nullptr);
-    }
-    return static_cast<int>(cudaGetLastError());
+    return launch<false>(density, t, valid, t, valid, lengths, per_x, per_y, per_z, level,
+                         row_counts, row_counts, units, units,
+                         static_cast<unsigned long long*>(stats), out, out,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// B3: the cross pass between tables a and b, two disjoint sets on one grid.
+// w = r2 (counts) or h (density), m = per-slot mass or null. out_a / out_b
+// receive each table's results (each slot against the other table, at its
+// own radius) and must be zeroed; scratch: row_counts_* (n_cells,) int32,
+// units_* (n_cells * ceil(max(cap_a, cap_b) / 32),) int32, `stats` 5
+// unsigned 64-bit words.
+extern "C" int cstone_stencil_cross(int density, const float* ax, const float* ay,
+                                    const float* az, const float* aw, const float* am,
+                                    const uint8_t* a_valid, int cap_a, const float* bx,
+                                    const float* by, const float* bz, const float* bw,
+                                    const float* bm, const uint8_t* b_valid, int cap_b,
+                                    const float* lengths, int per_x, int per_y, int per_z,
+                                    int level, int32_t* row_counts_a, int32_t* row_counts_b,
+                                    int32_t* units_a, int32_t* units_b, void* stats, void* out_a,
+                                    void* out_b, void* stream) {
+    const Table a{ax, ay, az, aw, am, cap_a};
+    const Table b{bx, by, bz, bw, bm, cap_b};
+    return launch<true>(density, a, a_valid, b, b_valid, lengths, per_x, per_y, per_z, level,
+                        row_counts_a, row_counts_b, units_a, units_b,
+                        static_cast<unsigned long long*>(stats), out_a, out_b,
+                        static_cast<cudaStream_t>(stream));
 }

@@ -11,11 +11,18 @@ c != g*G + t and d2 < r2_t, the displacement taking the minimum image
 k = floor(d / L + 1/2) on periodic dims, as the TPU kernel does. Targets
 with r2 < 0 count 0.
 
-Kernel design (csrc/neighbors_v2.cu): one CTA per group, one thread per
-target, each run staged through shared memory in tiles of G; bound by
-FP32 issue on the pair tests. The TPU kernel's 1024-element window
-alignment, clamped-window mask and group_block padding are HBM-slice
-workarounds and are gone. Counts are int32 (uint32 in the JAX package).
+Kernel design (csrc/neighbors_v2.cu): one CTA per group, two targets per
+thread, the runs staged as float4 tiles with double-buffered cp.async;
+bound by FP32 issue on the pair tests. The image is decided once per tile
+and axis: floor(d / L + 1/2) is monotone in d, so where its values at the
+two ends of the tile's displacement range [t_min - c_max, t_max - c_min]
+agree, one hoisted shift (or none) serves every pair bit for bit; only
+tiles whose range holds two k values take the per-pair image. The self
+test runs only in tiles that overlap the group's own particles.
+pairwise_count_runs_tiled_plain makes the same per-tile decisions in
+PyTorch for the tests. The TPU kernel's 1024-element window alignment,
+clamped-window mask and group_block padding are HBM-slice workarounds and
+are gone. Counts are int32 (uint32 in the JAX package).
 
 CPU tensors take the plain version; CUDA tensors always launch the kernel,
 and a build or launch failure raises.
@@ -35,6 +42,7 @@ __all__ = [
     "merge_leaf_runs",
     "pairwise_count_runs",
     "pairwise_count_runs_plain",
+    "pairwise_count_runs_tiled_plain",
     "load_library",
     "launches",
     "reset_launches",
@@ -161,9 +169,10 @@ def pairwise_count_runs(targets, r2, run_start, run_len, xs, ys, zs, box_params)
     return out
 
 
-def _runs_to_candidates(run_start: torch.Tensor, run_len: torch.Tensor) -> torch.Tensor:
-    """(n_groups, C) candidate particle indices of each group's runs in
-    run order, -1 past the group's total; C = the largest total."""
+def _runs_to_candidates(run_start: torch.Tensor, run_len: torch.Tensor):
+    """(cidx, run, offset), each (n_groups, C): the candidate particle
+    indices of each group's runs in run order, -1 past the group's total
+    (C = the largest total), and each slot's run and offset in that run."""
     n_groups, R = run_start.shape
     lens = run_len.to(torch.int64)
     cum = torch.cumsum(lens, dim=1)
@@ -171,9 +180,9 @@ def _runs_to_candidates(run_start: torch.Tensor, run_len: torch.Tensor) -> torch
     C = int(total.max()) if n_groups else 0
     j = torch.arange(C, device=lens.device).expand(n_groups, C).contiguous()
     seg = torch.clamp(torch.searchsorted(cum, j, right=True), max=max(R - 1, 0))
-    first = torch.gather(cum - lens, 1, seg)
-    cidx = torch.gather(run_start.to(torch.int64), 1, seg) + j - first
-    return torch.where(j < total[:, None], cidx, -1)
+    offset = j - torch.gather(cum - lens, 1, seg)
+    cidx = torch.gather(run_start.to(torch.int64), 1, seg) + offset
+    return torch.where(j < total[:, None], cidx, -1), seg, offset
 
 
 def pairwise_count_runs_plain(targets, r2, run_start, run_len, xs, ys, zs, box_params,
@@ -182,7 +191,7 @@ def pairwise_count_runs_plain(targets, r2, run_start, run_len, xs, ys, zs, box_p
     candidate lists, then chunked dense pair tests with the kernel's
     floor(d / L + 1/2) image."""
     n_groups, G, _ = targets.shape
-    cidx = _runs_to_candidates(run_start, run_len)
+    cidx, _, _ = _runs_to_candidates(run_start, run_len)
     C = cidx.shape[1]
     bp = box_params.to(torch.float32)
     pl, il = bp[6:9] * bp[0:3], bp[3:6]
@@ -199,3 +208,78 @@ def pairwise_count_runs_plain(targets, r2, run_start, run_len, xs, ys, zs, box_p
                              (xs[safe], ys[safe], zs[safe]), ok, IMAGE_FLOOR, pl, il)
         out[g0:g1] = within.sum(dim=-1, dtype=torch.int32)
     return out
+
+
+def tile_images(targets, r2, run_start, run_len, xs, ys, zs, box_params, tile: int):
+    """The kernel's per-tile image decision, for each group and each slot of
+    its flattened candidate list (_runs_to_candidates): (cidx, fixed, shift,
+    own). Tiles are `tile` consecutive candidates of one run, counted from
+    the run's start. fixed (n_groups, C, 3) is True where floor(d / L + 1/2)
+    takes one value k0 over the whole tile on that axis (always on open
+    axes), computed at the ends of the tile's displacement range from the
+    extent of the group's live targets (r2 > 0) and of the tile; shift is
+    (p L) k0 there. own (n_groups, C) marks tiles whose index range meets
+    the group's own particles g*G .. g*G + G - 1."""
+    n_groups, G, _ = targets.shape
+    dev = targets.device
+    cidx, run, offset = _runs_to_candidates(run_start, run_len)
+    bp = box_params.to(torch.float32)
+    pl, il = bp[6:9] * bp[0:3], bp[3:6]
+    inf = torch.tensor(float("inf"), device=dev)
+    live = (r2 > 0)[..., None]
+    t_lo = torch.where(live, targets, inf).amin(dim=1)  # (n_groups, 3)
+    t_hi = torch.where(live, targets, -inf).amax(dim=1)
+
+    # tile id of each slot: (run, offset // tile) numbered within the group
+    tiles_per_run = max(1, -(-int(run_len.max()) // tile)) if run_len.numel() else 1
+    n_tiles = max(1, run_len.shape[1] * tiles_per_run)
+    ok = cidx >= 0
+    tid = torch.where(ok, run * tiles_per_run + offset // tile, 0)
+    safe = torch.clamp(cidx, min=0)
+    key = (torch.arange(n_groups, device=dev)[:, None] * n_tiles + tid)[ok]
+
+    def per_tile(values, reduce, fill):
+        out = torch.full((n_groups * n_tiles,), fill, dtype=values.dtype, device=dev)
+        out.scatter_reduce_(0, key, values[ok], reduce=reduce)
+        return out.reshape(n_groups, n_tiles)
+
+    fixed, shift = [], []
+    for a, coord in enumerate((xs, ys, zs)):
+        c = coord[safe]
+        c_lo = torch.gather(per_tile(c, "amin", float("inf")), 1, tid)
+        c_hi = torch.gather(per_tile(c, "amax", float("-inf")), 1, tid)
+        k_lo = torch.floor((t_lo[:, a, None] - c_hi) * il[a] + 0.5)
+        k_hi = torch.floor((t_hi[:, a, None] - c_lo) * il[a] + 0.5)
+        fixed.append((k_lo == k_hi) | (pl[a] == 0))
+        shift.append(torch.where(pl[a] == 0, torch.zeros_like(k_lo), pl[a] * k_lo))
+    g0 = torch.arange(n_groups, device=dev)[:, None] * G
+    first = torch.gather(per_tile(safe, "amin", torch.iinfo(torch.int64).max), 1, tid)
+    last = torch.gather(per_tile(safe, "amax", -1), 1, tid)
+    own = (first < g0 + G) & (last >= g0)
+    return cidx, torch.stack(fixed, -1), torch.stack(shift, -1), own
+
+
+def pairwise_count_runs_tiled_plain(targets, r2, run_start, run_len, xs, ys, zs, box_params,
+                                    tile: int) -> torch.Tensor:
+    """Plain mirror of the kernel's per-tile decisions (tile_images): on an
+    axis where a tile's k is fixed the displacement is d - (p L) k0, else
+    the per-pair floor(d / L + 1/2) image; the self test only in tiles that
+    meet the group's own particles. Equal to pairwise_count_runs_plain bit
+    for bit, which is what the per-tile decision claims."""
+    n_groups, G, _ = targets.shape
+    cidx, fixed, shift, own = tile_images(targets, r2, run_start, run_len, xs, ys, zs, box_params,
+                                          tile)
+    bp = box_params.to(torch.float32)
+    pl, il = bp[6:9] * bp[0:3], bp[3:6]
+    safe = torch.clamp(cidx, min=0)
+    d2 = None
+    for a, coord in enumerate((xs, ys, zs)):
+        d = targets[:, :, a, None] - coord[safe][:, None, :]
+        each = d - pl[a] * torch.floor(d * il[a] + 0.5)
+        d = torch.where(fixed[:, None, :, a], d - shift[:, None, :, a], each)
+        d2 = d * d if d2 is None else d2 + d * d
+    lane = torch.arange(G, device=targets.device)
+    tidx = torch.arange(n_groups, device=targets.device)[:, None] * G + lane
+    not_self = ~own[:, None, :] | (cidx[:, None, :] != tidx[:, :, None])
+    hit = (d2 < r2[:, :, None]) & (cidx[:, None, :] >= 0) & not_self
+    return hit.sum(dim=-1, dtype=torch.int32)

@@ -5,7 +5,7 @@ Replaces the Pallas TPU kernels of `cstone_tpu/ops/pallas_stencil.py`:
 
   B1  `_kernel_sym` op="count" (:295)     -> stencil_counts      (csrc/stencil_sym.cu)
   B2  `_kernel_sym` op="density" (:295)   -> stencil_density     (csrc/stencil_sym.cu)
-  B3  `_kernel_sym` cross=True (:589)     -> stencil_cross       (csrc/stencil.cu)
+  B3  `_kernel_sym` cross=True (:589)     -> stencil_cross       (csrc/stencil_sym.cu)
   B4  `_kernel` (:149), impl="pallas_asym" -> stencil_counts_asym (csrc/stencil.cu)
 
 Contract (celllist.stencil_neighbor_counts, reference
@@ -17,8 +17,8 @@ m_j W(sqrt(d2) / h_i) (density). Periodic dims wrap and shift the
 candidate coordinate by +-L; open dims drop the ghost cells. B1/B2 exclude
 self by slot identity in the centre cell only, so coincident distinct
 particles count each other; B3 runs between two disjoint sets (target and
-candidate tables with their own caps) with no self mask, once from each
-end; B4 counts the self pair and subtracts it afterwards, the JAX
+candidate tables with their own caps) with no self mask and returns both
+sides; B4 counts the self pair and subtracts it afterwards, the JAX
 one-sided kernel's contract. Invalid slots give 0.
 
 All versions compute d2 as ((dx*dx + dy*dy) + dz*dz) in float32 with
@@ -26,17 +26,22 @@ every operation rounded on its own (the kernels are compiled with
 --fmad=false), from the end that tests it, so counts agree bit for bit;
 density sums differ only in summation order.
 
-Kernel designs. csrc/stencil_sym.cu (B1/B2): a symmetric half stencil,
-one warp per (cell, 32 target slots), each unordered pair tested once
-and credited to both ends (candidate ends by warp ballot or shuffle sum,
-then global atomics into a zeroed output); candidate chunks packed as
-float4 and staged with double-buffered cp.async. Counts are
+Kernel designs. csrc/stencil_sym.cu (B1/B2/B3): one warp per (cell, 32
+lane slots) that holds valid slots, taken from a work list the kernel
+builds on the card, each pair tested once and credited to both ends
+(staged ends by warp ballot or shuffle sum, then global atomics into
+zeroed outputs); staged chunks packed as float4 with double-buffered
+cp.async. B1/B2 walk a half stencil of one table (centre cell j > i and
+the 13 forward cells); B3 puts the lanes on the table whose busy chunks
+are fuller (cross_lanes_on_b, decided on the card) and walks all 27
+cells of the other, one launch for both sides. Counts are
 deterministic; density sums are float atomics, so their last bits vary
-from run to run. csrc/stencil.cu (B3/B4): one-sided, a block of up to 256
+from run to run. csrc/stencil.cu (B4): one-sided, a block of up to 256
 threads per (cell, chunk of target slots), one thread per target slot,
-no atomics, deterministic; it tests each pair from both ends.
-stencil_sym_plain mirrors the half-stencil decomposition in PyTorch for
-the tests.
+no atomics, deterministic; launched from each end it is also the
+yardstick that chip_smoke.py times the symmetric kernels against.
+stencil_sym_plain and stencil_cross_sym_plain mirror the symmetric
+decompositions in PyTorch for the tests.
 
 CPU tensors take the plain version; CUDA tensors always launch a kernel,
 and a build or launch failure raises.
@@ -61,6 +66,8 @@ __all__ = [
     "stencil_cross_plain",
     "stencil_counts_asym_plain",
     "stencil_sym_plain",
+    "stencil_cross_sym_plain",
+    "cross_lanes_on_b",
     "load_library",
     "launches",
     "reset_launches",
@@ -75,8 +82,11 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 def _bind_sym(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.cstone_stencil_sym.argtypes = [i, p, p, p, p, p, p, i, p, i, i, i, i, p, p, p]
+    lib.cstone_stencil_sym.argtypes = [i, p, p, p, p, p, p, i, p, i, i, i, i, p, p, p, p, p]
     lib.cstone_stencil_sym.restype = i
+    lib.cstone_stencil_cross.argtypes = [i, p, p, p, p, p, p, i, p, p, p, p, p, p, i,
+                                         p, i, i, i, i, p, p, p, p, p, p, p, p]
+    lib.cstone_stencil_cross.restype = i
 
 
 LIBRARY = CudaLibrary("stencil.cu", _bind)
@@ -142,10 +152,11 @@ def _check(planes, valid, lengths, periodic, level) -> Tuple[int, int]:
 
 def _launch(density: bool, tgt, cand, lengths, periodic, level, self_mask: bool) -> torch.Tensor:
     """One launch of csrc/stencil.cu. tgt = (x, y, z, r2 or h, valid); cand
-    = (x, y, z, mass or None, valid). The wrappers (B3, B4) pass
-    self_mask=False; self_mask=True is the one-sided B1/B2 route that
-    csrc/stencil_sym.cu replaced, kept only as the yardstick chip_smoke.py
-    times the half-stencil kernel against."""
+    = (x, y, z, mass or None, valid). The B4 wrapper passes
+    self_mask=False. The one-sided B1/B2 route (self_mask=True) and the
+    two-leg B3 route (self_mask=False, once from each end) are what
+    csrc/stencil_sym.cu replaced, kept only as the yardsticks chip_smoke.py
+    times the symmetric kernels against."""
     tx, ty, tz, tw, tvalid = tgt
     cx, cy, cz, cw, cvalid = cand
     dev = tx.device
@@ -161,6 +172,16 @@ def _launch(density: bool, tgt, cand, lengths, periodic, level, self_mask: bool)
     return out
 
 
+def _scratch(n_tables: int, n_cells: int, cap: int, dev):
+    """The symmetric kernel's scratch in one int32 buffer: 5 unsigned 64-bit
+    counters (the kernel zeroes them), the row lengths (n_tables, n_cells)
+    and the work lists (n_tables, n_cells * ceil(cap / 32))."""
+    n_list = n_cells * -(-cap // 32)
+    buf = torch.empty(10 + n_tables * (n_cells + n_list), dtype=torch.int32, device=dev)
+    rows = buf[10:10 + n_tables * n_cells].view(n_tables, n_cells)
+    return rows, buf[10 + n_tables * n_cells:].view(n_tables, n_list), buf[:10]
+
+
 def _launch_sym(density: bool, px, py, pz, w, mass, valid, lengths, periodic,
                 level) -> torch.Tensor:
     """One launch of the half-stencil kernel (B1 with w = r2, B2 with
@@ -169,13 +190,46 @@ def _launch_sym(density: bool, px, py, pz, w, mass, valid, lengths, periodic,
     lib = SYM_LIBRARY.load()
     lengths = lengths.to(device=dev, dtype=torch.float32).contiguous()
     out = torch.zeros(px.shape, dtype=torch.float32 if density else torch.int32, device=dev)
-    row_counts = torch.empty(px.shape[0], dtype=torch.int32, device=dev)
+    row_counts, units, stats = _scratch(1, px.shape[0], px.shape[1], dev)
     err = lib.cstone_stencil_sym(
         int(density), ptr(px), ptr(py), ptr(pz), ptr(w), ptr(mass), ptr(valid), px.shape[1],
         ptr(lengths), int(periodic[0]), int(periodic[1]), int(periodic[2]), int(level),
-        ptr(row_counts), ptr(out), stream_of(px))
+        ptr(row_counts), ptr(units), ptr(stats), ptr(out), stream_of(px))
     check_launch(err, "stencil_sym")
     return out
+
+
+def _launch_cross(density: bool, ta, tb, lengths, periodic, level):
+    """One launch of the cross kernel (B3) between two disjoint tables, each
+    (x, y, z, r2 or h, mass or None, valid), into zeroed outputs: (results
+    on ta's layout, results on tb's layout). The kernel puts its lanes on
+    the table whose busy 32-slot chunks are fuller (cross_lanes_on_b)."""
+    dev = ta[0].device
+    lib = SYM_LIBRARY.load()
+    lengths = lengths.to(device=dev, dtype=torch.float32).contiguous()
+    dtype = torch.float32 if density else torch.int32
+    outs = tuple(torch.zeros(t[0].shape, dtype=dtype, device=dev) for t in (ta, tb))
+    row_counts, units, stats = _scratch(2, ta[0].shape[0], max(ta[0].shape[1], tb[0].shape[1]), dev)
+    err = lib.cstone_stencil_cross(
+        int(density), *(ptr(a) for a in ta), ta[0].shape[1],
+        *(ptr(a) for a in tb), tb[0].shape[1], ptr(lengths),
+        int(periodic[0]), int(periodic[1]), int(periodic[2]), int(level),
+        ptr(row_counts[0]), ptr(row_counts[1]), ptr(units[0]), ptr(units[1]), ptr(stats),
+        ptr(outs[0]), ptr(outs[1]), stream_of(ta[0]))
+    check_launch(err, "stencil_cross")
+    return outs
+
+
+def cross_lanes_on_b(valid_a: torch.Tensor, valid_b: torch.Tensor) -> bool:
+    """Which table the cross kernel (B3) puts its lanes on, as it decides it
+    on the card: B when B's busy 32-slot chunks hold more valid slots each
+    than A's (ties and empty tables: A). The decision changes no count."""
+    def chunks_and_slots(valid):
+        n = valid.sum(dim=1)
+        return int(((n + 31) // 32).sum()), int(n.sum())
+
+    (ca, sa), (cb, sb) = chunks_and_slots(valid_a), chunks_and_slots(valid_b)
+    return sb * ca > sa * cb
 
 
 # ----------------------------------------------------------------------------
@@ -220,7 +274,10 @@ def stencil_cross(tgt, cand, lengths, periodic, level, op: str = "count",
     op="density". Returns (A-side results on A's layout, B-side results on
     B's layout): each side counts (or sums m W over) the other set at its
     OWN radius, computed from its own end. mass_t / mass_c are per-slot
-    masses of A / B (None: unit mass).
+    masses of A / B (None: unit mass). On the card one launch tests each
+    A-B pair once and credits both ends; density sums are then float
+    atomics, so their last bits vary from run to run (within rtol 1e-5 of
+    stencil_cross_plain). Counts are bit-equal to it.
     """
     global stencil_cross_launches
     if op not in ("count", "density"):
@@ -232,14 +289,10 @@ def stencil_cross(tgt, cand, lengths, periodic, level, op: str = "count",
         raise ValueError("target and candidate tables must be on one device")
     if tgt[0].device.type == "cpu":
         return stencil_cross_plain(tgt, cand, lengths, periodic, level, op, mass_t, mass_c)
-    density = op == "density"
     ax, ay, az, aw, av = tgt
     bx, by, bz, bw, bv = cand
-    res_a = _launch(density, (ax, ay, az, aw, av), (bx, by, bz, mass_c, bv),
-                    lengths, periodic, level, self_mask=False)
-    stencil_cross_launches += 1
-    res_b = _launch(density, (bx, by, bz, bw, bv), (ax, ay, az, mass_t, av),
-                    lengths, periodic, level, self_mask=False)
+    res_a, res_b = _launch_cross(op == "density", (ax, ay, az, aw, mass_t, av),
+                                 (bx, by, bz, bw, mass_c, bv), lengths, periodic, level)
     stencil_cross_launches += 1
     note_launch("stencil_cross", (tgt, cand, lengths, periodic, level, op, mass_t, mass_c),
                 (res_a, res_b))
@@ -399,6 +452,35 @@ def stencil_counts_asym_plain(px, py, pz, r2, valid, lengths, periodic, level) -
     return counts - (valid & (r2 > 0)).to(torch.int32)
 
 
+def _end_terms(density: bool, d2, own_key, other_m):
+    """One end's terms of its pair tests: d2 < r2 (counts, own_key = r2), or
+    W(sqrt(d2) / h) times the other end's mass (density, own_key = 1/h)."""
+    if not density:
+        return (d2 < own_key).to(torch.int32)
+    t = cubic_spline_w(torch.sqrt(d2) * own_key)
+    return t if other_m is None else t * other_m
+
+
+def _both_ends(density: bool, ok, at_i, at_j):
+    """(sums over j of the i-end terms, sums over i of the j-end terms) of
+    (..., n_i, n_j) pair tensors, over the pairs in `ok`."""
+    dtype = torch.float32 if density else torch.int32
+    zero = torch.zeros((), dtype=at_i.dtype, device=at_i.device)
+    return (torch.where(ok, at_i, zero).sum(dim=-1, dtype=dtype),
+            torch.where(ok, at_j, zero).sum(dim=-2, dtype=dtype))
+
+
+def _seen_from_neighbour(x, y, z, lengths, periodic, D, dx, dy, dz):
+    """Coordinates of each cell's slots as the cell at direction (dx, dy, dz)
+    sees them: shifted by -o L on the periodic axes that direction wraps."""
+    seen = [x, y, z]
+    for axis, d in enumerate((dx, dy, dz)):
+        if d != 0 and periodic[axis]:
+            over = _wrap_over(D, d, axis, x.device)
+            seen[axis] = seen[axis] + (-over).to(torch.float32) * lengths[axis]
+    return seen
+
+
 def stencil_sym_plain(density: bool, px, py, pz, w, valid, lengths, periodic, level,
                       mass=None) -> torch.Tensor:
     """Plain mirror of the half-stencil kernel's decomposition
@@ -425,41 +507,81 @@ def stencil_sym_plain(density: bool, px, py, pz, w, valid, lengths, periodic, le
     lengths = lengths.to(device=dev, dtype=torch.float32)
     key = 1.0 / w if density else w  # the per-end value each test reads: 1/h or r2
 
-    def term(d2, own_key, other_m):
-        if not density:
-            return (d2 < own_key).to(torch.int32)
-        t = cubic_spline_w(torch.sqrt(d2) * own_key)
-        return t if other_m is None else t * other_m
-
-    dtype = torch.float32 if density else torch.int32
-
-    def sums(tgt, cand, ok):  # target-end sums over j, candidate-end sums over i
-        zero = torch.zeros((), dtype=tgt.dtype, device=dev)
-        return (torch.where(ok, tgt, zero).sum(dim=-1, dtype=dtype),
-                torch.where(ok, cand, zero).sum(dim=-2, dtype=dtype))
-
-    total = torch.zeros(shp, dtype=dtype, device=dev)
+    total = torch.zeros(shp, dtype=torch.float32 if density else torch.int32, device=dev)
     # centre cell: slot pairs j > i, one d2 serves both ends
     d2 = _pair_d2(x, y, z, x, y, z)
     ok = v[..., :, None] & v[..., None, :] & torch.ones(cap, cap, dtype=torch.bool, device=dev).triu(1)
     mi = None if m is None else m[..., :, None]
     mj = None if m is None else m[..., None, :]
-    at_i, at_j = sums(term(d2, key[..., :, None], mj), term(d2, key[..., None, :], mi), ok)
+    at_i, at_j = _both_ends(density, ok, _end_terms(density, d2, key[..., :, None], mj),
+                            _end_terms(density, d2, key[..., None, :], mi))
     total += at_i + at_j
     for dx, dy, dz in _directions()[14:]:  # the 13 forward directions
         cx, cy, cz, cv = _neighbour_planes(x, y, z, v, lengths, periodic, D, dx, dy, dz)
         rx, ry, rz, rkey = (_roll3(a, dx, dy, dz) for a in (x, y, z, key))
         rm = None if m is None else _roll3(m, dx, dy, dz)
-        # the target as the candidate end sees it: shifted by -o L on wrapped axes
-        seen = [x, y, z]
-        for axis, d in enumerate((dx, dy, dz)):
-            if d != 0 and periodic[axis]:
-                over = _wrap_over(D, d, axis, dev)
-                seen[axis] = seen[axis] + (-over).to(torch.float32) * lengths[axis]
+        seen = _seen_from_neighbour(x, y, z, lengths, periodic, D, dx, dy, dz)
         d2i = _pair_d2(x, y, z, cx, cy, cz)
         d2j = _pair_d2(rx, ry, rz, *seen).transpose(-1, -2)
         ok = v[..., :, None] & cv[..., None, :]
-        at_i, at_j = sums(term(d2i, key[..., :, None], None if rm is None else rm[..., None, :]),
-                         term(d2j, rkey[..., None, :], mi), ok)
+        at_i, at_j = _both_ends(
+            density, ok,
+            _end_terms(density, d2i, key[..., :, None], None if rm is None else rm[..., None, :]),
+            _end_terms(density, d2j, rkey[..., None, :], mi))
         total += at_i + torch.roll(at_j, shifts=(dx, dy, dz), dims=(0, 1, 2))
     return torch.nn.functional.pad(total.reshape(D ** 3, cap), (0, full_cap - cap))
+
+
+def stencil_cross_sym_plain(tgt, cand, lengths, periodic, level, op: str = "count",
+                            mass_t=None, mass_c=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain mirror of the cross kernel's decomposition (B3 in
+    csrc/stencil_sym.cu), with the arguments and results of stencil_cross:
+    the lanes go on the table cross_lanes_on_b picks, each cell of that
+    table meets all 27 neighbour cells of the other (the staged table),
+    each A-B pair is tested once, and both ends are credited, each at its
+    own radius from its own end (the staged end rolled back onto its cell).
+    Across a periodic edge the staged end takes d2 as x_s - (x_l - o L);
+    elsewhere that equals the lane end's d2 bit for bit. Counts equal
+    stencil_cross_plain bit for bit, density sums up to summation order.
+    Dense (cells, cap_lane, cap_staged) pair tensors: small grids only."""
+    density = op == "density"
+    D = 1 << int(level)
+    dev = tgt[0].device
+    lengths = lengths.to(device=dev, dtype=torch.float32)
+
+    def cut(table, mass):  # to the fullest row, as (D, D, D, cap) planes
+        cap = max(1, int(table[4].sum(dim=1).max()))
+        shp = (D, D, D, cap)
+        x, y, z, w, v = (a[:, :cap].reshape(shp) for a in table)
+        m = None if mass is None else mass[:, :cap].reshape(shp)
+        return x, y, z, 1.0 / w if density else w, v, m
+
+    lanes_b = cross_lanes_on_b(tgt[4], cand[4])
+    a, b = (tgt, mass_t), (cand, mass_c)
+    (lanes, l_mass), (staged, s_mass) = (b, a) if lanes_b else (a, b)
+    lx, ly, lz, lkey, lv, lm = cut(lanes, l_mass)
+    sx, sy, sz, skey, sv, sm = cut(staged, s_mass)
+    dtype = torch.float32 if density else torch.int32
+    total_l = torch.zeros(lx.shape, dtype=dtype, device=dev)
+    total_s = torch.zeros(sx.shape, dtype=dtype, device=dev)
+    for dx, dy, dz in _directions():
+        cx, cy, cz, cv = _neighbour_planes(sx, sy, sz, sv, lengths, periodic, D, dx, dy, dz)
+        rx, ry, rz, rkey = (_roll3(a, dx, dy, dz) for a in (sx, sy, sz, skey))
+        rm = None if sm is None else _roll3(sm, dx, dy, dz)
+        seen = _seen_from_neighbour(lx, ly, lz, lengths, periodic, D, dx, dy, dz)
+        d2l = _pair_d2(lx, ly, lz, cx, cy, cz)
+        d2s = _pair_d2(rx, ry, rz, *seen).transpose(-1, -2)
+        ok = lv[..., :, None] & cv[..., None, :]
+        at_l, at_s = _both_ends(
+            density, ok,
+            _end_terms(density, d2l, lkey[..., :, None], None if rm is None else rm[..., None, :]),
+            _end_terms(density, d2s, rkey[..., None, :], None if lm is None else lm[..., :, None]))
+        total_l += at_l
+        total_s += torch.roll(at_s, shifts=(dx, dy, dz), dims=(0, 1, 2))
+
+    def uncut(total, table):
+        return torch.nn.functional.pad(total.reshape(D ** 3, -1),
+                                       (0, table[0].shape[1] - total.shape[-1]))
+
+    res_l, res_s = uncut(total_l, lanes), uncut(total_s, staged)
+    return (res_s, res_l) if lanes_b else (res_l, res_s)

@@ -5,15 +5,18 @@ RandomGaussianCoordinates, test/coord_samples/plummer.hpp:21-80).
 
 `adaptive_h` assigns SPH-style smoothing lengths h_i ~ rho_i^{-1/3},
 calibrated so the MEAN neighbor count (d < 2h) hits a target: the input of
-the tiered cell list (traversal/tiered.py). `wrap_threshold_ell` builds
-the stencil input on which a half stencil that reused one end's d2 across
-a periodic wrap would miscount. Host-side numpy, set-up code."""
+the tiered cell list (traversal/tiered.py). `wrap_threshold_ell` and
+`wrap_threshold_cross` build the stencil inputs on which a symmetric pass
+that reused one end's d2 across a periodic wrap would miscount;
+`mixed_image_runs` the run-streaming counts input whose tiles need every
+kind of minimum image. Host-side numpy, set-up code."""
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["gaussian_coords", "plummer_coords", "adaptive_h", "grid_density", "wrap_threshold_ell"]
+__all__ = ["gaussian_coords", "plummer_coords", "adaptive_h", "grid_density", "wrap_threshold_ell",
+           "wrap_threshold_cross", "mixed_image_runs"]
 
 
 def gaussian_coords(n: int, limits, seed: int = 42, dtype=np.float32) -> np.ndarray:
@@ -119,3 +122,80 @@ def wrap_threshold_ell(axis: int, seed: int = 0):
         planes[3, cell, 0] = max(di * di, dj * dj)
         valid[cell, 0] = True
     return planes, valid, level, di * di, dj * dj
+
+
+def wrap_threshold_cross(axis: int, swap: bool = False, seed: int = 0):
+    """The pair of `wrap_threshold_ell` split into two one-particle tables
+    for the cross pass: A holds particle i (the last cell along `axis`) and
+    B particle j (the first cell), or the other way round with `swap`. Both
+    radii are the larger d2, so exactly one table counts the other, and a
+    pass that reused one end's d2 at the other end gets that end wrong.
+
+    Returns (planes (4, 64, 4) float32 shared by both tables: x, y, z, r2;
+    valid of A; valid of B; level 2; d2 from A's end; d2 from B's end).
+    """
+    planes, valid, level, d2_i, d2_j = wrap_threshold_ell(axis, seed)
+    D = 1 << level
+    ijk = [2, 2, 2]
+    ijk[axis] = D - 1
+    cell_i = (ijk[0] * D + ijk[1]) * D + ijk[2]
+    in_i = np.zeros_like(valid)
+    in_i[cell_i] = valid[cell_i]
+    in_j = valid & ~in_i
+    if swap:
+        return planes, in_j, in_i, level, d2_j, d2_i
+    return planes, in_i, in_j, level, d2_i, d2_j
+
+
+def mixed_image_runs(group_size: int, n_groups: int, periodic: bool = True, seed: int = 0):
+    """Run-streaming counts input (the arguments of pairwise_count_runs, as
+    numpy) on which the floor(d / L + 1/2) image of the unit box varies in
+    every way a tile can see. Particle g*G + t is target t of group g. The
+    first third of the groups is packed around centres near the faces and
+    the middle of the box; the second third copies it shifted by exactly
+    L/2 on x and on some other axes, so many pairs sit at exactly +-L/2;
+    the last third mirrors it through the faces (x -> 1023/1024 - x), so
+    groups near one face meet candidates near the opposite one. Each
+    group's runs are ranges of its own particles and of its two copies'
+    (or originals') and of a random group's, with empty runs between. Radii
+    up to 0.6, some targets padded (r2 = -1). Coordinates lie on the 1/1024
+    grid, so every shift and mirror is exact.
+
+    Returns (targets (n_groups, G, 3), r2 (n_groups, G), run_start and
+    run_len (n_groups, 8) int64, xs, ys, zs (n,), box_params (9,)): float32
+    unless stated. n_groups must be a multiple of 3.
+    """
+    if n_groups % 3:
+        raise ValueError(f"n_groups must be a multiple of 3, got {n_groups}")
+    rng = np.random.RandomState(seed)
+    G, third = group_size, n_groups // 3
+    top = 1023.0 / 1024.0
+    orig = np.empty((third, G, 3))
+    for g in range(third):
+        w = rng.choice([0.004, 0.01, 0.04], size=3)
+        centre = [rng.choice([w[a] + 0.002, top - w[a] - 0.002, 0.5, rng.uniform(w[a], 1 - w[a])])
+                  for a in range(3)]
+        orig[g] = np.asarray(centre) + rng.uniform(-1.0, 1.0, size=(G, 3)) * w
+    orig = np.clip(np.round(orig * 1024.0) / 1024.0, 0.0, top)
+    shift = rng.randint(0, 2, size=(third, 1, 3)) * 0.5
+    shift[:, :, 0] = 0.5
+    flip = rng.randint(0, 2, size=(third, 1, 3)).astype(bool)
+    flip[:, :, 0] = True
+    pos = np.concatenate([orig, (orig + shift) % 1.0, np.where(flip, top - orig, orig)])
+    n = n_groups * G
+    flat = pos.reshape(n, 3).astype(np.float32)
+
+    R = 8
+    run_start = np.zeros((n_groups, R), np.int64)
+    run_len = np.zeros((n_groups, R), np.int64)
+    for g in range(n_groups):
+        kin = [(g + k * third) % n_groups for k in range(3)] + [rng.randint(n_groups)]
+        for r, other in zip((0, 2, 4, 6), kin):
+            s = other * G + rng.randint(0, G // 2 + 1)
+            run_start[g, r] = s
+            run_len[g, r] = min(n, s + rng.randint(max(1, G // 4), G + 1)) - s
+    r2 = rng.uniform(0.0, 0.36, size=(n_groups, G)).astype(np.float32)
+    r2[rng.uniform(size=r2.shape) < 0.1] = -1.0
+    box_params = np.array([1, 1, 1, 1, 1, 1] + [float(periodic)] * 3, np.float32)
+    return (flat.reshape(n_groups, G, 3), r2, run_start, run_len,
+            flat[:, 0].copy(), flat[:, 1].copy(), flat[:, 2].copy(), box_params)

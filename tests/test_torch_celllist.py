@@ -29,6 +29,8 @@ from cstone_tpu_torch.ops.stencil import (
 from cstone_tpu_torch.sfc import make_box
 from cstone_tpu_torch.traversal import celllist as tcl
 
+import torch_threads  # noqa: F401  (two intra-op threads per xdist worker)
+
 MASS = 0.37
 
 

@@ -19,6 +19,8 @@ from cstone_tpu_torch.ops.keys64 import to_numpy
 from cstone_tpu_torch.sfc import make_box
 from cstone_tpu_torch.tree import root_tree
 
+import torch_threads  # noqa: F401  (two intra-op threads per xdist worker)
+
 N = 3000
 CAP_TREE = 1024
 RESULT_FIELDS = ("keys", "x", "y", "z", "h", "layout", "leaf_counts", "start_index",

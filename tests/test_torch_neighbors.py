@@ -23,6 +23,8 @@ from cstone_tpu_torch.sfc import make_box
 from cstone_tpu_torch.traversal import neighbors as tnb
 from tests.test_neighbors import _setup, brute_force_counts
 
+import torch_threads  # noqa: F401  (two intra-op threads per xdist worker)
+
 # the group settings of test_neighbors.py
 KW = dict(group_size=32, cand_cap=8192, cand_leaf_cap=640, chunk=16)
 

@@ -3,9 +3,9 @@ versions, on the card: B5 (csrc/neighbors_v2.cu, run streaming, the
 "v2" route of find_neighbors) and B6 (csrc/neighbors_v1.cu, dense over
 pre-gathered candidates, the "v1" route), on the arguments find_neighbors
 launches them with after Domain.sync for 16K uniform and Gaussian particles with the
-group settings of test_neighbors.py. Skips without an NVIDIA GPU and
-nvcc; chip_smoke.py phase 3 runs the same checks. Tolerance: counts
-bit-equal."""
+group settings of test_neighbors.py; B5 also on tiles that need no
+image, one hoisted shift or the per-pair image (mixed_image_runs). Skips without an NVIDIA GPU and nvcc; chip_smoke.py
+phase 3 runs the same checks. Tolerance: counts bit-equal."""
 
 import numpy as np
 import pytest
@@ -16,7 +16,7 @@ from cstone_tpu_torch.ops import neighbors_v1, neighbors_v2
 from cstone_tpu_torch.ops.cuda_lib import nvcc_path, record_launches
 from cstone_tpu_torch.sfc import make_box
 from cstone_tpu_torch.traversal import neighbors
-from cstone_tpu_torch.utils.workloads import gaussian_coords
+from cstone_tpu_torch.utils.workloads import gaussian_coords, mixed_image_runs
 
 pytestmark = pytest.mark.cuda
 
@@ -78,4 +78,15 @@ def test_dense_kernel_matches_plain(cuda_device, periodic, gauss):
     assert torch.equal(counts[:16384], got.reshape(-1)[:16384])
     want = neighbors_v1.pairwise_count_plain(*args)
     torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("G,n_groups", [(32, 48), (256, 12)])
+@pytest.mark.parametrize("periodic", [False, True])
+def test_runs_kernel_mixed_images(cuda_device, G, n_groups, periodic):
+    args = tuple(torch.from_numpy(a).to(cuda_device) for a in mixed_image_runs(G, n_groups, periodic))
+    got = neighbors_v2.pairwise_count_runs(*args)
+    want = neighbors_v2.pairwise_count_runs_plain(*args)
+    torch.cuda.synchronize()
+    assert int(want.sum()) > 0
     assert torch.equal(got, want)

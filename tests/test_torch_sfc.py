@@ -22,6 +22,8 @@ from cstone_tpu_torch.sfc import compute_sfc_keys, isfc_key, make_box, sfc3d
 from cstone_tpu_torch.sfc.encode import decode_sfc, sfc_ibox
 from cstone_tpu_torch.sfc.keys import node_range, remove_key, tree_level
 
+import torch_threads  # noqa: F401  (two intra-op threads per xdist worker)
+
 PORT = pathlib.Path(__file__).resolve().parent.parent / "cstone_tpu_torch"
 
 

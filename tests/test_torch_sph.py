@@ -19,6 +19,8 @@ from cstone_tpu_torch.models import SphState, sph_density_step
 from cstone_tpu_torch.ops.keys64 import to_numpy
 from cstone_tpu_torch.sfc import make_box
 
+import torch_threads  # noqa: F401  (two intra-op threads per xdist worker)
+
 N = 1500
 LEVEL = 2  # cell side 0.5 >= 2 * max(h) = 0.2
 CAP = 64

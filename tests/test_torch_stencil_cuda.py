@@ -2,8 +2,10 @@
 versions, on the card: B1/B2 (self-excluded counts and density, the
 half-stencil kernel csrc/stencil_sym.cu) on uniform and Gaussian grids, at
 caps above 1024, across a periodic wrap whose d2 differs between the two
-ends, and launch to launch; B3 (cross pass between two disjoint sets, both
-legs) and B4 (the one-sided route, against impl="xla") of csrc/stencil.cu;
+ends, and launch to launch; B3 (the cross pass between two disjoint sets,
+one symmetric launch of csrc/stencil_sym.cu for both sides) with unequal
+caps, a lane-table cap above 1024 with the lanes on either argument, and
+the wrap pair split across the two tables; B4 (the one-sided route of csrc/stencil.cu, against impl="xla");
 and every B1 and B3 launch of the tiered cell list on the arguments it made
 them with. Skips without an NVIDIA GPU and nvcc; chip_smoke.py phase 3 runs
 the same checks. Tolerance: counts bit-equal, density sums within rtol
@@ -18,7 +20,12 @@ from cstone_tpu_torch.ops.cuda_lib import nvcc_path, record_launches
 from cstone_tpu_torch.ops.keys64 import srl, usort
 from cstone_tpu_torch.sfc import compute_sfc_keys, make_box
 from cstone_tpu_torch.traversal import celllist, tiered
-from cstone_tpu_torch.utils.workloads import adaptive_h, gaussian_coords, wrap_threshold_ell
+from cstone_tpu_torch.utils.workloads import (
+    adaptive_h,
+    gaussian_coords,
+    wrap_threshold_cross,
+    wrap_threshold_ell,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -134,12 +141,12 @@ def test_launches_repeat(cuda_device):
     np.testing.assert_allclose(da.cpu().numpy(), db.cpu().numpy(), rtol=1e-5, atol=1e-6)
 
 
-def cross_tables(dev, level, periodic, op, n=6000, seed=3):
+def cross_tables(dev, level, periodic, op, n=6000, seed=3, frac_b=0.3):
     """Two disjoint sets of one Gaussian sample packed at `level` with
-    unequal caps (A: the dense 70%, B: the rest): ((x, y, z, w, valid),
-    mass) for each, w = r2 (count) or h (density)."""
+    unequal caps (B: a share frac_b of the particles, A: the rest):
+    ((x, y, z, w, valid), mass) for each, w = r2 (count) or h (density)."""
     keys, cols, box = _sorted_sample(dev, n, periodic, True, seed, level)
-    in_b = torch.from_numpy(np.random.RandomState(seed).uniform(size=n) < 0.3).to(dev)
+    in_b = torch.from_numpy(np.random.RandomState(seed).uniform(size=n) < frac_b).to(dev)
     tables = []
     for sel, extra in ((~in_b, 64), (in_b, 0)):
         occ = torch.bincount(srl(keys[sel], 3 * (21 - level))).max()
@@ -156,9 +163,12 @@ def cross_tables(dev, level, periodic, op, n=6000, seed=3):
 def test_cross_matches_plain(cuda_device, level, periodic, op):
     ((ta, ma), (tb, mb)), box = cross_tables(cuda_device, level, periodic, op)
     assert ta[0].shape[1] != tb[0].shape[1]
+    assert not stencil.cross_lanes_on_b(ta[4], tb[4])  # A, the 70% share, takes the lanes
     flags = (periodic,) * 3
     mass = dict(mass_t=ma, mass_c=mb) if op == "density" else {}
+    stencil.reset_launches()
     got = stencil.stencil_cross(ta, tb, box.lengths, flags, level, op=op, **mass)
+    assert stencil.launches()["stencil_cross"] == 1
     want = stencil.stencil_cross_plain(ta, tb, box.lengths, flags, level, op=op, **mass)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
@@ -166,6 +176,44 @@ def test_cross_matches_plain(cuda_device, level, periodic, op):
             assert torch.equal(g, w)
         else:
             np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-5, atol=1e-6)
+
+
+# level 2: B holds 70% of 35,000 Gaussian particles, about 1,600 in its
+# densest cell, and takes the kernel's lanes; passed first, it takes them
+# again, so the lane table is in turn each argument
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("op", ["count", "density"])
+def test_cross_large_lane_cap_matches_plain(cuda_device, periodic, op):
+    ((ta, ma), (tb, mb)), box = cross_tables(cuda_device, 2, periodic, op, n=35_000, frac_b=0.7)
+    assert int(tb[4].sum(dim=1).max()) > 1024
+    assert stencil.cross_lanes_on_b(ta[4], tb[4])
+    flags = (periodic,) * 3
+    for (t1, m1), (t2, m2) in (((ta, ma), (tb, mb)), ((tb, mb), (ta, ma))):
+        mass = dict(mass_t=m1, mass_c=m2) if op == "density" else {}
+        got = stencil.stencil_cross(t1, t2, box.lengths, flags, 2, op=op, **mass)
+        want = stencil.stencil_cross_plain(t1, t2, box.lengths, flags, 2, op=op, **mass)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            if op == "count":
+                assert torch.equal(g, w)
+            else:
+                np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+@pytest.mark.parametrize("swap", [False, True])
+def test_cross_wrap_pair_matches_plain(cuda_device, axis, swap):
+    # the staged end must test its own d2 across the wrap; with swap the
+    # counting end is in turn the lane end and the staged end
+    planes, valid_a, valid_b, level, _, _ = wrap_threshold_cross(axis, swap)
+    px, py, pz, r2 = torch.from_numpy(planes).to(cuda_device)
+    ta, tb = ((px, py, pz, r2, torch.from_numpy(v).to(cuda_device)) for v in (valid_a, valid_b))
+    L, flags = torch.ones(3, device=cuda_device), (True,) * 3
+    got = stencil.stencil_cross(ta, tb, L, flags, level)
+    want = stencil.stencil_cross_plain(ta, tb, L, flags, level)
+    torch.cuda.synchronize()
+    assert sum(int(w.sum()) for w in want) == 1
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.parametrize("level", [3, 5])

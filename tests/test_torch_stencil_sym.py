@@ -22,6 +22,8 @@ from cstone_tpu_torch.sfc import make_box
 from cstone_tpu_torch.traversal import celllist as tcl
 from cstone_tpu_torch.utils.workloads import wrap_threshold_ell
 
+import torch_threads  # noqa: F401  (two intra-op threads per xdist worker)
+
 
 def _sample(n, periodic, gauss, seed, hval=None):
     """Key-sorted particles in [-1, 1]^3 with h (per particle unless hval)

@@ -22,6 +22,8 @@ from cstone_tpu_torch.traversal import tiered as tt
 from cstone_tpu_torch.utils import workloads
 from tests.test_neighbors import brute_force_counts
 
+import torch_threads  # noqa: F401  (two intra-op threads per xdist worker)
+
 
 def _clustered(n, periodic, seed=5, h_min=0.04):
     """Gaussian core + uniform background in [-1, 1]^3 with h growing

@@ -17,6 +17,8 @@ from cstone_tpu_torch.traversal.boxoverlap import min_distance_boxes
 from cstone_tpu_torch.traversal.traversal import batched_collect_leaves_bfs
 from tests.test_torch_neighbors import _views
 
+import torch_threads  # noqa: F401  (two intra-op threads per xdist worker)
+
 
 @pytest.mark.parametrize("curve", ["hilbert", "morton"])
 @pytest.mark.parametrize("gauss", [False, True])

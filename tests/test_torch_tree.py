@@ -18,6 +18,8 @@ from cstone_tpu_torch.ops.keys64 import from_numpy, to_numpy
 from cstone_tpu_torch.tree import build_linked_octree, compute_octree, root_tree, update_octree
 from cstone_tpu_torch.tree.csarray import compute_node_counts, rebalance_decision
 
+import torch_threads  # noqa: F401  (two intra-op threads per xdist worker)
+
 
 def _sorted_keys(n, dist, key_dtype, seed):
     rng = np.random.RandomState(seed)
