@@ -54,7 +54,37 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      most 10 particles differing by 1 (threshold flips across the
      periodic wrap: each route computes the image its own way), and the
      last B5 and B6 launches bit-equal to their plain versions on the
-     arguments they were given.
+     arguments they were given;
+  7. path C, a Domain whose focus tree is not its global tree: 1M uniform
+     particles, h = 0.012, Domain(bucket_size=1024, bucket_size_focus=64,
+     focus_capacity != tree_capacity). Cold sync (the focus tree grown
+     from the root by focus_converge), 4 drift steps, one step at rest,
+     each followed by cell_list_neighbor_counts (B1), the last drift step
+     also by ns_view + find_neighbors "v2" on the focus tree (B5); beside
+     it a Domain with bucket 64 (phase 4's, the fast_focus branch) on the
+     same positions. Checks: overflow and all 7 overflow_detail entries 0,
+     focus_converged after each step, the focus tree (leaves, n_leaf,
+     leaf_counts) and layout, keys, x/y/z/h and counts bit-equal to the
+     bucket-64 Domain's, the global tree the cornerstone tree at bucket
+     1024 (every leaf <= 1024, every sibling group's parent > 1024), the
+     step at rest converged in one iteration without one
+     build_linked_octree call, the B1 and B5 launches of the last drift
+     step bit-equal to their plain versions. Prints ms/step of sync alone
+     and of sync+counts, cold and warm, for both Domains in turns, the
+     converge iterations of each step, and the torch operations and host
+     read-backs one cold and one warm sync dispatch;
+  8. path D, one rank's locally essential tree and its halos from the
+     pool: the sorted keys and global tree of phase 7, an 8-rank SFC
+     assignment, then for rank 3 focus_converge from the root with MAC
+     marking (theta 0.5) and all rank boundaries mandatory, per-leaf radii
+     2 x max h, find_halos. Checks: converged, overflow 0, a cornerstone
+     array whose counts sum to n, every boundary a leaf key, leaves inside
+     the rank's range equal to path C's focus tree there and no more
+     outside (both counts printed), halo flags 0 inside and equal to an all-pairs box
+     overlap on the card, mark_macs on the card equal to the same function
+     on CPU copies of its inputs, every marked node's parent marked, no
+     marked node wholly inside the focus. Prints the converge iterations,
+     batched_mark's levels per call and the ms of the whole build.
 Each path's launch counts are set to 0 just before it is driven and read
 just after. Every kernel's bound is the larger of its FP32 operations over
 67 TFLOP/s and its bytes over 3.35 TB/s, counted from that run's inputs;
@@ -91,6 +121,9 @@ DRIFT_STEPS = 10
 SPH_STEPS = 3
 TIERED_STEPS = 3
 FIND_STEPS = 3
+FOCUS_STEPS = 4
+GLOBAL_BUCKET = 1024  # path C's global tree; its focus tree keeps BUCKET
+LET_RANKS, LET_RANK, LET_THETA = 8, 3, 0.5
 # find_neighbors settings of bench.py (:535-537, :654, :670-671), except
 # cand_cap: the "v1" route needs 3676 flattened candidates per group at
 # this sync, above bench.py's 3584; bench.py's tile=1024 has no
@@ -563,8 +596,8 @@ def drifted(xyz, drift, sgn):
     return tuple((c + sgn * drift[:, i]) % 1.0 for i, c in enumerate(xyz))
 
 
-def tree_capacity(n):
-    return max(4096, int(3.2 * n / BUCKET) // 1024 * 1024 + 4096)
+def tree_capacity(n, bucket=BUCKET):
+    return max(4096, int(3.2 * n / bucket) // 1024 * 1024 + 4096)
 
 
 def main_path_phase(dev, card):
@@ -975,6 +1008,361 @@ def find_neighbors_phase(dev, card):
     return {k: launches[k] for k in ("pairwise_count_runs", "pairwise_count")}, err, times
 
 
+# ----------------------------------------------------------------------------
+# phase 7: path C, a Domain whose focus tree differs from its global tree
+# ----------------------------------------------------------------------------
+
+class OpCounter:
+    """Counts the torch operations dispatched inside the block and, of
+    them, the reads of device values on the host (item, bool, int,
+    tolist, a copy to the CPU). A hand-written kernel's launch is not a
+    torch operation."""
+
+    def __enter__(self):
+        import torch
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+        self.ops = self.readbacks = 0
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                counter.ops += 1
+                from_card = any(isinstance(a, torch.Tensor) and a.is_cuda for a in args)
+                to_host = isinstance(out, torch.Tensor) and not out.is_cuda
+                counter.readbacks += "_local_scalar_dense" in str(func) or (from_card and to_host)
+                return out
+
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+
+class CallCounter:
+    """Counts the calls of module.name inside the block; with timed=True
+    also sums their time in ms, the card drained before and after each."""
+
+    def __init__(self, module, name, timed=False):
+        self.module, self.name, self.timed, self.n, self.ms = module, name, timed, 0, 0.0
+
+    def __enter__(self):
+        import torch
+
+        self.real = getattr(self.module, self.name)
+
+        def counted(*a, **k):
+            self.n += 1
+            if not self.timed:
+                return self.real(*a, **k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.real(*a, **k)
+            torch.cuda.synchronize()
+            self.ms += 1e3 * (time.perf_counter() - t0)
+            return out
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def bucket_tree_ok(tree, bucket, what) -> None:
+    """The cornerstone fixed point at `bucket`: no leaf above it, and no
+    complete group of 8 sibling leaves that would fit into one."""
+    from cstone_tpu_torch.ops.keys64 import to_numpy
+
+    nn = int(tree.n_nodes)
+    keys = to_numpy(tree.keys)[: nn + 1]
+    counts = tree.counts[:nn].cpu().numpy()
+    check(int(counts.max()) <= bucket, f"{what}: a leaf holds {int(counts.max())} > {bucket}")
+    d = np.diff(keys)
+    i = np.arange(max(nn - 7, 0))
+    group = np.all(d[i[:, None] + np.arange(8)] == d[i][:, None], axis=1) & (keys[i] % (d[i] * np.uint64(8)) == 0)
+    cs = np.concatenate([[0], np.cumsum(counts)])
+    sums = (cs[i + 8] - cs[i])[group]
+    check(len(sums) > 0 and int(sums.min()) > bucket,
+          f"{what}: a sibling group of {int(sums.min()) if len(sums) else -1} particles was not merged")
+
+
+def focus_tree_phase(dev, card):
+    """Phase 7: Domain.sync with a focus tree built by focus_converge."""
+    import torch
+
+    from cstone_tpu_torch.domain import Domain
+    from cstone_tpu_torch.focus import octree_focus
+    from cstone_tpu_torch.ops.cuda_lib import record_launches
+    from cstone_tpu_torch.ops.keys64 import to_numpy
+    from cstone_tpu_torch.sfc import PERIODIC, make_box
+    from cstone_tpu_torch.traversal import cell_list_neighbor_counts, find_neighbors
+
+    xyz, drift, h = uniform_setup(dev)
+    box = make_box(0.0, 1.0, boundaries=PERIODIC, device=dev)
+    domains = {
+        "C": Domain(bucket_size=GLOBAL_BUCKET, bucket_size_focus=BUCKET,
+                    tree_capacity=tree_capacity(N, GLOBAL_BUCKET), focus_capacity=tree_capacity(N), device=dev),
+        "4": Domain(bucket_size=BUCKET, tree_capacity=tree_capacity(N), device=dev),  # phase 4's
+    }
+    check(domains["C"].focus_capacity != domains["C"].tree_capacity, "path C needs its own focus capacity")
+    states = {k: d.init_state(box=box, boundaries=(1, 1, 1)) for k, d in domains.items()}
+
+    def counts_of(res, state):
+        c, ovf = cell_list_neighbor_counts(res.keys, res.x, res.y, res.z, res.h, state.box, LEVEL, CAP,
+                                           n_valid=res.end_index, const_h=True)
+        check(not bool(ovf), "cell-list cap overflowed")
+        return c
+
+    def one_step(xyz):
+        """Both Domains on the same positions, in turns: {name: (res,
+        counts, sync ms, counts ms, converge iterations, linked builds,
+        the recorded launches of the counts)}."""
+        out = {}
+        for name in tuple(order):
+            before = all_launches()
+            with CallCounter(octree_focus, "rebalance_decision_essential") as iters, \
+                    CallCounter(octree_focus, "build_linked_octree") as builds:
+                (state, res), sync_ms = timed_ms(lambda: domains[name].sync(states[name], *xyz, h))
+            with record_launches() as calls:
+                counts, counts_ms = timed_ms(lambda: counts_of(res, state))
+            states[name] = state
+            if name == "C":
+                add_launches(before)
+            out[name] = (res, counts, sync_ms, counts_ms, iters.n, builds.n, calls)
+        order.reverse()
+        return out
+
+    order = ["C", "4"]
+    launches = dict.fromkeys(KERNELS, 0)  # of path C alone, not of the Domain beside it
+
+    def add_launches(before):
+        for k, v in all_launches().items():
+            launches[k] += v - before[k]
+
+    def same_as_phase_4(out, what):
+        (rc, cc), (r4, c4) = out["C"][:2], out["4"][:2]
+        check(int(rc.overflow) == 0 and not bool(rc.overflow_detail.any()),
+              f"{what}: overflow {rc.overflow_detail.tolist()}")
+        check(states["C"].focus_converged, f"{what}: the focus tree did not converge")
+        for f in ("keys", "x", "y", "z", "h", "layout", "leaf_counts", "start_index", "end_index"):
+            check(torch.equal(getattr(rc, f), getattr(r4, f)), f"{what}: {f} differs from the bucket-{BUCKET} Domain's")
+        check(torch.equal(rc.tree.leaves, r4.tree.leaves) and int(rc.tree.n_leaf) == int(r4.tree.n_leaf),
+              f"{what}: the focus tree is not the bucket-{BUCKET} cornerstone tree")
+        check(torch.equal(rc.tree.prefixes, r4.tree.prefixes)
+              and torch.equal(rc.tree.child_offsets, r4.tree.child_offsets), f"{what}: linked focus tree differs")
+        check(torch.equal(cc, c4), f"{what}: counts differ from the bucket-{BUCKET} Domain's")
+        bucket_tree_ok(states["C"].global_tree, GLOBAL_BUCKET, f"{what}, global tree")
+        cornerstone_ok(states["C"].global_tree, N)
+
+    def report(label, out):
+        for name in ("C", "4"):
+            _, _, sync_ms, counts_ms, iters, builds, _ = out[name]
+            tag = (f"path C (buckets {GLOBAL_BUCKET}/{BUCKET}): converge iterations {iters}, linked builds {builds}"
+                   if name == "C" else f"bucket-{BUCKET} Domain (phase 4's, fast_focus)")
+            print(f"{label}: {tag}: sync {sync_ms:.3f} ms, sync+counts {sync_ms + counts_ms:.3f} ms [{card}]",
+                  flush=True)
+
+    reset_all_launches()
+    out = one_step(xyz)
+    same_as_phase_4(out, "cold step")
+    report("cold step", out)
+    gt, ft = states["C"].global_tree, out["C"][0].tree
+    print(f"global tree {int(gt.n_nodes)} leaves (capacity {gt.keys.shape[0] - 1}), focus tree "
+          f"{int(ft.n_leaf)} leaves (capacity {ft.leaves.shape[0] - 1})", flush=True)
+    check(int(ft.n_leaf) >= 4 * int(gt.n_nodes), "the focus tree should be much finer than the global tree")
+
+    sgn, warm = 1.0, []
+    for i in range(FOCUS_STEPS):
+        xyz = drifted(xyz, drift, sgn)
+        sgn = -sgn
+        out = one_step(xyz)
+        if i == FOCUS_STEPS - 1:
+            res, state, before = out["C"][0], states["C"], all_launches()
+            view = domains["C"].ns_view(res, state.box)
+            with record_launches() as calls:
+                (nb, _), find_ms = timed_ms(lambda: find_neighbors(
+                    res.x, res.y, res.z, res.h, view, state.box, use_pallas="v2", n_targets=N, **NB_KW))
+            add_launches(before)
+        same_as_phase_4(out, f"drift step {i + 1}")
+        report(f"drift step {i + 1}", out)
+        warm.append(out)
+    rest = one_step(xyz)  # the particles at rest: converged at once
+    torch.cuda.synchronize()
+    same_as_phase_4(rest, "step at rest")
+    report("step at rest", rest)
+    check(rest["C"][4] == 1 and rest["C"][5] == 0,
+          f"a warm converged step should take 1 iteration and build no linked tree: {rest['C'][4:]}")
+    print(f"phase 7 launches (path C): {json.dumps(launches)}", flush=True)
+    check(launches["stencil_counts"] == FOCUS_STEPS + 2 and launches["pairwise_count_runs"] == 1,
+          f"path C should launch B1 once each step and B5 once: {launches}")
+    med = {k: (float(np.median([o[k][2] for o in warm])), float(np.median([sum(o[k][2:4]) for o in warm])))
+           for k in ("C", "4")}
+    print(f"path C warm steps: {FOCUS_STEPS} drift steps, median sync {med['C'][0]:.3f} ms, sync+counts "
+          f"{med['C'][1]:.3f} ms; bucket-{BUCKET} Domain in the same turns: sync {med['4'][0]:.3f} ms, "
+          f"sync+counts {med['4'][1]:.3f} ms; find_neighbors v2 on the focus tree {find_ms:.3f} ms [{card}]",
+          flush=True)
+
+    # neighbours on the focus tree: the mean, and against the cell list
+    res, counts = warm[-1]["C"][:2]
+    v2c, cc = nb[:N].long(), counts[:N].long()
+    mean_nb = float(v2c.double().mean())
+    diff = (v2c - cc).abs()
+    print(f"find_neighbors on the focus tree: mean neighbours {mean_nb:.3f}; v2 vs cell list: "
+          f"{int((diff > 0).sum())} particles differ, max |diff| {int(diff.max())}", flush=True)
+    check(abs(mean_nb - 57.9) <= 0.5, f"mean neighbour count {mean_nb} outside 57.9 +- 0.5")
+    check(int((diff > 0).sum()) <= 10 and int(diff.max()) <= 1, "v2 and cell-list counts disagree beyond flips")
+
+    # the last drift step's B1 and B5 launches of path C against their plain versions
+    err = Errors()
+    mine = calls + warm[-1]["C"][6]
+    check([c[0] for c in mine] == ["pairwise_count_runs", "stencil_counts"],
+          f"path C's last drift step launched {[c[0] for c in mine]}")
+    for name, args, got in mine:
+        want, plain_ms = timed_ms(lambda: plain_of(name)(*args))
+        err.counts(name, got, want, "path-C inputs")
+        print(f"{name} on path C: bit-equal to plain; plain {plain_ms:.4f} ms (one call) [{card}]", flush=True)
+
+    # torch operations and host read-backs of one cold and one warm sync
+    for label, make_state in (("cold", lambda k: domains[k].init_state(box=box, boundaries=(1, 1, 1))),
+                              ("warm (drifted)", lambda k: states[k])):
+        if label != "cold":
+            xyz = drifted(xyz, drift, sgn)
+        for k in ("C", "4"):
+            with OpCounter() as ops:
+                domains[k].sync(make_state(k), *xyz, h)
+            print(f"{label} sync, {'path C' if k == 'C' else f'bucket-{BUCKET} Domain'}: {ops.ops} torch "
+                  f"operations dispatched, {ops.readbacks} host read-backs", flush=True)
+    launches = {k: launches[k] for k in ("stencil_counts", "pairwise_count_runs")}
+    return launches, err, warm[-1]["C"][0], states["C"]
+
+
+# ----------------------------------------------------------------------------
+# phase 8: path D, one rank's locally essential tree and halos from the pool
+# ----------------------------------------------------------------------------
+
+def let_phase(dev, card, res, state):
+    """Phase 8: what rank LET_RANK of LET_RANKS does in the pool protocol,
+    without collectives, on phase 7's sorted particles and global tree."""
+    import torch
+
+    from cstone_tpu_torch.domain.decomposition import make_sfc_assignment
+    from cstone_tpu_torch.focus import octree_focus
+    from cstone_tpu_torch.focus.source_center import geo_mac_spheres
+    from cstone_tpu_torch.ops.keys64 import to_numpy, ule
+    from cstone_tpu_torch.ops.primitives import searchsorted, segment_max
+    from cstone_tpu_torch.sfc.box import Box, IBox
+    from cstone_tpu_torch.sfc.encode import sfc_ibox
+    from cstone_tpu_torch.sfc.keys import node_range, tree_level
+    from cstone_tpu_torch.traversal import macs, traversal
+    from cstone_tpu_torch.traversal.boxoverlap import make_halo_box, overlap_iboxes
+    from cstone_tpu_torch.traversal.collisions import find_halos
+    from cstone_tpu_torch.traversal.macs import inv_theta_min_mac, mark_macs
+    from cstone_tpu_torch.tree import CsArray, root_tree
+    from cstone_tpu_torch.tree.octree import node_keys_and_levels, node_parents
+
+    box, gtree, pool_keys, pool_h = state.box, state.global_tree, res.keys, res.h
+    kdt = pool_keys.dtype
+    cap_leaf = tree_capacity(N)
+    inv_theta = inv_theta_min_mac(LET_THETA)
+    fields = ("xmin", "xmax", "ymin", "ymax", "zmin", "zmax")
+
+    traversal.mark_levels_log = []
+    t0 = time.perf_counter()
+    assignment = make_sfc_assignment(gtree.keys, gtree.counts, gtree.n_nodes, LET_RANKS)
+    bnd = assignment.boundaries
+    fs, fe = bnd[LET_RANK], bnd[LET_RANK + 1]
+    with CallCounter(octree_focus, "rebalance_decision_essential") as iters, \
+            CallCounter(macs, "mark_macs", timed=True) as marking:
+        leaves, n_leaf, linked, node_counts, overflow, _, converged = octree_focus.focus_converge(
+            root_tree(np.uint64, cap_leaf, device=dev).keys, 1, pool_keys, N, box, fs, fe, bnd, BUCKET,
+            inv_theta, skip_macs=False)
+    lif = torch.arange(cap_leaf, device=dev)
+    leaf_counts = torch.where(lif < n_leaf, node_counts[linked.leaf_order()], 0)
+    first_leaf, last_leaf = searchsorted(leaves, bnd[LET_RANK:LET_RANK + 2])
+
+    # per-leaf interaction radii: 2 x max h over the leaf's particles, for
+    # the rank's own leaves (halos.hpp:116-189)
+    leaf_off = torch.clamp(searchsorted(pool_keys, leaves), max=N)
+    hmax = torch.clamp(segment_max(pool_h, leaf_off, cap_leaf), min=0.0)  # an empty leaf holds -inf
+    mine = (lif >= first_leaf) & (lif < last_leaf)
+    radii = torch.where(mine, hmax * 2.0, 0.0)
+    build_levels = list(traversal.mark_levels_log)
+    halo_flags = find_halos(linked, radii, box, first_leaf, last_leaf)
+    torch.cuda.synchronize()
+    build_ms = 1e3 * (time.perf_counter() - t0)
+    halo_levels = traversal.mark_levels_log[len(build_levels):]
+    traversal.mark_levels_log = None
+    nl, i0, i1 = int(n_leaf), int(first_leaf), int(last_leaf)
+    print(f"rank {LET_RANK} of {LET_RANKS}, theta {LET_THETA}: locally essential tree {nl} leaves, "
+          f"{i1 - i0} of them its own, {int(halo_flags.sum())} halo leaves; {iters.n} converge iterations, "
+          f"batched_mark levels per call: mark_macs {build_levels}, find_halos {halo_levels}; whole build "
+          f"(assignment, focus_converge, radii, find_halos) {build_ms:.3f} ms, of which the {marking.n} "
+          f"mark_macs calls {marking.ms:.3f} ms [{card}]", flush=True)
+
+    check(bool(converged) and int(overflow) == 0, f"focus_converge: converged {converged}, overflow {int(overflow)}")
+    cornerstone_ok(CsArray(keys=leaves, counts=leaf_counts, n_nodes=n_leaf), N)
+    lv = to_numpy(leaves)[: nl + 1]
+    check(bool(np.isin(to_numpy(bnd), lv).all()), "an assignment boundary is not a leaf key")
+
+    # inside the rank's range: path C's focus tree; outside: coarser
+    full = to_numpy(res.tree.leaves)[: int(res.tree.n_leaf) + 1]
+    lo, hi = to_numpy(bnd)[LET_RANK], to_numpy(bnd)[LET_RANK + 1]
+    check(np.array_equal(lv[(lv >= lo) & (lv <= hi)], full[(full >= lo) & (full <= hi)]),
+          "inside the rank's range the tree is not path C's focus tree")
+    n_out, n_out_full = int(((lv < lo) | (lv > hi)).sum()), int(((full < lo) | (full > hi)).sum())
+    # outside it the tree is never finer. On a uniform sample whose cells
+    # one level up hold more than a bucket it is not coarser either:
+    # mark_macs, as in the JAX package, takes every leaf that is not
+    # interior to the focus as a target, so each foreign leaf marks its own
+    # parent and that parent's neighbours, and the refinement spreads from
+    # the focus over the whole box
+    print(f"leaf keys outside the rank's range: {n_out} (path C's focus tree: {n_out_full})", flush=True)
+    check(n_out <= n_out_full, "outside the rank's range the tree is finer than path C's")
+
+    # halo flags against all pairs of (own halo box, foreign leaf box)
+    key = leaves[:-1]
+    rng = leaves[1:] - key
+    level = tree_level(torch.where(rng != 0, rng, node_range(kdt, 21)))
+    ibox = sfc_ibox(key, level)
+    hbox = make_halo_box(ibox, radii, box, kdt)
+    own, foreign = torch.nonzero(mine)[:, 0], torch.nonzero((lif < n_leaf) & ~mine)[:, 0]
+    src = IBox(*(getattr(ibox, f)[foreign][None, :] for f in fields))
+    want = torch.zeros(cap_leaf, dtype=torch.int32, device=dev)
+    for c in range(0, own.numel(), 512):
+        tgt = IBox(*(getattr(hbox, f)[own[c:c + 512]][:, None] for f in fields))
+        want[foreign] |= overlap_iboxes(src, tgt, kdt).any(dim=0).to(torch.int32)
+    check(int(halo_flags[mine].sum()) == 0, "a leaf of the rank's own range is flagged as halo")
+    check(torch.equal(halo_flags, want), f"halo flags differ from all pairs at "
+          f"{int((halo_flags != want).sum())} of {nl} leaves")
+    check(0 < int(want.sum()) < foreign.numel(), "the halo set should be a proper part of the foreign leaves")
+    print(f"halo flags equal all {own.numel()} x {foreign.numel()} box pairs", flush=True)
+
+    # MAC marks on the card against the same function on CPU copies
+    centers = geo_mac_spheres(linked, inv_theta, box)
+    (marks, mark_ms) = timed_ms(lambda: mark_macs(linked, centers, box, fs, fe, leaves, n_leaf, limit_source=True))
+    cpu = lambda t: t.cpu()  # noqa: E731
+    linked_cpu = dataclasses.replace(linked, **{f.name: cpu(getattr(linked, f.name))
+                                                 for f in dataclasses.fields(linked)})
+    t0 = time.perf_counter()
+    marks_cpu = mark_macs(linked_cpu, cpu(centers), Box(limits=cpu(box.limits), boundaries=box.boundaries),
+                          cpu(fs), cpu(fe), cpu(leaves), cpu(n_leaf), limit_source=True)
+    cpu_s = time.perf_counter() - t0
+    check(torch.equal(marks.cpu(), marks_cpu), f"MAC marks differ between the card and the CPU at "
+          f"{int((marks.cpu() != marks_cpu).sum())} nodes")
+    marked = torch.nonzero(marks)[:, 0]
+    check(bool(marks[node_parents(linked)[marked[marked > 0]]].all()), "a marked node's parent is not marked")
+    start, end, _ = node_keys_and_levels(linked)
+    inside = ule(fs, start) & ule(end, fe)
+    check(not bool(inside[marked].any()), "a node wholly inside the focus is marked")
+    check(0 < marked.numel() < int(linked.n_nodes), "the marks should be a proper part of the nodes")
+    print(f"mark_macs on the final tree: {marked.numel()} of {int(linked.n_nodes)} nodes marked, equal to "
+          f"the CPU run; {mark_ms:.3f} ms on the card, {cpu_s:.3f} s on the CPU [{card}]", flush=True)
+
+
 def pairwise_bound(name, args):
     """Bound of B5 (pairwise_count_runs) or B6 (pairwise_count) on the
     arguments a path launched it with: every target with r2 >= 0 against
@@ -1043,13 +1431,20 @@ def main():
     launches.update(launches6)
     timing.update(times6)
 
-    for e in (err4, err5, err6):
+    phase("7 path C: sync with a focus tree of its own + counts")
+    launches_c, err7, res_c, state_c = focus_tree_phase(dev, card)
+
+    phase("8 path D: one rank's locally essential tree and halos from the pool")
+    let_phase(dev, card, res_c, state_c)
+
+    for e in (err4, err5, err6, err7):
         for k, v in e.max.items():
             err.max[k] = max(err.max[k], v)
     print(f"total time {time.perf_counter() - t_start:.3f} s [{card}]", flush=True)
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
-         "max_abs_err": err.max[name], "library_ms": None, **timing[name]}
+         "max_abs_err": err.max[name], "library_ms": None, "path_c_launches": launches_c.get(name, 0),
+         **timing[name]}
         for name, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,8 +3,10 @@
 The JAX package `cstone_tpu` is the reference this package is held
 against; this package imports torch and numpy only. Ported so far: the
 single-rank `Domain.sync` (SFC keys, cornerstone tree, linked octree,
-layout) and the cell-list neighbor counts and SPH density, whose stencil
-runs in a hand-written CUDA kernel (ops/stencil.py, csrc/stencil.cu).
+focus tree, layout), the focus tree's building blocks (focus/, MAC
+marking, halo discovery), the cell-list neighbor counts and SPH density,
+the tiered cell list and the octree neighbor search, whose inner loops
+run in hand-written CUDA kernels (ops/, csrc/).
 
 SFC keys are unsigned bit patterns held in int32/int64 tensors
 (ops/keys64.py). CUDA tensors always run the CUDA kernel; CPU tensors run

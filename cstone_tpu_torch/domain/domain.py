@@ -6,10 +6,15 @@ One `Domain.sync` call corresponds to Domain::sync (domain.hpp:197-243):
 global box, SFC keys and stable sort, global-tree fixed point, SFC
 assignment, focus tree, layout. The port runs the JAX package's
 single-rank peer-to-peer path: with one rank the sorted particles are the
-owned set, halo search finds nothing, and with equal bucket sizes the
-focus tree is the global cornerstone tree (the JAX `fast_focus` branch).
-Multi-rank exchange, the pool mode, gravity sync and a focus bucket that
-differs from the global one raise NotImplementedError.
+owned set and halo search finds nothing. The focus tree is built by
+focus/octree_focus.focus_converge with its own bucket size and capacity;
+where both equal the global tree's, the focus tree is the global
+cornerstone tree and is mirrored without a converge loop (the JAX
+`fast_focus` branch).
+
+Still raising NotImplementedError: n_ranks > 1, axis_name and
+exchange_mode="pool" (ROADMAP.md Queue 1, item 13: multi-rank), and
+sync(grav=True) (Queue 1, item 12: it needs the range-sum service).
 
 Shapes are capacity-padded exactly as in the JAX package, so a SyncResult
 compares with JAX slot for slot. The JAX `while_loop`/`cond` become Python
@@ -25,12 +30,14 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..focus.octree_focus import focus_converge
 from ..ops.keys64 import np_key_dtype, usort
 from ..ops.primitives import searchsorted
 from ..sfc.box import Box
 from ..sfc.encode import HILBERT, compute_sfc_keys
 from ..sfc.keys import remove_key
 from ..tree.csarray import CsArray, compute_node_counts, rebalance_decision, rebalance_tree, root_tree
+from ..traversal.macs import inv_theta_min_mac
 from ..traversal.neighbors import OctreeNsView, make_ns_view
 from ..tree.octree import LinkedOctree, build_linked_octree
 from ..utils.device import resolve_device
@@ -106,20 +113,36 @@ def sync_with_retry(run_sync, caps: dict, max_retries: int = 4, growth: float = 
         for i, nm in enumerate(CAP_NAMES):
             if detail[i] > 0:
                 caps[nm] = max(int(caps.get(nm, 0) * growth) + 8, int(detail[i]) + 8)
+    hint = ""
+    focus_need = int(detail[CAP_NAMES.index("focus")])
+    if 0 < focus_need <= caps["focus"]:
+        # focus_converge reports the required size when the capacity is
+        # short; a report at or below the current capacity means the
+        # converge loop hit max_iters without settling, and growing the
+        # capacity cannot fix that
+        hint = (" — focus overflow <= current capacity indicates focus"
+                " NON-CONVERGENCE (oscillating rebalance), not a capacity"
+                " shortfall; inspect bucket_size_focus / mandatory keys")
     raise RuntimeError(
         f"sync still overflows after {max_retries} retries: caps={caps},"
-        f" last overflow_detail={detail.tolist()}")
+        f" last overflow_detail={detail.tolist()}{hint}")
 
 
 class Domain:
     """Single-rank Domain (domain.hpp:67-113).
 
-    bucket_size is the global tree's leaf bucket; bucket_size_focus must
-    equal it (0 means equal). tree_capacity bounds the global tree's leaf
-    count, focus_capacity (0 = tree_capacity) must equal it. `device` is
-    where init_state puts the state: the card unless the caller names
-    another (device="cpu"); without a card the default raises
-    RuntimeError. sync follows its inputs.
+    bucket_size is the global tree's leaf bucket, bucket_size_focus the
+    focus (locally essential) tree's (0 = bucket_size). tree_capacity
+    bounds the global tree's leaf count, focus_capacity the focus tree's
+    (0 = tree_capacity). theta is the MAC opening angle the focus tree is
+    built for; at one rank no node lies outside the focus, so it changes
+    nothing yet. `device` is where init_state puts the state: the card
+    unless the caller names another (device="cpu"); without a card the
+    default raises RuntimeError. sync follows its inputs.
+
+    Raises NotImplementedError for n_ranks > 1, a rank other than 0,
+    axis_name and exchange_mode="pool" (ROADMAP.md Queue 1, item 13), and
+    sync raises it for grav=True (Queue 1, item 12).
     """
 
     def __init__(
@@ -128,6 +151,7 @@ class Domain:
         n_ranks: int = 1,
         bucket_size: int = 64,
         bucket_size_focus: int = 0,
+        theta: float = 0.5,
         key_dtype=np.uint64,
         curve: str = HILBERT,
         tree_capacity: int = 0,
@@ -135,10 +159,12 @@ class Domain:
         exchange_mode: str = "p2p",
         device=None,
         halo_search_ext: float = 1.0,
+        axis_name: Optional[str] = None,
     ):
-        if int(n_ranks) != 1 or int(rank) != 0:
+        if int(n_ranks) != 1 or int(rank) != 0 or axis_name is not None:
             raise NotImplementedError(
-                "n_ranks > 1 is not ported yet (ROADMAP.md Queue 1, item 13: multi-rank)")
+                "n_ranks > 1 (a rank other than 0, an axis_name) is not ported yet "
+                "(ROADMAP.md Queue 1, item 13: multi-rank)")
         if exchange_mode != "p2p":
             raise NotImplementedError(
                 "exchange_mode='pool' is not ported yet (ROADMAP.md Queue 1, item 13: multi-rank)")
@@ -148,10 +174,7 @@ class Domain:
         self.bucket_size_focus = int(bucket_size_focus) or self.bucket_size
         self.tree_capacity = int(tree_capacity)
         self.focus_capacity = int(focus_capacity) or self.tree_capacity
-        if self.bucket_size_focus != self.bucket_size or self.focus_capacity != self.tree_capacity:
-            raise NotImplementedError(
-                "a focus tree that differs from the global tree needs focus_converge, "
-                "not ported yet (ROADMAP.md Queue 1, item 11: focus/)")
+        self.theta = float(theta)
         self.key_dtype = np_key_dtype(key_dtype)
         self.curve = curve
         self.halo_search_ext = float(halo_search_ext)
@@ -168,13 +191,14 @@ class Domain:
         else:
             box = Box(limits=box.limits.to(dev), boundaries=box.boundaries)
         tree = root_tree(self.key_dtype, self.tree_capacity, device=dev)
+        focus0 = root_tree(self.key_dtype, self.focus_capacity, device=dev)
         assignment = SfcAssignment(
             boundaries=torch.zeros(self.n_ranks + 1, dtype=tree.keys.dtype, device=dev),
             counts=torch.zeros(self.n_ranks, dtype=torch.int64, device=dev))
         return DomainState(
             box=box, assignment=assignment, global_tree=tree,
-            focus_leaves=tree.keys, focus_n=tree.n_nodes, first_call=True,
-            linked=build_linked_octree(tree.keys, tree.n_nodes),
+            focus_leaves=focus0.keys, focus_n=focus0.n_nodes, first_call=True,
+            linked=build_linked_octree(focus0.keys, focus0.n_nodes),
             focus_converged=False,
         )
 
@@ -188,7 +212,8 @@ class Domain:
         """
         if grav:
             raise NotImplementedError(
-                "sync(grav=True) is not ported yet (ROADMAP.md Queue 1, items 11-12)")
+                "sync(grav=True) is not ported yet (ROADMAP.md Queue 1, item 12: "
+                "it needs the range-sum service)")
         dt = self.key_dtype
         cap = x.shape[0]
         dev = x.device
@@ -198,19 +223,45 @@ class Domain:
          n_local, tree_changed) = self._common_assign(
             state, x, y, z, h, properties, n_local, boundaries)
 
-        # ---- 6. focus tree = global tree (single rank, equal buckets) -----
-        if tree_changed or state.first_call:
-            linked = build_linked_octree(tree.keys, tree.n_nodes)
+        # ---- 6. focused octree (LET) --------------------------------------
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        focus_start = assignment.boundaries[0]
+        focus_end = assignment.boundaries[1]
+        fast_focus = (self.bucket_size_focus == self.bucket_size
+                      and state.focus_leaves.shape[0] == tree.keys.shape[0])
+        if fast_focus:
+            # one rank and equal buckets: the focus tree's fixed point IS the
+            # global cornerstone tree, so mirror it and reuse its counts; a
+            # warm step whose decision said "converged" also reuses last
+            # step's linked structure (octree_focus_mpi.hpp:669-677)
+            if tree_changed or state.first_call:
+                linked = build_linked_octree(tree.keys, tree.n_nodes)
+            else:
+                linked = state.linked
+            cap_leaf = linked.leaves.shape[0] - 1
+            lif = torch.arange(cap_leaf, device=dev)
+            leaf_counts = torch.where(lif < linked.n_leaf, tree.counts, 0)
+            focus_conv_ovf = svc_ovf = zero
+            focus_converged = not tree_changed
         else:
-            linked = state.linked
-        cap_leaf = linked.leaves.shape[0] - 1
-        lif = torch.arange(cap_leaf, device=dev)
-        leaf_counts = torch.where(lif < linked.n_leaf, tree.counts, 0)
+            # one rank: the sorted particles are the owned set, and every
+            # cell's count is a local binary search (updateCounts,
+            # octree_focus_mpi.hpp:205-273, without its peer round)
+            def counts_fn(leaves, n_leaf):
+                return self._leaf_counts_service(leaves, n_leaf, keys, n_local)
 
-        focus_start = assignment.boundaries[0:1]
-        focus_end = assignment.boundaries[1:2]
-        first_leaf = searchsorted(linked.leaves, focus_start)[0]
-        last_leaf = searchsorted(linked.leaves, focus_end)[0]
+            (_, _, linked, node_counts_f, focus_conv_ovf, svc_ovf, focus_converged) = focus_converge(
+                state.focus_leaves, state.focus_n, None, None, box, focus_start, focus_end,
+                assignment.boundaries, self.bucket_size_focus, inv_theta_min_mac(self.theta),
+                curve=self.curve, leaf_counts_fn=counts_fn, skip_macs=True,
+                linked0=state.linked,
+                use_carried=state.focus_converged and not state.first_call)
+            cap_leaf = linked.leaves.shape[0] - 1
+            # leaf counts come from the converge loop's final count pass
+            lif = torch.arange(cap_leaf, device=dev)
+            leaf_counts = torch.where(lif < linked.n_leaf, node_counts_f[linked.leaf_order()], 0)
+
+        first_leaf, last_leaf = searchsorted(linked.leaves, assignment.boundaries[:2])
 
         # ---- 7. one rank: every leaf is assigned, no halos -----------------
         halo_flags = torch.zeros(cap_leaf, dtype=torch.int32, device=dev)
@@ -226,17 +277,17 @@ class Domain:
         new_keys = torch.where(j < n_with_halos, keys, rk)
 
         gcap = tree.keys.shape[0] - 1
-        zero = torch.zeros((), dtype=torch.int64, device=dev)
         tree_ovf = torch.where(tree.n_nodes > gcap, tree.n_nodes, zero)
-        focus_ovf = torch.where(linked.n_leaf > cap_leaf, linked.n_leaf, zero)
+        focus_ovf = torch.maximum(torch.where(linked.n_leaf > cap_leaf, linked.n_leaf, zero),
+                                  focus_conv_ovf)
         local_ovf = torch.where(n_with_halos > cap, n_with_halos, zero)
-        overflow = torch.maximum(local_ovf, torch.maximum(tree_ovf, focus_ovf))
-        detail = torch.stack([local_ovf, tree_ovf, focus_ovf, zero, zero, zero, zero])
+        overflow = torch.stack([local_ovf, tree_ovf, focus_ovf, svc_ovf]).max()
+        detail = torch.stack([local_ovf, tree_ovf, focus_ovf, zero, svc_ovf, zero, zero])
 
         new_state = DomainState(
             box=box, assignment=assignment, global_tree=tree,
             focus_leaves=linked.leaves, focus_n=linked.n_leaf, first_call=False,
-            linked=linked, focus_converged=not tree_changed,
+            linked=linked, focus_converged=bool(focus_converged),
         )
         result = SyncResult(
             keys=new_keys, x=xs, y=ys, z=zs, h=hs, properties=props_s,
@@ -301,6 +352,17 @@ class Domain:
         assignment = limit_boundary_shifts(old, assignment, tree.keys, tree.counts)
         return (box, keys, sort_order, xs, ys, zs, hs, props_s, tree, assignment,
                 n_local, tree_changed)
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _leaf_counts_service(leaves, n_leaf, owned_keys, n_owned):
+        """Per-leaf counts of the focus tree (updateCounts analog,
+        octree_focus_mpi.hpp:205-273). At one rank every cell is local, so
+        no service round is needed and the service never overflows.
+        Returns (counts int64, overflow)."""
+        pos = torch.minimum(searchsorted(owned_keys, leaves, side="left"), n_owned)
+        lvalid = torch.arange(leaves.shape[0] - 1, device=leaves.device) < n_leaf
+        return torch.where(lvalid, pos[1:] - pos[:-1], 0), torch.zeros_like(n_owned)
 
     # ------------------------------------------------------------------
     def _update_global_tree(self, state: DomainState, keys, n_local) -> Tuple[CsArray, bool]:

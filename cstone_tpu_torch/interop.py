@@ -5,8 +5,10 @@ package's state of the same name, `from_numpy_tree` a LinkedOctree and
 `from_numpy_ns_view` an OctreeNsView. They read the JAX object's fields with
 `numpy.asarray` only, so this module imports no jax: arrays convert by
 value (keys keep their bits, see ops/keys64.py), index arrays become
-int64, boolean flags become host bools. The tensors go to `device`: the
-card unless the caller names another (device="cpu").
+int64, boolean flags become host bools. Every array keeps its own
+capacity: a DomainState whose focus tree (`focus_leaves`, `linked`) is
+sized differently from its global tree carries over as it is. The tensors
+go to `device`: the card unless the caller names another (device="cpu").
 """
 
 from __future__ import annotations

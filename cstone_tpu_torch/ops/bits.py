@@ -12,7 +12,7 @@ import torch
 
 from .keys64 import key_bits
 
-__all__ = ["count_leading_zeros"]
+__all__ = ["count_leading_zeros", "count_trailing_zeros"]
 
 
 def count_leading_zeros(k: torch.Tensor) -> torch.Tensor:
@@ -32,3 +32,11 @@ def count_leading_zeros(k: torch.Tensor) -> torch.Tensor:
     width = width + (x > 0).to(x.dtype)
     out = torch.where(neg, torch.zeros_like(width), n - width)
     return out.to(torch.int32)
+
+
+def count_trailing_zeros(k: torch.Tensor) -> torch.Tensor:
+    """Trailing zero bits of the unsigned pattern of `k`; the type width
+    for 0 (clz.hpp:120-143). Returns int32."""
+    n = key_bits(k.dtype)
+    low = k & -k  # lowest set bit
+    return torch.where(k == 0, n, n - 1 - count_leading_zeros(low)).to(torch.int32)

@@ -9,8 +9,8 @@ Adds, subtracts, multiplies, xor/and/or and left shifts are the same bit
 operations in both interpretations (two's complement wraps modulo 2^n).
 What differs, and what this module provides:
 
-  - order: unsigned compare, sort and searchsorted flip the sign bit first
-    (`k ^ MIN` maps unsigned order onto signed order);
+  - order: unsigned compare (`ult`, `ule`), sort and searchsorted flip the
+    sign bit first (`k ^ MIN` maps unsigned order onto signed order);
   - right shifts are logical (`srl`), not arithmetic;
   - constants above the signed maximum are written as their wrapped value
     (`key_const`), e.g. the uint64 `remove_key` 2^63 is INT64_MIN and the
@@ -32,6 +32,8 @@ __all__ = [
     "key_const",
     "flip",
     "srl",
+    "ult",
+    "ule",
     "umin",
     "umax",
     "usort",
@@ -91,6 +93,27 @@ def srl(k: torch.Tensor, s) -> torch.Tensor:
     r = flip(k)
     top = torch.ones_like(k) << (n - 1 - s)
     return torch.where(k >= 0, k >> s, (r >> s) | top)
+
+
+def _flipped(k, key_dtype):
+    """flip() of a key tensor, or of a python int holding a key pattern."""
+    if isinstance(k, torch.Tensor):
+        return flip(k)
+    n = key_bits(key_dtype)
+    return key_const(int(k) ^ (1 << (n - 1)), key_dtype)
+
+
+def ult(a, b) -> torch.Tensor:
+    """Unsigned a < b. Each side is a key tensor or a python int holding a
+    key's bit pattern; at least one side is a tensor."""
+    dt = a.dtype if isinstance(a, torch.Tensor) else b.dtype
+    return _flipped(a, dt) < _flipped(b, dt)
+
+
+def ule(a, b) -> torch.Tensor:
+    """Unsigned a <= b (see ult)."""
+    dt = a.dtype if isinstance(a, torch.Tensor) else b.dtype
+    return _flipped(a, dt) <= _flipped(b, dt)
 
 
 def umin(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,10 @@ import torch
 
 from .keys64 import flip
 
-__all__ = ["searchsorted", "multi_searchsorted"]
+__all__ = [
+    "searchsorted", "multi_searchsorted", "exclusive_scan", "cumsum64",
+    "segment_ids_from_offsets", "segment_max",
+]
 
 
 def searchsorted(a: torch.Tensor, v: torch.Tensor, side: str = "left") -> torch.Tensor:
@@ -31,3 +34,36 @@ def multi_searchsorted(a: torch.Tensor, queries: Sequence[torch.Tensor], sides: 
     set, each with its own side ("left"/"right"): the per-set-sides
     contract of the JAX version (primitives.py:29-99)."""
     return [searchsorted(a, q, s) for q, s in zip(queries, sides)]
+
+
+def exclusive_scan(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Exclusive prefix sum along axis."""
+    return torch.cumsum(x, axis) - x
+
+
+def cumsum64(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum of a 1-D 64-bit integer tensor. The JAX
+    package needs an associative scan here to stay inside the TPU's scoped
+    memory; torch.cumsum is the same sum."""
+    return torch.cumsum(x, 0)
+
+
+def segment_ids_from_offsets(offsets: torch.Tensor, n: int, num_segments: int) -> torch.Tensor:
+    """(n,) segment id per element from (num_segments+1,) offsets: one
+    scatter-add of the segment ends plus one cumsum. Offsets outside
+    [0, n] are dropped. int64."""
+    offs = offsets[1:].to(torch.int64)
+    ok = (offs >= 0) & (offs <= n)
+    hist = torch.zeros(n + 2, dtype=torch.int64, device=offsets.device)
+    hist.scatter_add_(0, torch.where(ok, offs, n + 1), torch.ones_like(offs))
+    return torch.clamp(torch.cumsum(hist[:n], 0), max=num_segments - 1)
+
+
+def segment_max(values: torch.Tensor, segment_offsets: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Max over contiguous segments given by offsets
+    (primitives_gpu.h:77-84). An empty segment holds the identity of max:
+    -inf for floats, the type's minimum for integers."""
+    seg_id = segment_ids_from_offsets(segment_offsets, values.shape[0], num_segments)
+    lowest = -float("inf") if values.dtype.is_floating_point else torch.iinfo(values.dtype).min
+    out = torch.full((num_segments,), lowest, dtype=values.dtype, device=values.device)
+    return out.scatter_reduce_(0, seg_id, values, reduce="amax", include_self=True)

@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.bits import count_leading_zeros
+from ..ops.bits import count_leading_zeros, count_trailing_zeros
 from ..ops.keys64 import key_bits, key_const, np_key_dtype, srl, torch_key_dtype
 
 __all__ = [
@@ -33,6 +33,15 @@ __all__ = [
     "decode_placeholder_bit",
     "octal_digit",
     "digit_weight",
+    "to_nbit_int_ceil",
+    "is_ancestor",
+    "enclosing_box_code",
+    "smallest_common_box",
+    "last_nz_place",
+    "make_prefix",
+    "octal_power",
+    "span_sfc_range_count",
+    "span_sfc_range",
 ]
 
 
@@ -123,3 +132,135 @@ def digit_weight(digit: torch.Tensor) -> torch.Tensor:
     """Offset weight for binary tree <-> octree index mapping (common.hpp:288-292)."""
     four_geq = -(digit >= 4).to(torch.int32)
     return ((7 - digit) & four_geq) - (digit & ~four_geq)
+
+
+def to_nbit_int_ceil(x: torch.Tensor, key_dtype) -> torch.Tensor:
+    """Normalized x in [0,1] -> integer grid coordinate, rounding up; used
+    for halo radii (common.hpp:80-90). int64."""
+    nbits = max_tree_level(key_dtype)
+    top = (1 << nbits) - 1
+    return torch.clamp(torch.ceil(x * float(1 << nbits)), max=float(top)).to(torch.int64)
+
+
+def is_ancestor(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """True if placeholder-key a is an ancestor of b, or a sibling of one
+    (common.hpp:275-285)."""
+    alen = decode_prefix_length(a)
+    blen = decode_prefix_length(b)
+    a_shifted = a << torch.clamp(blen - alen, min=0).to(a.dtype)
+    common_bits = count_leading_zeros(a_shifted ^ b)
+    return common_bits >= 1 + count_leading_zeros(b) + torch.clamp(alen - 3, min=0)
+
+
+def enclosing_box_code(key: torch.Tensor, level) -> torch.Tensor:
+    """Start key of the level-`level` node containing `key` (common.hpp:295-301)."""
+    return key & ~(node_range(key.dtype, level) - 1)
+
+
+def smallest_common_box(k1: torch.Tensor, k2: torch.Tensor):
+    """[start, end) keys of the smallest node containing both inputs
+    (common.hpp:312-319)."""
+    level = torch.div(common_prefix(k1, k2), 3, rounding_mode="floor")
+    node_start = enclosing_box_code(k1, level)
+    return node_start, node_start + node_range(k1.dtype, level)
+
+
+def last_nz_place(x: torch.Tensor) -> torch.Tensor:
+    """Position (1-based from the left) of the last nonzero octal digit
+    (common.hpp:339-346). int32."""
+    lmax = max_tree_level(x.dtype)
+    place = lmax - torch.div(count_trailing_zeros(x), 3, rounding_mode="floor")
+    return torch.where(x != 0, place, lmax).to(torch.int32)
+
+
+def make_prefix(a: torch.Tensor) -> torch.Tensor:
+    """Placeholder-bit prefix of the largest node starting at a
+    (common.hpp:349-356)."""
+    pref = encode_placeholder_bit(a, 3 * last_nz_place(a))
+    return torch.where(a == 0, 1, pref)
+
+
+def octal_power(dtype, pos):
+    """8^(maxLevel - pos): key-range weight of octal place `pos`
+    (common.hpp:364-368); the value node_range gives for a level."""
+    return node_range(dtype, pos)
+
+
+# ----------------------------------------------------------------------------
+# SFC range cover ("spanSfcRange", common.hpp:392-438)
+# ----------------------------------------------------------------------------
+#
+# For a key interval [a, b) the reference emits the minimal sequence of
+# cornerstone node start keys covering it. As in the JAX package the count
+# of keys emitted at each octal place is computed first, so count and
+# emission are dense array code; here a and b carry any leading batch
+# shape and the places run along a new last axis.
+
+def _span_place_counts(a: torch.Tensor, b: torch.Tensor):
+    """Per-octal-place emission counts for the cover of [a, b).
+
+    Returns (cnt_up (..., lmax), pos_up (lmax,), cnt_dn (..., lmax+1),
+    pos_dn (lmax+1,)): the first walk goes up from a (ascending powers of
+    8), the second down toward b. Places outside the active window count 0.
+    """
+    dt = a.dtype
+    dev = a.device
+    lmax = max_tree_level(dt)
+    a = a[..., None]
+    b = b[..., None]
+
+    first_diff = torch.div(count_leading_zeros(a ^ b) + 3 - unused_bits(dt), 3, rounding_mode="floor")
+    a_last = last_nz_place(a)
+    b_last = last_nz_place(b)
+
+    # pass 1, places a_last down to first_diff+1: (8 - digit) % 8 keys per
+    # place; once the first key is emitted (at a_last, digit != 0) every
+    # higher active place sees a carry of +1 on its digit
+    pos_up = torch.arange(lmax, 0, -1, dtype=torch.int32, device=dev)
+    carry = ((pos_up < a_last) & (a != 0)).to(torch.int32)
+    cnt_up = (8 - (octal_digit(a, pos_up) + carry)) % 8
+    active_up = (pos_up <= a_last) & (pos_up > first_diff)
+    cnt_up = torch.where(active_up, cnt_up, 0)
+
+    # after pass 1, a is rounded up so that digits below first_diff are 0
+    a_rounded = a + (cnt_up.to(dt) * octal_power(dt, pos_up)).sum(-1, keepdim=True, dtype=dt)
+
+    # pass 2, places first_diff to b_last: digit(b) - digit(a_rounded);
+    # place 0 is included for b == node_range(0) (the root cover)
+    pos_dn = torch.arange(0, lmax + 1, dtype=torch.int32, device=dev)
+    cnt_dn = octal_digit(b, pos_dn) - octal_digit(a_rounded, pos_dn)
+    active_dn = (pos_dn >= first_diff) & (pos_dn <= b_last)
+    cnt_dn = torch.where(active_dn, cnt_dn, 0)
+    return cnt_up, pos_up, cnt_dn, pos_dn
+
+
+def span_sfc_range_count(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Number of cornerstone keys required to cover [a, b)
+    (common.hpp:432-438). int64, of the shape of a."""
+    cnt_up, _, cnt_dn, _ = _span_place_counts(a, b)
+    return cnt_up.sum(-1) + cnt_dn.sum(-1)
+
+
+def span_sfc_range(a: torch.Tensor, b: torch.Tensor, capacity: int):
+    """Cornerstone cover of [a, b): (keys (..., capacity), count (...)).
+    Keys beyond the count are filled with b (common.hpp:392-430)."""
+    dt = a.dtype
+    cnt_up, pos_up, cnt_dn, pos_dn = _span_place_counts(a, b)
+    counts = torch.cat([cnt_up, cnt_dn], dim=-1).to(torch.int64)
+    weights = octal_power(dt, torch.cat([pos_up, pos_dn]))
+
+    ends = torch.cumsum(counts, -1)
+    total = ends[..., -1]
+    offsets = ends - counts
+
+    # slot j belongs to the segment i with offsets[i] <= j < ends[i]
+    j = torch.arange(capacity, device=a.device).expand(a.shape + (capacity,))
+    seg = torch.searchsorted(ends, j.contiguous(), right=True).clamp(max=counts.shape[-1] - 1)
+    within = (j - torch.gather(offsets, -1, seg)).to(dt)
+
+    # key at slot j = a + all earlier segments + within * weight[seg]
+    seg_contrib = counts.to(dt) * weights
+    seg_prefix = torch.cumsum(seg_contrib, -1, dtype=dt) - seg_contrib
+    keys = a[..., None] + torch.gather(seg_prefix, -1, seg) + within * weights[seg]
+    keys = torch.where(j < total[..., None], keys, b[..., None])
+    return keys, total

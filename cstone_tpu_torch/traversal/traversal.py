@@ -1,20 +1,27 @@
-"""Batched level-synchronous octree walk (counterpart of
-batched_collect_leaves_bfs in cstone_tpu/traversal/traversal.py; reference:
+"""Batched level-synchronous octree walks (counterpart of
+batched_collect_leaves_bfs and batched_mark in
+cstone_tpu/traversal/traversal.py; reference:
 include/cstone/traversal/traversal.hpp:69-110).
 
 Each iteration expands every query's whole frontier of passed internal
-nodes at once, a dense (n_queries, frontier_cap*8) criterion evaluation.
-The JAX version's while_loop becomes a Python loop that runs tree-depth
-times and reads one flag back to the host per level.
+nodes at once. The JAX version's while_loop becomes a Python loop that
+runs tree-depth times and reads one flag or count back to the host per
+level.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
-__all__ = ["batched_collect_leaves_bfs"]
+__all__ = ["batched_collect_leaves_bfs", "batched_mark", "MARK_CHUNK", "mark_levels_log"]
+
+# most (query, child) pairs that batched_mark hands to a criterion at once
+MARK_CHUNK = 1 << 22
+
+# when a list, batched_mark appends the number of levels each call walked
+mark_levels_log: Optional[List[int]] = None
 
 
 def batched_collect_leaves_bfs(
@@ -82,3 +89,63 @@ def batched_collect_leaves_bfs(
         fmax = torch.maximum(fmax, nfcnt)
         fcnt = torch.clamp(nfcnt, max=F)
     return out, out_n, fmax
+
+
+def batched_mark(
+    child_offsets: torch.Tensor,
+    criterion: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    n_queries: int,
+    mark_endpoints_only: bool,
+    active_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """OR-combine query traversals into one per-node flag array.
+
+    Used by halo collision detection (flags on leaves passing the
+    criterion, reference traversal/collisions.hpp:40-57) and MAC marking
+    (flags on every node the traversal descends into, reference
+    traversal/macs.hpp:197-226).
+
+    The JAX package walks depth first, one node popped per query per
+    iteration from a 128-deep stack. The marks are the OR over all
+    (query, node) visits and do not depend on the visiting order, so the
+    port walks breadth first over one flat list of (query, node) pairs:
+    one iteration per tree level. The list has no fixed depth, so no visit
+    is ever dropped (the JAX walk drops pushes past its stack depth).
+
+    Returns marks: (cap_nodes,) int32 in {0, 1} over sorted node indices.
+    """
+    dev = child_offsets.device
+    cap_nodes = child_offsets.shape[0]
+    q_ids = torch.arange(n_queries, device=dev)
+
+    root_pass = criterion(q_ids, torch.zeros_like(q_ids))
+    if active_mask is not None:
+        root_pass = root_pass & active_mask
+    root_is_leaf = child_offsets[0] == 0
+
+    # slot cap_nodes takes the writes of children that are not marked
+    marks = torch.zeros(cap_nodes + 1, dtype=torch.int32, device=dev)
+    marks[0] = (root_pass & (root_is_leaf | (not mark_endpoints_only))).any().to(torch.int32)
+
+    k8 = torch.arange(8, device=dev)
+    fq = q_ids[root_pass & ~root_is_leaf]
+    fnode = torch.zeros_like(fq)
+    levels = 0
+    while fq.numel() > 0:
+        levels += 1
+        next_q, next_node = [], []
+        for lo in range(0, fq.numel(), MARK_CHUNK // 8):
+            q = fq[lo:lo + MARK_CHUNK // 8].repeat_interleave(8)
+            node = fnode[lo:lo + MARK_CHUNK // 8]
+            cc = torch.clamp((child_offsets[node][:, None] + k8).reshape(-1), max=cap_nodes - 1)
+            passed = criterion(q, cc)
+            is_leaf = child_offsets[cc] == 0
+            to_mark = passed & is_leaf if mark_endpoints_only else passed
+            marks[torch.where(to_mark, cc, cap_nodes)] = 1
+            push = passed & ~is_leaf
+            next_q.append(q[push])
+            next_node.append(cc[push])
+        fq, fnode = torch.cat(next_q), torch.cat(next_node)
+    if mark_levels_log is not None:
+        mark_levels_log.append(levels)
+    return marks[:cap_nodes]

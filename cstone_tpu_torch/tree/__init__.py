@@ -1,9 +1,9 @@
 """Cornerstone octrees (counterpart of cstone_tpu/tree)."""
 
 from .csarray import CsArray, compute_node_counts, compute_octree, root_tree, update_octree
-from .octree import LinkedOctree, build_linked_octree
+from .octree import LinkedOctree, build_linked_octree, containing_node, locate_node, upsweep, upsweep_sum
 
 __all__ = [
     "CsArray", "compute_node_counts", "compute_octree", "root_tree", "update_octree",
-    "LinkedOctree", "build_linked_octree",
+    "LinkedOctree", "build_linked_octree", "locate_node", "containing_node", "upsweep", "upsweep_sum",
 ]

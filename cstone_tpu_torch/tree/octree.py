@@ -12,11 +12,12 @@ storage), which sorts behind every valid node.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable
 
 import torch
 
 from ..ops.keys64 import key_const, srl, usort
-from ..ops.primitives import multi_searchsorted
+from ..ops.primitives import multi_searchsorted, searchsorted
 from ..sfc.keys import (
     common_prefix,
     decode_placeholder_bit,
@@ -29,7 +30,11 @@ from ..sfc.keys import (
     tree_level,
 )
 
-__all__ = ["LinkedOctree", "internal_capacity", "build_linked_octree", "node_keys_and_levels"]
+__all__ = [
+    "LinkedOctree", "internal_capacity", "build_linked_octree", "locate_node",
+    "ancestor_chain", "containing_node", "node_parents", "upsweep", "upsweep_sum",
+    "node_keys_and_levels",
+]
 
 
 @dataclass(frozen=True)
@@ -184,6 +189,110 @@ def build_linked_octree(leaves: torch.Tensor, n_leaf, cap_nodes: int | None = No
         n_leaf=n_leaf,
         n_internal=n_internal,
     )
+
+
+def locate_node(tree: LinkedOctree, node_key: torch.Tensor) -> torch.Tensor:
+    """Index of the node with the given placeholder-bit key, or n_nodes if
+    absent (octree.hpp:217-241). Vectorized over node_key."""
+    cap = tree.prefixes.shape[0]
+    idx = searchsorted(tree.prefixes, node_key, side="left")
+    hit = (idx < tree.n_nodes) & (tree.prefixes[idx.clamp(max=cap - 1)] == node_key)
+    return torch.where(hit, idx, tree.n_nodes)
+
+
+def ancestor_chain(tree: LinkedOctree, node_key: torch.Tensor):
+    """Where the ancestors of placeholder-bit keys sit in the tree.
+
+    For node_key of shape (k,), returns (idx (k, maxLevel+1) int64, hit
+    (k, maxLevel+1) bool): idx[:, l] is the node index of the level-l
+    ancestor of the key (the key's own node at its own level), hit says
+    whether the tree holds that node. Every internal node has all eight
+    children, so hit is true on a prefix of the levels: down to the
+    smallest node that contains the key.
+    """
+    dt = tree.prefixes.dtype
+    lmax = max_tree_level(dt)
+    level = torch.div(decode_prefix_length(node_key), 3, rounding_mode="floor").to(torch.int64)
+    lvl = torch.arange(lmax + 1, device=node_key.device)
+    up = level[:, None] - lvl  # levels to climb from the key to level l
+    anc = srl(node_key[:, None].expand(up.shape), (3 * up.clamp(min=0)).to(dt))
+    idx = locate_node(tree, anc.reshape(-1)).reshape(up.shape)
+    hit = (up >= 0) & (idx < tree.n_nodes)
+    return idx, hit
+
+
+def containing_node(tree: LinkedOctree, node_key: torch.Tensor) -> torch.Tensor:
+    """Smallest node containing the placeholder-bit key (octree.hpp:244-261).
+
+    The JAX package walks down from the root with a static loop over
+    levels; here every ancestor of the key is looked up in one batched
+    binary search and the deepest one present is taken. The result is
+    the same node.
+    """
+    idx, hit = ancestor_chain(tree, node_key)
+    depth = hit.sum(1) - 1  # hit is a prefix of the levels and holds the root
+    return torch.gather(idx, 1, depth.clamp(min=0)[:, None])[:, 0]
+
+
+def node_parents(tree: LinkedOctree) -> torch.Tensor:
+    """(cap_nodes,) parent index of every node slot; 0 for the root."""
+    idx = torch.arange(tree.prefixes.shape[0], device=tree.prefixes.device)
+    group = torch.div((idx - 1).clamp(min=0), 8, rounding_mode="floor")
+    return torch.where(idx > 0, tree.parents[group], 0)
+
+
+def upsweep(
+    tree: LinkedOctree,
+    leaf_quantities: torch.Tensor,
+    combine: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    init_internal=0,
+) -> torch.Tensor:
+    """Bottom-up per-node reduction (octree.hpp:583-602).
+
+    leaf_quantities: (cap_leaf,) + tail per-cornerstone-leaf values.
+    Returns (cap_nodes,) + tail values in sorted node order.
+    `combine(parent_idx (n,), children (n, 8) + tail)` gives the (n,) +
+    tail parent values. Children of every internal node are 8 consecutive
+    slots and the groups tile [1, n_nodes), so each level is one reshape
+    of q[1:], one combine and one scatter to the parents of that level's
+    groups.
+    """
+    dev = tree.prefixes.device
+    cap_nodes = tree.prefixes.shape[0]
+    cap_leaf = tree.leaves.shape[0] - 1
+    tail = leaf_quantities.shape[1:]
+
+    # one slot past the end takes the writes of padded leaves and of
+    # groups that are not on the level at hand
+    q = torch.full((cap_nodes + 1,) + tail, init_internal, dtype=leaf_quantities.dtype, device=dev)
+    tid = torch.arange(cap_leaf, device=dev)
+    q[torch.where(tid < tree.n_leaf, tree.leaf_order(), cap_nodes)] = leaf_quantities
+
+    n_groups = (cap_nodes - 1) // 8
+    child0 = 1 + 8 * torch.arange(n_groups, device=dev)
+    parents = tree.parents[:n_groups]
+    child_lvl = torch.searchsorted(tree.level_range, child0, right=True) - 1
+    valid_group = (child0 + 8) <= tree.n_nodes
+
+    lmax = tree.level_range.shape[0] - 2
+    for lvl in range(lmax, 0, -1):
+        here = valid_group & (child_lvl == lvl)
+        ch = q[1:1 + 8 * n_groups].reshape((n_groups, 8) + tail)
+        q[torch.where(here, parents, cap_nodes)] = combine(parents, ch)
+    return q[:cap_nodes]
+
+
+def upsweep_sum(tree: LinkedOctree, leaf_quantities: torch.Tensor, saturate_u32: bool = False) -> torch.Tensor:
+    """Sum upsweep (octree.hpp:604-626). With saturate_u32 the sums are
+    clamped at 2^32-1, the largest count the reference's uint32 holds; the
+    port holds counts in int64, so they never wrap."""
+    if saturate_u32:
+        def combine(_, children):
+            return torch.clamp(children.sum(1), max=0xFFFFFFFF)
+    else:
+        def combine(_, children):
+            return children.sum(1)
+    return upsweep(tree, leaf_quantities, combine)
 
 
 def node_keys_and_levels(tree: LinkedOctree):

@@ -152,7 +152,7 @@ def test_cuda_device_without_cuda_raises():
 
 
 @pytest.mark.parametrize("kwargs", [dict(n_ranks=2), dict(exchange_mode="pool"),
-                                    dict(bucket_size_focus=8)])
+                                    dict(axis_name="ranks")])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Domain(bucket_size=16, tree_capacity=256, **kwargs)
