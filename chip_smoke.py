@@ -84,7 +84,27 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      overlap on the card, mark_macs on the card equal to the same function
      on CPU copies of its inputs, every marked node's parent marked, no
      marked node wholly inside the focus. Prints the converge iterations,
-     batched_mark's levels per call and the ms of the whole build.
+     batched_mark's levels per call and the ms of the whole build;
+  9. path E, 8 ranks of the pool protocol on the one card: phase 4's 1M
+     positions, rank r starting from the strided slice r::8, local
+     capacity 262,144, Domain(exchange_mode="pool", comm=...) with
+     buckets 64/64 and theta 0.5, the ranks run as threads of this
+     process by parallel.run_ranks. A cold step under a host retry on the
+     largest overflow of any rank, then 3 drift steps (phase 4's drift),
+     each fed by compact_owned; after each sync, B1 and B2 on every rank's
+     buffer (n_valid = n_with_halos). Checks against phase 4's run of the
+     same steps: every rank's global tree bit-equal, counts included; the
+     owned ranges a partition of the 1M particles, each owned key inside
+     its rank's range; B1 counts by particle id (reapply_sync of an id
+     field) bit-equal, B2 densities within rtol 1e-5; exchange_halos of
+     the ids puts every halo slot's owner id there; rank 3's halo flags
+     equal all box pairs on the cold step; B1 and B2 launched once per
+     rank and step, and every launch of the last step equal to its plain
+     version. Prints the 8-rank sync wall time per step, each rank's sync
+     time and its share in mark_macs, the largest gap between a path-E
+     density and phase 4's (kept apart from the kernels' max_abs_err,
+     which is each kernel against its plain version), the pool bytes per
+     rank, the device count and the peak memory allocated.
 Each path's launch counts are set to 0 just before it is driven and read
 just after. Every kernel's bound is the larger of its FP32 operations over
 67 TFLOP/s and its bytes over 3.35 TB/s, counted from that run's inputs;
@@ -124,6 +144,10 @@ FIND_STEPS = 3
 FOCUS_STEPS = 4
 GLOBAL_BUCKET = 1024  # path C's global tree; its focus tree keeps BUCKET
 LET_RANKS, LET_RANK, LET_THETA = 8, 3, 0.5
+# path E: LET_RANKS ranks in pool mode, each with this local capacity: 125K
+# owned plus about 1,736 halo leaves x 30.5 particles (path D's rank 3)
+POOL_LOCAL_CAP = 262_144
+POOL_DRIFT_STEPS = 3
 # find_neighbors settings of bench.py (:535-537, :654, :670-671), except
 # cand_cap: the "v1" route needs 3676 flattened candidates per group at
 # this sync, above bench.py's 3584; bench.py's tile=1024 has no
@@ -608,7 +632,7 @@ def main_path_phase(dev, card):
     from cstone_tpu_torch.models import SphState, sph_density_step
     from cstone_tpu_torch.ops import stencil
     from cstone_tpu_torch.sfc import PERIODIC, make_box
-    from cstone_tpu_torch.traversal import cell_list_neighbor_counts, choose_cell_level
+    from cstone_tpu_torch.traversal import cell_list_neighbor_counts, cell_list_sph_density, choose_cell_level
 
     (x, y, z), drift, h = uniform_setup(dev)
     box = make_box(0.0, 1.0, boundaries=PERIODIC, device=dev)
@@ -629,12 +653,29 @@ def main_path_phase(dev, card):
         state, counts, res = step(domain, state, x, y, z)
         return domain, state, counts, res
 
+    m = torch.full((N,), 1.0 / N, dtype=torch.float32, device=dev)
+
+    def keep_reference(state, counts, res):
+        """Path E's reference for one step: the global tree, and the counts
+        and the density (B2, mass 1/N) by particle id (the index of the
+        unsorted input)."""
+        rho, ovf = cell_list_sph_density(res.keys, res.x, res.y, res.z, res.h, state.box, LEVEL, CAP,
+                                         mass=m, n_valid=res.n_with_halos)
+        check(not bool(ovf), "cell-list cap overflowed")
+        by_id = lambda v: torch.empty_like(v[:N]).index_copy_(0, res.sort_order[:N], v[:N])  # noqa: E731
+        t = state.global_tree
+        nn = int(t.n_nodes)
+        reference.append({"tree": (t.keys[:nn + 1].clone(), t.counts[:nn].clone()),
+                          "counts": by_id(counts), "rho": by_id(rho)})
+
+    reference = []
     reset_all_launches()
     t0 = time.perf_counter()
     (domain, state, counts, res), caps = sync_with_retry(warm, {"tree": tree_capacity(N)})
     torch.cuda.synchronize()
     print(f"warm step (cold tree build): {1e3 * (time.perf_counter() - t0):.3f} ms, "
           f"tree capacity {caps['tree']}, leaves {int(state.global_tree.n_nodes)} [{card}]", flush=True)
+    keep_reference(state, counts, res)
 
     step_ms = []
     sgn = 1.0
@@ -643,6 +684,8 @@ def main_path_phase(dev, card):
         (state, counts, res), ms = timed_ms(lambda: step(domain, state, x, y, z))
         step_ms.append(ms)
         check(int(res.overflow) == 0, f"overflow {res.overflow_detail.tolist()}")
+        if len(reference) <= POOL_DRIFT_STEPS:
+            keep_reference(state, counts, res)
         sgn = -sgn
     n_owned = int(res.end_index) - int(res.start_index)
     check(n_owned == N, f"owned {n_owned} != {N}")
@@ -656,7 +699,6 @@ def main_path_phase(dev, card):
     cornerstone_ok(state.global_tree, N)
 
     # SPH density cell path, continuing the same domain state
-    m = torch.full((N,), 1.0 / N, dtype=torch.float32, device=dev)
     sph = SphState(domain=state, x=res.x, y=res.y, z=res.z, h=res.h, m=m,
                    n_local=torch.tensor(N, device=dev))
     sph_ms = []
@@ -729,7 +771,8 @@ def main_path_phase(dev, card):
           flush=True)
     launches = {k: launches[k] for k in ("stencil_counts", "stencil_density")}
     return launches, err, {k: {"ms": ms, "plain_ms": p, "shape": shape, "bound_ms": bounds[k][0],
-                               "bound_by": bounds[k][1]} for k, (ms, p) in times.items()}
+                               "bound_by": bounds[k][1]} for k, (ms, p) in times.items()}, \
+        (reference, caps["tree"])
 
 
 # ----------------------------------------------------------------------------
@@ -1254,21 +1297,16 @@ def let_phase(dev, card, res, state):
     from cstone_tpu_torch.focus.source_center import geo_mac_spheres
     from cstone_tpu_torch.ops.keys64 import to_numpy, ule
     from cstone_tpu_torch.ops.primitives import searchsorted, segment_max
-    from cstone_tpu_torch.sfc.box import Box, IBox
-    from cstone_tpu_torch.sfc.encode import sfc_ibox
-    from cstone_tpu_torch.sfc.keys import node_range, tree_level
+    from cstone_tpu_torch.sfc.box import Box
     from cstone_tpu_torch.traversal import macs, traversal
-    from cstone_tpu_torch.traversal.boxoverlap import make_halo_box, overlap_iboxes
     from cstone_tpu_torch.traversal.collisions import find_halos
     from cstone_tpu_torch.traversal.macs import inv_theta_min_mac, mark_macs
     from cstone_tpu_torch.tree import CsArray, root_tree
     from cstone_tpu_torch.tree.octree import node_keys_and_levels, node_parents
 
     box, gtree, pool_keys, pool_h = state.box, state.global_tree, res.keys, res.h
-    kdt = pool_keys.dtype
     cap_leaf = tree_capacity(N)
     inv_theta = inv_theta_min_mac(LET_THETA)
-    fields = ("xmin", "xmax", "ymin", "ymax", "zmin", "zmax")
 
     traversal.mark_levels_log = []
     t0 = time.perf_counter()
@@ -1323,23 +1361,7 @@ def let_phase(dev, card, res, state):
     print(f"leaf keys outside the rank's range: {n_out} (path C's focus tree: {n_out_full})", flush=True)
     check(n_out <= n_out_full, "outside the rank's range the tree is finer than path C's")
 
-    # halo flags against all pairs of (own halo box, foreign leaf box)
-    key = leaves[:-1]
-    rng = leaves[1:] - key
-    level = tree_level(torch.where(rng != 0, rng, node_range(kdt, 21)))
-    ibox = sfc_ibox(key, level)
-    hbox = make_halo_box(ibox, radii, box, kdt)
-    own, foreign = torch.nonzero(mine)[:, 0], torch.nonzero((lif < n_leaf) & ~mine)[:, 0]
-    src = IBox(*(getattr(ibox, f)[foreign][None, :] for f in fields))
-    want = torch.zeros(cap_leaf, dtype=torch.int32, device=dev)
-    for c in range(0, own.numel(), 512):
-        tgt = IBox(*(getattr(hbox, f)[own[c:c + 512]][:, None] for f in fields))
-        want[foreign] |= overlap_iboxes(src, tgt, kdt).any(dim=0).to(torch.int32)
-    check(int(halo_flags[mine].sum()) == 0, "a leaf of the rank's own range is flagged as halo")
-    check(torch.equal(halo_flags, want), f"halo flags differ from all pairs at "
-          f"{int((halo_flags != want).sum())} of {nl} leaves")
-    check(0 < int(want.sum()) < foreign.numel(), "the halo set should be a proper part of the foreign leaves")
-    print(f"halo flags equal all {own.numel()} x {foreign.numel()} box pairs", flush=True)
+    halo_flags_ok(leaves, n_leaf, radii, box, mine, halo_flags, f"rank {LET_RANK}")
 
     # MAC marks on the card against the same function on CPU copies
     centers = geo_mac_spheres(linked, inv_theta, box)
@@ -1361,6 +1383,274 @@ def let_phase(dev, card, res, state):
     check(0 < marked.numel() < int(linked.n_nodes), "the marks should be a proper part of the nodes")
     print(f"mark_macs on the final tree: {marked.numel()} of {int(linked.n_nodes)} nodes marked, equal to "
           f"the CPU run; {mark_ms:.3f} ms on the card, {cpu_s:.3f} s on the CPU [{card}]", flush=True)
+
+
+# ----------------------------------------------------------------------------
+# phase 9: path E, LET_RANKS ranks of the pool protocol on one card
+# ----------------------------------------------------------------------------
+
+class RankTimer:
+    """Sums, per rank thread, the host time of module.name's calls inside
+    the block. The ranks share the card, so no call drains it: a call's
+    time is its host time, its own waits on the card included."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.ms = module, name, {}
+
+    def __enter__(self):
+        import threading
+
+        self.real = getattr(self.module, self.name)
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return self.real(*a, **k)
+            finally:
+                me = threading.current_thread().name
+                self.ms[me] = self.ms.get(me, 0.0) + 1e3 * (time.perf_counter() - t0)
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def pool_phase(dev, card, reference, tree_cap):
+    """Phase 9: LET_RANKS ranks of Domain(exchange_mode="pool") as threads
+    of this process (parallel.run_ranks), all on the one card, then B1 and
+    B2 on every rank's buffer; checked against phase 4's single-rank run on
+    the same positions."""
+    import torch
+
+    from cstone_tpu_torch.domain import Domain, sync_with_retry
+    from cstone_tpu_torch.ops.cuda_lib import record_launches
+    from cstone_tpu_torch.parallel import run_ranks
+    from cstone_tpu_torch.sfc import PERIODIC, make_box
+    from cstone_tpu_torch.traversal import cell_list_neighbor_counts, cell_list_sph_density, macs
+
+    R = LET_RANKS
+    (x, y, z), drift, h = uniform_setup(dev)
+    box = make_box(0.0, 1.0, boundaries=PERIODIC, device=dev)
+    m = torch.full((N,), 1.0 / N, dtype=torch.float32, device=dev)
+    ids = torch.arange(N, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def rank_inputs(cap):
+        """Rank r starts from the strided slice r::R of every field, padded
+        to cap: the exchange moves nearly every particle."""
+        def pad(a, r, fill):
+            out = torch.full((cap,), fill, dtype=a.dtype, device=dev)
+            s = a[r::R]
+            out[:s.numel()] = s
+            return out
+        return [{"xyz": tuple(pad(c, r, 0.0) for c in (x, y, z)), "h": pad(h, r, 0.0), "m": pad(m, r, 0.0),
+                 "ids": pad(ids, r, -1), "n": torch.tensor(ids[r::R].numel(), device=dev)} for r in range(R)]
+
+    def make_domain(comm, caps):
+        return Domain(bucket_size=BUCKET, tree_capacity=caps["tree"], focus_capacity=caps["focus"],
+                      theta=LET_THETA, exchange_mode="pool", comm=comm, device=dev)
+
+    def rank_sync(comm, domain, state, inp):
+        """One rank's sync between two barriers: (state, res, (start,
+        end))."""
+        comm.all_reduce_flag(True)  # start together
+        t0 = time.perf_counter()
+        state, res = domain.sync(state, *inp["xyz"], inp["h"], properties=(inp["m"],), n_local=inp["n"])
+        torch.cuda.current_stream().synchronize()
+        return state, res, (t0, time.perf_counter())
+
+    def rank_after(comm, domain, state, res, inp):
+        """B1 and B2 on the rank's buffer, the ids of its slots, and the
+        next step's input (the owned particles, by compact_owned)."""
+        rid = domain.reapply_sync(res, inp["ids"])
+        counts, c_ovf = cell_list_neighbor_counts(res.keys, res.x, res.y, res.z, res.h, state.box, LEVEL, CAP,
+                                                  n_valid=res.n_with_halos, impl="pallas")
+        rho, d_ovf = cell_list_sph_density(res.keys, res.x, res.y, res.z, res.h, state.box, LEVEL, CAP,
+                                           mass=res.properties[0], n_valid=res.n_with_halos)
+        j = torch.arange(rid.shape[0], device=dev)
+        owned = (j >= res.start_index) & (j < res.end_index)
+        halo_ids = domain.exchange_halos(res, torch.where(owned, rid, -1))
+        co = domain.compact_owned
+        nxt = {"xyz": tuple(co(res, c) for c in (res.x, res.y, res.z)), "h": co(res, res.h),
+               "m": co(res, res.properties[0]), "ids": co(res, rid), "n": res.end_index - res.start_index}
+        return {"rid": rid, "counts": counts, "rho": rho, "halo_ids": halo_ids,
+                "cell_ovf": bool(c_ovf | d_ovf), "next": nxt}
+
+    # cold step: a host retry on the overflow, which every rank reports as
+    # the largest of all ranks
+    ranks = {}
+
+    def cold(try_caps):
+        caps.update(try_caps)
+        inputs = rank_inputs(caps["local"])
+
+        def fn(comm, inp):
+            domain = make_domain(comm, caps)
+            state = domain.init_state(box=box, boundaries=(1, 1, 1))
+            return rank_sync(comm, domain, state, inp) + (inp, domain)
+
+        ranks["outs"] = outs = run_ranks(R, fn, inputs)
+        check(all(torch.equal(o[1].overflow_detail, outs[0][1].overflow_detail) for o in outs),
+              "the ranks report different overflows")
+        return outs[0][1]
+
+    caps0 = {"local": POOL_LOCAL_CAP, "tree": tree_cap, "focus": tree_cap}
+    caps = dict(caps0)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    with RankTimer(macs, "mark_macs") as marking:
+        sync_with_retry(cold, caps0)
+    print(f"{R} ranks, pool mode, theta {LET_THETA}: cold sync with retry {1e3 * (time.perf_counter() - t0):.3f} "
+          f"ms, capacities {caps} [{card}]", flush=True)
+    check(caps == caps0, f"the first capacities {caps0} overflowed: {caps}")
+    outs = ranks["outs"]
+    cap = caps["local"]
+    n_pool = R * cap
+    pool_bytes = n_pool * (8 + 8 + 4 * 5)  # keys, pool_perm and x, y, z, h, m
+    print(f"pool per rank: {n_pool} slots, {pool_bytes} bytes of keys, permutation and payload; "
+          f"torch.cuda.device_count() {torch.cuda.device_count()} [{card}]", flush=True)
+
+    err = Errors()
+    states, results, spans, inputs, domains = ([o[i] for o in outs] for i in range(5))
+    sgn = 1.0
+    for step in range(1 + POOL_DRIFT_STEPS):
+        what = "cold step" if step == 0 else f"drift step {step}"
+        if step > 0:
+            inputs = [dict(inp, xyz=tuple((c + sgn * drift[inp["ids"].clamp(min=0), i]) % 1.0
+                                          for i, c in enumerate(inp["xyz"])))
+                      for inp in inputs]
+            sgn = -sgn
+            with RankTimer(macs, "mark_macs") as marking:
+                outs = run_ranks(R, rank_sync, domains, states, inputs)
+            states, results, spans = ([o[i] for o in outs] for i in range(3))
+        last = step == POOL_DRIFT_STEPS
+        with record_launches() as calls:
+            after = run_ranks(R, rank_after, domains, states, results, inputs)
+        if last:
+            launched = list(calls)
+        wall = 1e3 * (max(e for _, e in spans) - min(s for s, _ in spans))
+        per_rank = [1e3 * (e - s) for s, e in spans]
+        mark = [marking.ms.get(f"rank-{r}", 0.0) for r in range(R)]
+        print(f"{what}: {R}-rank sync wall {wall:.3f} ms; per rank sync ms {json.dumps([round(t, 3) for t in per_rank])}, "
+              f"share in mark_macs {json.dumps([round(a / b, 4) for a, b in zip(mark, per_rank)])} [{card}]",
+              flush=True)
+        pool_checks(what, reference[step], states, results, after, box, step == 0, card)
+        inputs = [a["next"] for a in after]
+    launches = all_launches()
+    print(f"phase 9 launches: {json.dumps(launches)}; peak memory allocated "
+          f"{torch.cuda.max_memory_allocated(dev)} bytes [{card}]", flush=True)
+    for k in ("stencil_counts", "stencil_density"):
+        check(launches[k] == R * (1 + POOL_DRIFT_STEPS), f"{k} should launch once per rank and step: {launches}")
+
+    # every B1 and B2 launch of the last step against its plain version
+    names = sorted(c[0] for c in launched)
+    check(names == ["stencil_counts"] * R + ["stencil_density"] * R, f"the last step launched {names}")
+    for name, args, got in launched:
+        want = plain_of(name)(*args)
+        if name == "stencil_counts":
+            err.counts(name, got, want, "path-E inputs")
+        else:
+            err.density(name, got, want, "path-E inputs")
+    print(f"the last step's {len(launched)} B1/B2 launches equal their plain versions", flush=True)
+    return {k: launches[k] for k in ("stencil_counts", "stencil_density")}, err
+
+
+def pool_checks(what, ref, states, results, after, box, check_halos, card) -> None:
+    """Path E against phase 4's single-rank run on the same positions."""
+    import torch
+
+    from cstone_tpu_torch.ops.keys64 import ule, ult
+    from cstone_tpu_torch.ops.primitives import searchsorted, segment_max
+
+    R = len(results)
+    dev = results[0].keys.device
+    counts = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    rho = torch.zeros(N, dtype=torch.float32, device=dev)
+    owned_ids = []
+    ref_keys, ref_counts = ref["tree"]
+    for r, (state, res, a) in enumerate(zip(states, results, after)):
+        check(int(res.overflow) == 0 and not a["cell_ovf"], f"{what}, rank {r}: overflow "
+              f"{res.overflow_detail.tolist()}, cell overflow {a['cell_ovf']}")
+        t = state.global_tree
+        nn = int(t.n_nodes)
+        check(nn + 1 == ref_keys.numel() and torch.equal(t.keys[:nn + 1], ref_keys)
+              and torch.equal(t.counts[:nn], ref_counts), f"{what}, rank {r}: the global tree is not phase 4's")
+        s, e, nwh = int(res.start_index), int(res.end_index), int(res.n_with_halos)
+        bnd = state.assignment.boundaries
+        keys = res.keys[s:e]
+        check(bool((ule(bnd[r], keys) & ult(keys, bnd[r + 1])).all()),
+              f"{what}, rank {r}: an owned key lies outside the rank's range")
+        rid = a["rid"]
+        check(bool((rid[:nwh] >= 0).all()) and torch.equal(a["halo_ids"][:nwh], rid[:nwh]),
+              f"{what}, rank {r}: exchange_halos did not put the owners' ids into the halo slots")
+        owned_ids.append(rid[s:e])
+        counts[rid[s:e]] = a["counts"][s:e]
+        rho[rid[s:e]] = a["rho"][s:e]
+    ids = torch.cat(owned_ids)
+    check(ids.numel() == N and torch.equal(torch.sort(ids).values, torch.arange(N, device=dev)),
+          f"{what}: the owned ranges are not a partition of the {N} particles")
+    check(torch.equal(counts, ref["counts"]), f"{what}: B1 counts differ from phase 4's at "
+          f"{int((counts != ref['counts']).sum())} particles")
+    ok = torch.allclose(rho, ref["rho"], rtol=1e-5, atol=0.0)
+    check(ok, f"{what}: B2 densities differ from phase 4's beyond rtol 1e-5 "
+          f"(max rel {float(((rho - ref['rho']).abs() / ref['rho']).max())})")
+    gap = (rho - ref["rho"]).abs()
+    print(f"{what}: path-E densities against phase 4's, B2 on another buffer: max abs gap {float(gap.max())}, "
+          f"max rel gap {float((gap / ref['rho']).max())} [{card}]", flush=True)
+    sizes = [int(res.end_index) - int(res.start_index) for res in results]
+    halos = [int(res.n_with_halos) - n for res, n in zip(results, sizes)]
+    print(f"{what}: global trees equal phase 4's; owned {sizes} (sum {sum(sizes)}), halo particles {halos}; "
+          f"B1 counts by particle bit-equal to phase 4's, B2 densities within rtol 1e-5", flush=True)
+    if check_halos:
+        r = LET_RANK
+        state, res = states[r], results[r]
+        leaves = res.tree.leaves
+        cap_leaf = leaves.shape[0] - 1
+        lif = torch.arange(cap_leaf, device=dev)
+        first, last = searchsorted(leaves, state.assignment.boundaries[r:r + 2])
+        mine = (lif >= first) & (lif < last)
+        # the radius of an own leaf: 2 x max h over its particles, all of
+        # them in the rank's buffer (an empty leaf's max is -inf)
+        j = torch.arange(res.h.shape[0], device=dev)
+        hmax = segment_max(torch.where(j < res.n_with_halos, res.h, -float("inf")), res.layout, cap_leaf)
+        radii = torch.where(mine, torch.clamp(hmax, min=0.0) * 2.0, 0.0)
+        halo_flags_ok(leaves, res.tree.n_leaf, radii, state.box, mine, res.halo_flags, f"{what}, rank {r}")
+
+
+def halo_flags_ok(leaves, n_leaf, radii, box, mine, halo_flags, what) -> None:
+    """Check one rank's halo flags against all pairs of (own leaf's halo
+    box, foreign leaf box): a foreign leaf is a halo exactly when its box
+    overlaps the box of one of the rank's own leaves extended by that
+    leaf's radius."""
+    import torch
+
+    from cstone_tpu_torch.sfc.box import IBox
+    from cstone_tpu_torch.sfc.encode import sfc_ibox
+    from cstone_tpu_torch.sfc.keys import node_range, tree_level
+    from cstone_tpu_torch.traversal.boxoverlap import make_halo_box, overlap_iboxes
+
+    kdt, dev = leaves.dtype, leaves.device
+    fields = ("xmin", "xmax", "ymin", "ymax", "zmin", "zmax")
+    cap_leaf = leaves.shape[0] - 1
+    lif = torch.arange(cap_leaf, device=dev)
+    key = leaves[:-1]
+    rng = leaves[1:] - key
+    level = tree_level(torch.where(rng != 0, rng, node_range(kdt, 21)))
+    ibox = sfc_ibox(key, level)
+    hbox = make_halo_box(ibox, radii, box, kdt)
+    own, foreign = torch.nonzero(mine)[:, 0], torch.nonzero((lif < n_leaf) & ~mine)[:, 0]
+    src = IBox(*(getattr(ibox, f)[foreign][None, :] for f in fields))
+    want = torch.zeros(cap_leaf, dtype=torch.int32, device=dev)
+    for c in range(0, own.numel(), 512):
+        tgt = IBox(*(getattr(hbox, f)[own[c:c + 512]][:, None] for f in fields))
+        want[foreign] |= overlap_iboxes(src, tgt, kdt).any(dim=0).to(torch.int32)
+    check(int(halo_flags[mine].sum()) == 0, f"{what}: a leaf of the rank's own range is flagged as halo")
+    check(torch.equal(halo_flags, want), f"{what}: halo flags differ from all pairs at "
+          f"{int((halo_flags != want).sum())} of {int(n_leaf)} leaves")
+    check(0 < int(want.sum()) < foreign.numel(), f"{what}: the halo set should be a proper part of the foreign leaves")
+    print(f"{what}: halo flags equal all {own.numel()} x {foreign.numel()} box pairs", flush=True)
 
 
 def pairwise_bound(name, args):
@@ -1419,7 +1709,7 @@ def main():
     kernel_vs_plain_phase(dev, err)
 
     phase("4 main path: sync + cell-list counts and SPH density")
-    launches, err4, timing = main_path_phase(dev, card)
+    launches, err4, timing, (reference, tree_cap) = main_path_phase(dev, card)
 
     phase("5 path A: sync + tiered adaptive-h counts")
     launches5, err5, times5 = tiered_phase(dev, card)
@@ -1436,15 +1726,19 @@ def main():
 
     phase("8 path D: one rank's locally essential tree and halos from the pool")
     let_phase(dev, card, res_c, state_c)
+    del res_c, state_c
 
-    for e in (err4, err5, err6, err7):
+    phase("9 path E: 8 ranks in pool mode on the card + cell-list counts and density")
+    launches_e, err9 = pool_phase(dev, card, reference, tree_cap)
+
+    for e in (err4, err5, err6, err7, err9):
         for k, v in e.max.items():
             err.max[k] = max(err.max[k], v)
     print(f"total time {time.perf_counter() - t_start:.3f} s [{card}]", flush=True)
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
          "max_abs_err": err.max[name], "library_ms": None, "path_c_launches": launches_c.get(name, 0),
-         **timing[name]}
+         "path_e_launches": launches_e.get(name, 0), **timing[name]}
         for name, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,7 +12,7 @@ import torch
 from ..ops.keys64 import umax, umin
 from ..ops.primitives import searchsorted
 
-__all__ = ["SfcAssignment", "uniform_bins", "make_sfc_assignment", "limit_boundary_shifts"]
+__all__ = ["SfcAssignment", "uniform_bins", "make_sfc_assignment", "find_rank", "limit_boundary_shifts"]
 
 
 @dataclass(frozen=True)
@@ -61,6 +61,12 @@ def make_sfc_assignment(tree_keys, counts, n_nodes, n_ranks: int) -> SfcAssignme
     """Equal-count SFC split over the global tree (domaindecomp.hpp:115-124)."""
     bins, bin_counts = uniform_bins(counts, n_nodes, n_ranks)
     return SfcAssignment(boundaries=_take(tree_keys, bins), counts=bin_counts)
+
+
+def find_rank(assignment: SfcAssignment, keys: torch.Tensor) -> torch.Tensor:
+    """Owning rank per key: upper bound - 1 (domaindecomp.hpp:104-108). int64."""
+    r = searchsorted(assignment.boundaries, keys, side="right") - 1
+    return torch.clamp(r, 0, assignment.n_ranks - 1)
 
 
 def limit_boundary_shifts(old: SfcAssignment, new: SfcAssignment, tree_keys, counts) -> SfcAssignment:

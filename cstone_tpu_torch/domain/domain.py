@@ -1,25 +1,35 @@
-"""The Domain: global octree + decomposition + particle layout, single rank
+"""The Domain: global octree + decomposition + particle and halo layout
 (counterpart of cstone_tpu/domain/domain.py; reference:
 include/cstone/domain/domain.hpp).
 
 One `Domain.sync` call corresponds to Domain::sync (domain.hpp:197-243):
 global box, SFC keys and stable sort, global-tree fixed point, SFC
-assignment, focus tree, layout. The port runs the JAX package's
-single-rank peer-to-peer path: with one rank the sorted particles are the
-owned set and halo search finds nothing. The focus tree is built by
-focus/octree_focus.focus_converge with its own bucket size and capacity;
-where both equal the global tree's, the focus tree is the global
-cornerstone tree and is mirrored without a converge loop (the JAX
-`fast_focus` branch).
+assignment, particle exchange, focus tree, halo discovery, layout. Two
+exchange modes are ported:
 
-Still raising NotImplementedError: n_ranks > 1, axis_name and
-exchange_mode="pool" (ROADMAP.md Queue 1, item 13: multi-rank), and
-sync(grav=True) (Queue 1, item 12: it needs the range-sum service).
+  - "p2p" at one rank: the sorted particles are the owned set and halo
+    search finds nothing. The focus tree is built by
+    focus/octree_focus.focus_converge with its own bucket size and
+    capacity; where both equal the global tree's, the focus tree is the
+    global cornerstone tree and is mirrored without a converge loop (the
+    JAX `fast_focus` branch).
+  - "pool" at any number of ranks: every rank gathers all ranks' sorted
+    keys and payload, sorts the pool once, builds its locally essential
+    tree from the pool with MAC marks, finds its halos, and fills its
+    buffer [halos | owned | halos] by gathers from the pool. The ranks
+    talk through a `RankComm` (parallel/comm.py), which takes the place
+    of the JAX package's `axis_name`.
+
+Still raising NotImplementedError, each naming its ROADMAP.md item:
+exchange_mode="p2p" at n_ranks > 1 and update_expansion_centers at
+n_ranks > 1 (Queue 1, item 3: the dense p2p protocol and its range-sum
+service), protocol="ragged" and peer_window (Queue 1, item 4).
 
 Shapes are capacity-padded exactly as in the JAX package, so a SyncResult
 compares with JAX slot for slot. The JAX `while_loop`/`cond` become Python
 control flow on host flags: each tree-convergence check reads one scalar
-back from the device.
+back from the device, and across ranks every such flag is reduced before
+the loop branches on it.
 """
 
 from __future__ import annotations
@@ -31,14 +41,19 @@ import numpy as np
 import torch
 
 from ..focus.octree_focus import focus_converge
+from ..focus.source_center import set_mac_radii, upsweep_centers
 from ..ops.keys64 import np_key_dtype, usort
-from ..ops.primitives import searchsorted
+from ..ops.primitives import searchsorted, segment_ids_from_offsets, segment_max, segment_sum, sort_by_key
+from ..parallel.comm import RankComm
+from ..parallel.global_tree import converge_global_octree, global_bounds
 from ..sfc.box import Box
 from ..sfc.encode import HILBERT, compute_sfc_keys
 from ..sfc.keys import remove_key
-from ..tree.csarray import CsArray, compute_node_counts, rebalance_decision, rebalance_tree, root_tree
-from ..traversal.macs import inv_theta_min_mac
+from ..tree.csarray import CsArray, root_tree
+from ..traversal.collisions import find_halos
+from ..traversal.macs import inv_theta_min_mac, inv_theta_vec_mac, mark_macs
 from ..traversal.neighbors import OctreeNsView, make_ns_view
+from ..traversal.peers import find_peers_mac
 from ..tree.octree import LinkedOctree, build_linked_octree
 from ..utils.device import resolve_device
 from .decomposition import SfcAssignment, limit_boundary_shifts, make_sfc_assignment
@@ -66,9 +81,12 @@ class DomainState:
 
 @dataclass(frozen=True)
 class SyncResult:
-    """Outputs of one sync step, in layout order; [start_index, end_index)
-    brackets the owned particles (domain.hpp:144-194). Index tensors are
-    int64 (int32 in the JAX version)."""
+    """Per-rank outputs of one sync step, in layout order; [start_index,
+    end_index) brackets the owned particles (domain.hpp:144-194). Index
+    tensors are int64 (int32 in the JAX version). global_ids (the pool
+    index of every buffer slot) and pool_perm (the pre-sort pool index of
+    every sorted pool slot, the ExchangeLog analog) are set in pool mode
+    and None in p2p mode."""
 
     keys: torch.Tensor
     x: torch.Tensor
@@ -87,11 +105,19 @@ class SyncResult:
     overflow: torch.Tensor  # > 0 if any capacity was exceeded
     # (7,) per-capacity overflow indicators, each 0 or the required size:
     # [local_buffer, tree_capacity, focus_capacity, move_cap, treelet_cap,
-    #  halo_caps, peer_window] (util/reallocate.hpp:38-107 semantics)
+    #  halo_caps, peer_window] (util/reallocate.hpp:38-107 semantics); in
+    # pool mode, where only the first three can overflow, it and `overflow`
+    # are the largest of all ranks, so every rank takes the same retry
     overflow_detail: torch.Tensor
+    global_ids: Optional[torch.Tensor] = None
+    pool_perm: Optional[torch.Tensor] = None
 
 
 CAP_NAMES = ("local", "tree", "focus", "move", "treelet", "halo", "window")
+
+# what each refusal names
+_ITEM_P2P = "ROADMAP.md Queue 1, item 3: the dense p2p protocol and its range-sum service"
+_ITEM_RAGGED = "ROADMAP.md Queue 1, item 4: the windowed and ragged protocols"
 
 
 def sync_with_retry(run_sync, caps: dict, max_retries: int = 4, growth: float = 1.6):
@@ -101,7 +127,9 @@ def sync_with_retry(run_sync, caps: dict, max_retries: int = 4, growth: float = 
     CAP_NAMES), runs one sync plus downstream work and returns anything
     whose last element is a SyncResult. On overflow, the capacities named
     by result.overflow_detail grow by `growth` (at least to the reported
-    size) and run_sync runs again. Raises after max_retries.
+    size) and run_sync runs again. Raises after max_retries. In pool mode
+    the overflow is already the largest of all ranks, so every rank may
+    run this loop inside run_ranks and all take the same decisions.
     """
     caps = dict(caps)
     for _ in range(max_retries + 1):
@@ -129,26 +157,34 @@ def sync_with_retry(run_sync, caps: dict, max_retries: int = 4, growth: float = 
 
 
 class Domain:
-    """Single-rank Domain (domain.hpp:67-113).
+    """Domain of one rank (domain.hpp:67-113).
 
     bucket_size is the global tree's leaf bucket, bucket_size_focus the
     focus (locally essential) tree's (0 = bucket_size). tree_capacity
     bounds the global tree's leaf count, focus_capacity the focus tree's
     (0 = tree_capacity). theta is the MAC opening angle the focus tree is
-    built for; at one rank no node lies outside the focus, so it changes
-    nothing yet. `device` is where init_state puts the state: the card
+    built for. `device` is where init_state puts the state: the card
     unless the caller names another (device="cpu"); without a card the
     default raises RuntimeError. sync follows its inputs.
 
-    Raises NotImplementedError for n_ranks > 1, a rank other than 0,
-    axis_name and exchange_mode="pool" (ROADMAP.md Queue 1, item 13), and
-    sync raises it for grav=True (Queue 1, item 12).
+    exchange_mode "p2p" runs at one rank; "pool" at any number of ranks.
+    Over several ranks, `comm` is this rank's RankComm (parallel/comm.py)
+    and gives the Domain its rank and rank count: pass it instead of
+    `rank` and `n_ranks`. Its collectives run inside parallel.run_ranks,
+    any call of it, so the Domain may live across calls. Without a comm
+    the Domain is rank 0 of 1 unless `rank` and `n_ranks` say otherwise
+    (n_ranks > 1 then needs a comm). protocol "dense" (or None) is the
+    only protocol ported.
+
+    Raises NotImplementedError for exchange_mode="p2p" at n_ranks > 1
+    (ROADMAP.md Queue 1, item 3), protocol="ragged" and peer_window > 0
+    (item 4).
     """
 
     def __init__(
         self,
-        rank: int = 0,
-        n_ranks: int = 1,
+        rank: Optional[int] = None,
+        n_ranks: Optional[int] = None,
         bucket_size: int = 64,
         bucket_size_focus: int = 0,
         theta: float = 0.5,
@@ -159,17 +195,32 @@ class Domain:
         exchange_mode: str = "p2p",
         device=None,
         halo_search_ext: float = 1.0,
-        axis_name: Optional[str] = None,
+        comm: Optional[RankComm] = None,
+        protocol: Optional[str] = None,
+        peer_window: int = 0,
     ):
-        if int(n_ranks) != 1 or int(rank) != 0 or axis_name is not None:
-            raise NotImplementedError(
-                "n_ranks > 1 (a rank other than 0, an axis_name) is not ported yet "
-                "(ROADMAP.md Queue 1, item 13: multi-rank)")
-        if exchange_mode != "p2p":
-            raise NotImplementedError(
-                "exchange_mode='pool' is not ported yet (ROADMAP.md Queue 1, item 13: multi-rank)")
-        self.rank = 0
-        self.n_ranks = 1
+        if comm is not None:
+            if rank is not None or n_ranks is not None:
+                raise ValueError("pass comm, which carries the rank and rank count, or rank and n_ranks")
+            rank, n_ranks = comm.rank, comm.n_ranks
+        rank, n_ranks = int(rank or 0), int(1 if n_ranks is None else n_ranks)
+        if exchange_mode not in ("p2p", "pool"):
+            raise ValueError(f"unknown exchange_mode {exchange_mode!r}")
+        if protocol not in (None, "dense", "ragged"):
+            raise ValueError(f"unknown protocol {protocol!r}")
+        if protocol == "ragged" or int(peer_window) > 0:
+            raise NotImplementedError(f"protocol='ragged' and peer_window are not ported yet ({_ITEM_RAGGED})")
+        if exchange_mode == "p2p" and n_ranks > 1:
+            raise NotImplementedError(f"exchange_mode='p2p' at n_ranks > 1 is not ported yet ({_ITEM_P2P}); "
+                                      "use exchange_mode='pool'")
+        if not 0 <= rank < n_ranks:
+            raise ValueError(f"rank {rank} outside [0, {n_ranks})")
+        if comm is None and n_ranks > 1:
+            raise ValueError("n_ranks > 1 needs this rank's comm (parallel/comm.py)")
+        self.rank = rank
+        self.n_ranks = n_ranks
+        self.comm = comm
+        self.exchange_mode = exchange_mode
         self.bucket_size = int(bucket_size)
         self.bucket_size_focus = int(bucket_size_focus) or self.bucket_size
         self.tree_capacity = int(tree_capacity)
@@ -203,21 +254,41 @@ class Domain:
         )
 
     # ------------------------------------------------------------------
+    def _pgather(self, t: torch.Tensor) -> torch.Tensor:
+        """all_gather over the ranks -> leading axis n_ranks."""
+        return t[None] if self.comm is None else self.comm.all_gather(t)
+
+    def _psum(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.comm is None else self.comm.all_reduce(t, "sum")
+
+    # ------------------------------------------------------------------
     def sync(self, state: DomainState, x, y, z, h, properties: Sequence[torch.Tensor] = (),
              n_local=None, boundaries=None, grav: bool = False) -> Tuple[DomainState, SyncResult]:
         """One sync step (domain.hpp:197-243).
 
         x, y, z, h, properties: (local_capacity,) arrays; slots beyond
         n_local are ignored. Returns (new_state, SyncResult).
+
+        With grav=True this is syncGrav (domain.hpp:246-325): properties[0]
+        must be the mass. In pool mode the focus tree then uses the
+        worst-case vector MAC and the halo flags take the leaves that fail
+        the vector MAC against the pool's mass centers
+        (octree_focus_mpi.hpp:369-449, :601-610). At one rank in p2p mode
+        no leaf lies outside the focus, and the result equals grav=False.
         """
-        if grav:
-            raise NotImplementedError(
-                "sync(grav=True) is not ported yet (ROADMAP.md Queue 1, item 12: "
-                "it needs the range-sum service)")
-        dt = self.key_dtype
+        if grav and len(properties) == 0:
+            raise ValueError("sync(grav=True) requires the mass as properties[0]")
+        if self.exchange_mode == "pool":
+            return self._sync_pool(state, x, y, z, h, properties, n_local, boundaries, grav)
+        return self._sync_p2p(state, x, y, z, h, properties, n_local, boundaries)
+
+    # ------------------------------------------------------------------
+    def _sync_p2p(self, state, x, y, z, h, properties, n_local, boundaries):
+        """The single-rank peer-to-peer path: the sorted particles are the
+        owned set, the layout order is the sorted order."""
         cap = x.shape[0]
         dev = x.device
-        rk = remove_key(dt)
+        rk = remove_key(self.key_dtype)
 
         (box, keys, sort_order, xs, ys, zs, hs, props_s, tree, assignment,
          n_local, tree_changed) = self._common_assign(
@@ -276,14 +347,7 @@ class Domain:
         j = torch.arange(cap, device=dev)
         new_keys = torch.where(j < n_with_halos, keys, rk)
 
-        gcap = tree.keys.shape[0] - 1
-        tree_ovf = torch.where(tree.n_nodes > gcap, tree.n_nodes, zero)
-        focus_ovf = torch.maximum(torch.where(linked.n_leaf > cap_leaf, linked.n_leaf, zero),
-                                  focus_conv_ovf)
-        local_ovf = torch.where(n_with_halos > cap, n_with_halos, zero)
-        overflow = torch.stack([local_ovf, tree_ovf, focus_ovf, svc_ovf]).max()
-        detail = torch.stack([local_ovf, tree_ovf, focus_ovf, zero, svc_ovf, zero, zero])
-
+        overflow, detail = self._overflow(tree, linked, focus_conv_ovf, n_with_halos, cap, svc_ovf)
         new_state = DomainState(
             box=box, assignment=assignment, global_tree=tree,
             focus_leaves=linked.leaves, focus_n=linked.n_leaf, first_call=False,
@@ -298,6 +362,115 @@ class Domain:
         return new_state, result
 
     # ------------------------------------------------------------------
+    def _sync_pool(self, state, x, y, z, h, properties, n_local, boundaries, grav):
+        """Pool exchange (the JAX package's exchange_mode="pool"): all_gather
+        + one global sort. The pool is SFC-sorted, so every leaf's particles
+        sit at one contiguous range of it, and the owned and the halo
+        particles of every rank are gathers from it."""
+        cap = x.shape[0]
+        dev = x.device
+        rk = remove_key(self.key_dtype)
+
+        (box, keys, sort_order, xs, ys, zs, hs, props_s, tree, assignment,
+         n_local, _) = self._common_assign(state, x, y, z, h, properties, n_local, boundaries)
+
+        # ---- 5. particle exchange: all_gather + one stable sort of the pool
+        payload = (xs, ys, zs, hs) + props_s
+        pool_keys = self._pgather(keys).reshape(-1)
+        n_pool = pool_keys.shape[0]
+        pool_keys, (pool_perm, *pool_payload) = sort_by_key(
+            pool_keys, torch.arange(n_pool, device=dev), *(self._pgather(p).reshape(-1) for p in payload))
+        n_pool_valid = self._psum(n_local)
+
+        # ---- 6. focused octree (LET) from the pool, with MAC marks ---------
+        # syncGrav builds the tree for the worst-case vector MAC (domain.hpp:266)
+        itm = inv_theta_vec_mac if grav else inv_theta_min_mac
+        focus_start = assignment.boundaries[self.rank]
+        focus_end = assignment.boundaries[self.rank + 1]
+        (_, _, linked, node_counts_f, focus_conv_ovf, _, focus_converged) = focus_converge(
+            state.focus_leaves, state.focus_n, pool_keys, n_pool_valid, box, focus_start, focus_end,
+            assignment.boundaries, self.bucket_size_focus, itm(self.theta), comm=self.comm,
+            curve=self.curve, linked0=state.linked,
+            use_carried=state.focus_converged and not state.first_call)
+        cap_leaf = linked.leaves.shape[0] - 1
+        lif = torch.arange(cap_leaf, device=dev)
+        # leaf counts come from the converge loop's final count pass
+        leaf_counts = torch.where(lif < linked.n_leaf, node_counts_f[linked.leaf_order()], 0)
+        first_leaf, last_leaf = searchsorted(linked.leaves, assignment.boundaries[self.rank:self.rank + 2])
+
+        # ---- 7. halos: per-leaf radii 2 * ext * max(h) over the own leaves'
+        # particles (halos.hpp:116-189); an empty leaf's max is -inf -> 0
+        leaf_pool_off = torch.minimum(searchsorted(pool_keys, linked.leaves), n_pool_valid)
+        leaf_hmax = torch.clamp(segment_max(pool_payload[3], leaf_pool_off, cap_leaf), min=0.0)
+        mine = (lif >= first_leaf) & (lif < last_leaf)
+        radii = torch.where(mine, leaf_hmax * (2.0 * self.halo_search_ext), 0.0)
+        halo_flags = find_halos(linked, radii, box, first_leaf, last_leaf, self.curve)
+
+        if grav:
+            # vector-MAC halo augmentation from the pool's exact mass
+            # centers (updateCenters, octree_focus_mpi.hpp:369-449, and
+            # addMacs, :601-610)
+            w = pool_payload[4].abs()
+            sums = torch.stack([w * pool_payload[0], w * pool_payload[1], w * pool_payload[2], w], dim=-1)
+            _, centers4 = self._node_centers(linked, segment_sum(sums, leaf_pool_off, cap_leaf), box)
+            mac_marks = mark_macs(linked, centers4, box, focus_start, focus_end, linked.leaves,
+                                  linked.n_leaf, limit_source=False, curve=self.curve)
+            mac_leaf = mac_marks[linked.leaf_order()]
+            halo_flags = torch.where(mine, halo_flags, halo_flags | mac_leaf.to(halo_flags.dtype))
+
+        # ---- 8. layout (layout.hpp:150-239) --------------------------------
+        layout = compute_node_layout(leaf_counts, halo_flags, first_leaf, last_leaf)
+        n_with_halos = layout[cap_leaf]
+        start_index = layout[first_leaf]
+        end_index = layout[last_leaf]
+
+        # ---- 9. every buffer slot is a gather from the pool: slot j of leaf
+        # i = searchsorted(layout, j) - 1 is pool slot leaf_pool_off[i] +
+        # (j - layout[i]); slots past the buffer point at the last pool slot
+        j = torch.arange(cap, device=dev)
+        leaf_of_j = segment_ids_from_offsets(layout, cap, cap_leaf)
+        in_buffer = j < n_with_halos
+        pool_idx = torch.where(in_buffer, leaf_pool_off[leaf_of_j] + (j - layout[leaf_of_j]), n_pool - 1)
+        new_keys = torch.where(in_buffer, pool_keys[pool_idx], rk)
+        new_x, new_y, new_z, new_h, *new_props = (p[pool_idx] for p in pool_payload)
+
+        overflow, detail = self._overflow(tree, linked, focus_conv_ovf, n_with_halos, cap)
+        if self.comm is not None:
+            # the largest of all ranks: every rank takes the same retry
+            detail = self.comm.all_reduce(detail, "max")
+            overflow = detail.max()
+        new_state = DomainState(
+            box=box, assignment=assignment, global_tree=tree,
+            focus_leaves=linked.leaves, focus_n=linked.n_leaf, first_call=False,
+            linked=linked, focus_converged=bool(focus_converged),
+        )
+        result = SyncResult(
+            keys=new_keys, x=new_x, y=new_y, z=new_z, h=new_h, properties=tuple(new_props),
+            start_index=start_index, end_index=end_index, n_with_halos=n_with_halos,
+            sort_order=sort_order, layout=layout, halo_flags=halo_flags, tree=linked,
+            leaf_counts=leaf_counts, overflow=overflow, overflow_detail=detail,
+            global_ids=pool_idx, pool_perm=pool_perm,
+        )
+        return new_state, result
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _overflow(tree: CsArray, linked: LinkedOctree, focus_conv_ovf, n_with_halos, cap: int,
+                  svc_ovf=None):
+        """(overflow, the 7-entry overflow_detail) of one rank's sync."""
+        zero = torch.zeros((), dtype=torch.int64, device=n_with_halos.device)
+        svc_ovf = zero if svc_ovf is None else svc_ovf
+        gcap = tree.keys.shape[0] - 1
+        cap_leaf = linked.leaves.shape[0] - 1
+        tree_ovf = torch.where(tree.n_nodes > gcap, tree.n_nodes, zero)
+        focus_ovf = torch.maximum(torch.where(linked.n_leaf > cap_leaf, linked.n_leaf, zero),
+                                  focus_conv_ovf)
+        local_ovf = torch.where(n_with_halos > cap, n_with_halos, zero)
+        overflow = torch.stack([local_ovf, tree_ovf, focus_ovf, svc_ovf]).max()
+        detail = torch.stack([local_ovf, tree_ovf, focus_ovf, zero, svc_ovf, zero, zero])
+        return overflow, detail
+
+    # ------------------------------------------------------------------
     def _common_assign(self, state, x, y, z, h, properties, n_local, boundaries):
         """Global box, key encode + stable sort, global tree update, SFC
         assignment (domain.hpp:197-243 steps 1-4)."""
@@ -307,13 +480,11 @@ class Domain:
         dev = x.device
         rk = remove_key(dt)
         n_local = torch.as_tensor(cap if n_local is None else n_local, dtype=torch.int64, device=dev)
-        slot = torch.arange(cap, device=dev)
-        valid = slot < n_local
+        valid = torch.arange(cap, device=dev) < n_local
 
         # ---- 1. global bounding box (box_mpi.hpp:85-119) -------------------
-        big = float(torch.finfo(fdt).max)
-        mins = torch.stack([torch.where(valid, c, big).min() for c in (x, y, z)])
-        maxs = torch.stack([torch.where(valid, c, -big).max() for c in (x, y, z)])
+        fit = global_bounds(x, y, z, self.comm, n_valid=n_local)
+        mins, maxs = fit.mins, fit.maxs
         bnd = state.box.boundaries if boundaries is None else tuple(boundaries)
         prev_mins = state.box.mins.to(fdt)
         prev_maxs = state.box.maxs.to(fdt)
@@ -366,32 +537,131 @@ class Domain:
 
     # ------------------------------------------------------------------
     def _update_global_tree(self, state: DomainState, keys, n_local) -> Tuple[CsArray, bool]:
-        """Decision-first fixed point: a converged warm tree costs one count
-        and one decision (csarray.hpp:411-448). Returns (tree, changed);
-        changed is False when the carried leaf array is already the fixed
-        point, so the linked structure can be reused."""
-        max_count = 0xFFFFFFFF // max(1, self.n_ranks) - 1
-        t = state.global_tree
-        capacity = t.keys.shape[0] - 1
-        t = CsArray(keys=t.keys, counts=compute_node_counts(t.keys, keys, max_count, n_local),
-                    n_nodes=t.n_nodes)
-        ops, conv0 = rebalance_decision(t.keys, t.counts, t.n_nodes, self.bucket_size)
-        converged = bool(conv0)
-        stop = converged
-        while not stop:
-            nk, nn = rebalance_tree(t.keys, ops, t.n_nodes)
-            t = CsArray(keys=nk, counts=compute_node_counts(nk, keys, max_count, n_local), n_nodes=nn)
-            ops, conv = rebalance_decision(nk, t.counts, nn, self.bucket_size)
-            stop = bool(conv | (nn > capacity))
-        return t, not converged
+        """The global tree's fixed point over the leaf counts of all ranks,
+        from last step's leaves (parallel/global_tree.converge_global_octree).
+        Returns (tree, changed); changed is False when the carried leaf
+        array is already the fixed point, so the linked structure can be
+        reused. Counts are capped at 2^32 / n_ranks - 1 on each rank."""
+        max_count = 0xFFFFFFFF // self.n_ranks - 1
+        return converge_global_octree(state.global_tree, keys, self.bucket_size, self.comm, max_count, n_local)
+
+    # ------------------------------------------------------------------
+    def _node_centers(self, linked: LinkedOctree, leaf_sums: torch.Tensor, box: Box):
+        """(node mass centers, node centers with the squared vector-MAC
+        radius) from per-leaf sums (w x, w y, w z, w), w = |m|
+        (updateCenters + setMacRadius, octree_focus_mpi.hpp:369-531)."""
+        mass = leaf_sums[:, 3:4]
+        inv = torch.where(mass != 0, 1.0 / torch.where(mass != 0, mass, 1.0), 1.0)
+        node_centers = upsweep_centers(linked, torch.cat([leaf_sums[:, :3] * inv, mass], dim=-1))
+        return node_centers, set_mac_radii(linked, node_centers, 1.0 / self.theta, box, self.curve)
+
+    def update_expansion_centers(self, state: DomainState, result: SyncResult, m: torch.Tensor):
+        """Expansion-center maintenance between syncs: updateCenters +
+        setMacRadius + updateMacs (octree_focus_mpi.hpp:369-531).
+
+        m: (local_capacity,) mass in the result's layout order; halo slots
+        are ignored. Returns (centers (n_nodes, 4) x, y, z, mass per focus
+        node; mac_spheres (n_nodes, 4) x, y, z and the squared vector-MAC
+        radius; mac_flags (cap_leaf,) int32 leaf MAC-failure flags relative
+        to the rank's focus range; overflow 0-d int64).
+
+        Raises NotImplementedError at n_ranks > 1: foreign leaves are
+        summed by their owners' range-sum service (ROADMAP.md Queue 1,
+        item 3).
+        """
+        if self.n_ranks > 1:
+            raise NotImplementedError(f"update_expansion_centers at n_ranks > 1 is not ported yet ({_ITEM_P2P})")
+        linked = result.tree
+        cap = result.keys.shape[0]
+        dev = result.keys.device
+        j = torch.arange(cap, device=dev)
+        take = torch.clamp(result.start_index + j, 0, cap - 1)
+        n_owned = result.end_index - result.start_index
+        owned = j < n_owned
+        okeys = torch.where(owned, result.keys[take], remove_key(self.key_dtype))
+        ox, oy, oz, om = (torch.where(owned, a[take], 0.0) for a in (result.x, result.y, result.z, m))
+
+        # one rank: every leaf is its own, summed from the owned particles
+        w = om.abs()
+        vals = torch.stack([w * ox, w * oy, w * oz, w], dim=-1)
+        leaf_off = torch.minimum(searchsorted(okeys, linked.leaves), n_owned)
+        leaf_sums = segment_sum(torch.where(owned[:, None], vals, 0.0), leaf_off, linked.leaves.shape[0] - 1)
+        centers, spheres = self._node_centers(linked, leaf_sums, state.box)
+
+        boundaries = state.assignment.boundaries
+        mac_marks = mark_macs(linked, spheres, state.box, boundaries[self.rank], boundaries[self.rank + 1],
+                              linked.leaves, linked.n_leaf, limit_source=False, curve=self.curve)
+        return centers, spheres, mac_marks[linked.leaf_order()], torch.zeros((), dtype=torch.int64, device=dev)
+
+    # ------------------------------------------------------------------
+    def exchange_halos(self, result: SyncResult, prop: torch.Tensor) -> torch.Tensor:
+        """Fill the halo slots of `prop` with the values of their owners
+        (domain.hpp:382-386, halos.hpp:224-251).
+
+        prop: (local_capacity,) values valid in [start_index, end_index).
+        Single-rank p2p: there are no halo slots. Pool mode: every rank
+        scatters its owned values into a zero pool, the pools are summed
+        over the ranks (each slot has one owner), and every buffer slot
+        gathers its pool slot.
+        """
+        if result.global_ids is None:
+            return prop
+        cap = prop.shape[0]
+        j = torch.arange(cap, device=prop.device)
+        owned = (j >= result.start_index) & (j < result.end_index)
+        n_pool = cap * self.n_ranks
+        pool_vals = torch.zeros(n_pool + 1, dtype=prop.dtype, device=prop.device)
+        pool_vals[torch.where(owned, result.global_ids, n_pool)] = prop  # slot n_pool: dropped
+        return self._psum(pool_vals[:n_pool])[result.global_ids]
+
+    # ------------------------------------------------------------------
+    def reapply_sync(self, result: SyncResult, prop: torch.Tensor) -> torch.Tensor:
+        """Replay the sync's exchange for an extra field (domain.hpp:335-378).
+
+        prop: (local_capacity,) values in the PRE-sync local particle order.
+        Returns the field in post-sync layout order: at one rank in p2p mode
+        the sorted order; in pool mode every buffer slot, halos included,
+        gathered from the pool through the recorded permutations.
+        """
+        sorted_prop = prop[result.sort_order]
+        if result.pool_perm is None:
+            return sorted_prop
+        return self._pgather(sorted_prop).reshape(-1)[result.pool_perm][result.global_ids]
+
+    # ------------------------------------------------------------------
+    def diagnostics(self, state: DomainState, result: SyncResult) -> dict:
+        """Per-rank focus and halo statistics (domain.hpp:606-652), on the
+        host; at n_ranks > 1 also the MAC peers (findPeersMac,
+        peers.hpp:63-117): their number and largest rank offset."""
+        n_leaf = int(result.tree.n_leaf)
+        diag = {
+            "focus_leaves": n_leaf,
+            "focus_nodes": int(result.tree.n_nodes),
+            "global_leaves": int(state.global_tree.n_nodes),
+            "halo_cells": int(result.halo_flags[:n_leaf].sum()),
+            "assigned_particles": int(result.end_index) - int(result.start_index),
+            "particles_with_halos": int(result.n_with_halos),
+            "overflow": int(result.overflow),
+            "box": state.box.limits.cpu().numpy().tolist(),
+        }
+        if self.n_ranks > 1:
+            peers = find_peers_mac(self.rank, state.assignment, result.tree, state.box,
+                                   inv_theta_min_mac(self.theta), self.curve).cpu().numpy()
+            offs = np.abs(np.arange(self.n_ranks) - self.rank)[peers > 0]
+            diag["mac_peers"] = int((peers > 0).sum())
+            diag["mac_peer_max_offset"] = int(offs.max()) if offs.size else 0
+        return diag
 
     # ------------------------------------------------------------------
     @staticmethod
     def compact_owned(result: SyncResult, field: torch.Tensor) -> torch.Tensor:
         """Move the owned range [start_index, end_index) to the front: the
         input of the next sync with n_local = end_index - start_index
-        (domain.hpp:389-409)."""
-        return torch.roll(field, -int(result.start_index), 0)
+        (domain.hpp:389-409). A gather by (i + start_index) % cap: the same
+        as torch.roll by -start_index, without reading start_index on the
+        host."""
+        cap = field.shape[0]
+        return field[(torch.arange(cap, device=field.device) + result.start_index) % cap]
 
     # ------------------------------------------------------------------
     def ns_view(self, result: SyncResult, box: Box) -> OctreeNsView:

@@ -10,7 +10,9 @@ with mandatory resolution at the assignment boundaries of all ranks.
 The JAX package runs the fixed point in a `while_loop` and picks the
 forced injection with a `cond`; here both are Python control flow, and
 each iteration reads its two flags (converged, resolution failed) back
-from the device in one transfer.
+from the device in one transfer. Across ranks the converged flag is
+reduced before the loop branches on it (the JAX package's pmin), so every
+rank runs the same number of iterations.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from ..ops.primitives import searchsorted
+from ..parallel.comm import RankComm
 from ..sfc.box import Box
 from ..sfc.encode import HILBERT
 from ..tree.csarray import rebalance_tree
@@ -87,7 +90,7 @@ def focus_converge(
     bucket_size_focus: int,
     inv_theta_eff: float,
     max_iters: int = 32,
-    axis_name: Optional[str] = None,
+    comm: Optional[RankComm] = None,
     curve: str = HILBERT,
     leaf_counts_fn: Optional[Callable] = None,
     skip_macs: bool = False,
@@ -114,12 +117,9 @@ def focus_converge(
     iteration asked for if that exceeds the capacity, and cap_leaf+1 when
     max_iters passed without convergence, so that a host retry loop never
     takes a stale tree for a result. overflow and count_service_overflow
-    are 0-d int64 tensors; converged is a host bool.
+    are 0-d int64 tensors; converged is a host bool. With `comm` the loop
+    runs until every rank's tree is unchanged, and converged says so.
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "focus_converge across ranks (axis_name) is not ported yet "
-            "(ROADMAP.md Queue 1, item 13: multi-rank)")
     from ..traversal.macs import mark_macs
 
     dev = leaves0.device
@@ -155,6 +155,8 @@ def focus_converge(
         new_leaves, new_n, converged = focus_update_once(
             linked, node_counts, macs_of(linked), focus_start, focus_end, mandatory_keys,
             bucket_size_focus)
+        if comm is not None:
+            converged = comm.all_reduce_flag(converged, "all")
         # track the largest requested leaf count: rebalance truncates the
         # key array at capacity, and a later iteration may converge on the
         # truncated (coarser) tree and so lose the overflow

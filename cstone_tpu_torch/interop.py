@@ -9,6 +9,11 @@ int64, boolean flags become host bools. Every array keeps its own
 capacity: a DomainState whose focus tree (`focus_leaves`, `linked`) is
 sized differently from its global tree carries over as it is. The tensors
 go to `device`: the card unless the caller names another (device="cpu").
+
+A multi-rank JAX state, as `shard_map` returns it with
+`out_specs=P(rank_axis)` (every array, scalars included, stacked along a
+leading rank axis), carries over one rank at a time: `rank=r` takes entry
+r of every array.
 """
 
 from __future__ import annotations
@@ -29,8 +34,8 @@ from .utils.device import resolve_device
 __all__ = ["from_numpy_state", "from_numpy_tree", "from_numpy_ns_view"]
 
 
-def _t(a, device, dtype=None) -> torch.Tensor:
-    a = np.asarray(a)
+def _t(a, device, dtype=None, rank=None) -> torch.Tensor:
+    a = _pick(a, rank)
     if a.dtype in (np.uint32, np.uint64):
         return keys_from_numpy(a, device)
     t = torch.from_numpy(np.array(a))
@@ -39,23 +44,29 @@ def _t(a, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def _counts(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.asarray(a).astype(np.int64)).to(device)
+def _pick(a, rank) -> np.ndarray:
+    """`a` as numpy; entry `rank` of its leading axis when rank is set."""
+    a = np.asarray(a)
+    return a if rank is None else np.asarray(a[rank])
 
 
-def from_numpy_tree(lk, device=None) -> LinkedOctree:
+def _counts(a, device, rank=None) -> torch.Tensor:
+    return torch.from_numpy(_pick(a, rank).astype(np.int64)).to(device)
+
+
+def from_numpy_tree(lk, device=None, rank=None) -> LinkedOctree:
     """Port LinkedOctree from the JAX package's LinkedOctree."""
     device = resolve_device(device)
     return LinkedOctree(
-        prefixes=_t(lk.prefixes, device),
-        child_offsets=_t(lk.child_offsets, device),
-        parents=_t(lk.parents, device),
-        level_range=_t(lk.level_range, device),
-        internal_to_leaf=_t(lk.internal_to_leaf, device),
-        leaf_to_internal=_t(lk.leaf_to_internal, device),
-        leaves=_t(lk.leaves, device),
-        n_leaf=_counts(lk.n_leaf, device),
-        n_internal=_counts(lk.n_internal, device),
+        prefixes=_t(lk.prefixes, device, rank=rank),
+        child_offsets=_t(lk.child_offsets, device, rank=rank),
+        parents=_t(lk.parents, device, rank=rank),
+        level_range=_t(lk.level_range, device, rank=rank),
+        internal_to_leaf=_t(lk.internal_to_leaf, device, rank=rank),
+        leaf_to_internal=_t(lk.leaf_to_internal, device, rank=rank),
+        leaves=_t(lk.leaves, device, rank=rank),
+        n_leaf=_counts(lk.n_leaf, device, rank),
+        n_internal=_counts(lk.n_internal, device, rank),
     )
 
 
@@ -68,31 +79,33 @@ def from_numpy_ns_view(view, device=None) -> OctreeNsView:
         search_ext_factor=float(view.search_ext_factor))
 
 
-def _domain_state(s, device) -> DomainState:
+def _domain_state(s, device, rank) -> DomainState:
     gt = s.global_tree
     return DomainState(
-        box=Box(limits=_t(s.box.limits, device), boundaries=tuple(int(b) for b in s.box.boundaries)),
-        assignment=SfcAssignment(boundaries=_t(s.assignment.boundaries, device),
-                                 counts=_counts(s.assignment.counts, device)),
-        global_tree=CsArray(keys=_t(gt.keys, device), counts=_counts(gt.counts, device),
-                            n_nodes=_counts(gt.n_nodes, device)),
-        focus_leaves=_t(s.focus_leaves, device),
-        focus_n=_counts(s.focus_n, device),
-        first_call=bool(np.asarray(s.first_call)),
-        linked=from_numpy_tree(s.linked, device),
-        focus_converged=bool(np.asarray(s.focus_converged)),
+        box=Box(limits=_t(s.box.limits, device, rank=rank),
+                boundaries=tuple(int(b) for b in s.box.boundaries)),
+        assignment=SfcAssignment(boundaries=_t(s.assignment.boundaries, device, rank=rank),
+                                 counts=_counts(s.assignment.counts, device, rank)),
+        global_tree=CsArray(keys=_t(gt.keys, device, rank=rank), counts=_counts(gt.counts, device, rank),
+                            n_nodes=_counts(gt.n_nodes, device, rank)),
+        focus_leaves=_t(s.focus_leaves, device, rank=rank),
+        focus_n=_counts(s.focus_n, device, rank),
+        first_call=bool(_pick(s.first_call, rank)),
+        linked=from_numpy_tree(s.linked, device, rank),
+        focus_converged=bool(_pick(s.focus_converged, rank)),
     )
 
 
-def from_numpy_state(state, device=None):
+def from_numpy_state(state, device=None, rank=None):
     """Port DomainState (or SphState, when `state` has a `domain` field)
-    from the JAX package's state of the same name."""
+    from the JAX package's state of the same name; with `rank`, rank
+    `rank`'s entry of a state stacked along a leading rank axis."""
     device = resolve_device(device)
     if hasattr(state, "domain"):
         return SphState(
-            domain=_domain_state(state.domain, device),
-            x=_t(state.x, device), y=_t(state.y, device), z=_t(state.z, device),
-            h=_t(state.h, device), m=_t(state.m, device),
-            n_local=_counts(state.n_local, device),
+            domain=_domain_state(state.domain, device, rank),
+            x=_t(state.x, device, rank=rank), y=_t(state.y, device, rank=rank),
+            z=_t(state.z, device, rank=rank), h=_t(state.h, device, rank=rank),
+            m=_t(state.m, device, rank=rank), n_local=_counts(state.n_local, device, rank),
         )
-    return _domain_state(state, device)
+    return _domain_state(state, device, rank)

@@ -9,8 +9,10 @@ every module, and the CPU has no nvcc. Any build or load failure raises.
 Sources build independently, so a caller may build several at once from
 threads (nvcc runs in a subprocess and releases the GIL).
 
-`record_launches()` lets a check hold each kernel against its plain
-version on exactly the arguments a path launched it with.
+`LaunchCounts` counts each wrapper's launches, and `record_launches()`
+lets a check hold each kernel against its plain version on exactly the
+arguments a path launched it with. Both take a lock: ranks that run as
+threads of one process (parallel/comm.run_ranks) launch at once.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from typing import Callable, Optional
 import torch
 
 __all__ = ["NVCC_FLAGS", "CudaLibrary", "nvcc_path", "ptr", "stream_of", "check_launch",
-           "record_launches", "note_launch"]
+           "LaunchCounts", "record_launches"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _BUILD_DIR = _PKG / "_build"
@@ -98,20 +100,44 @@ def check_launch(err: int, name: str) -> None:
 
 
 _recorded: Optional[list] = None
+_recorded_lock = threading.Lock()
 
 
 @contextlib.contextmanager
 def record_launches():
     """Inside the block, every kernel wrapper that launches appends
-    (wrapper name, its arguments, its result) to the yielded list."""
+    (wrapper name, its arguments, its result) to the yielded list, from
+    whichever thread it launches."""
     global _recorded
-    prev, _recorded = _recorded, []
+    with _recorded_lock:
+        prev, _recorded = _recorded, []
+        calls = _recorded
     try:
-        yield _recorded
+        yield calls
     finally:
-        _recorded = prev
+        with _recorded_lock:
+            _recorded = prev
 
 
-def note_launch(name: str, args: tuple, out) -> None:
-    if _recorded is not None:
-        _recorded.append((name, args, out))
+class LaunchCounts:
+    """One module's launch count per kernel wrapper."""
+
+    def __init__(self, *names: str):
+        self._lock = threading.Lock()
+        self._counts = dict.fromkeys(names, 0)
+
+    def launched(self, name: str, args: tuple, out) -> None:
+        """Count one launch of `name` and record it for record_launches()."""
+        with self._lock:
+            self._counts[name] += 1
+        with _recorded_lock:
+            if _recorded is not None:
+                _recorded.append((name, args, out))
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return dict(self._counts)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._counts = dict.fromkeys(self._counts, 0)

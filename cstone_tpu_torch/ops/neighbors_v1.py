@@ -26,7 +26,7 @@ import ctypes
 
 import torch
 
-from .cuda_lib import CudaLibrary, check_launch, note_launch, ptr, stream_of
+from .cuda_lib import CudaLibrary, LaunchCounts, check_launch, ptr, stream_of
 from .pairs import IMAGE_NONE, pair_within
 
 __all__ = ["pairwise_count", "pairwise_count_plain", "load_library", "launches", "reset_launches"]
@@ -39,7 +39,7 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = CudaLibrary("neighbors_v1.cu", _bind)
-pairwise_count_launches = 0
+_LAUNCHES = LaunchCounts("pairwise_count")
 
 
 def load_library() -> ctypes.CDLL:
@@ -47,12 +47,11 @@ def load_library() -> ctypes.CDLL:
 
 
 def launches() -> dict:
-    return {"pairwise_count": pairwise_count_launches}
+    return _LAUNCHES.snapshot()
 
 
 def reset_launches() -> None:
-    global pairwise_count_launches
-    pairwise_count_launches = 0
+    _LAUNCHES.reset()
 
 
 def _check(targets, r2, cand, cidx):
@@ -78,7 +77,6 @@ def pairwise_count(targets, r2, cand, cidx) -> torch.Tensor:
     """(n_groups, G) int32 neighbor counts (B6). targets (n_groups, G, 3)
     f32, r2 (n_groups, G) f32, cand (n_groups, C, 3) f32 pre-wrapped,
     cidx (n_groups, C) particle indices, -1 for empty slots."""
-    global pairwise_count_launches
     _check(targets, r2, cand, cidx)
     if targets.device.type == "cpu":
         return pairwise_count_plain(targets, r2, cand, cidx)
@@ -90,8 +88,7 @@ def pairwise_count(targets, r2, cand, cidx) -> torch.Tensor:
     err = lib.cstone_pairwise_count(ptr(t), ptr(r), ptr(c), ptr(ci), n_groups, G, cand.shape[1],
                                     ptr(out), stream_of(targets))
     check_launch(err, "pairwise_count")
-    pairwise_count_launches += 1
-    note_launch("pairwise_count", (targets, r2, cand, cidx), out)
+    _LAUNCHES.launched("pairwise_count", (targets, r2, cand, cidx), out)
     return out
 
 

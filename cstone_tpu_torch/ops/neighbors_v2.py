@@ -35,7 +35,7 @@ from typing import Tuple
 
 import torch
 
-from .cuda_lib import CudaLibrary, check_launch, note_launch, ptr, stream_of
+from .cuda_lib import CudaLibrary, LaunchCounts, check_launch, ptr, stream_of
 from .pairs import IMAGE_FLOOR, pair_within
 
 __all__ = [
@@ -58,7 +58,7 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = CudaLibrary("neighbors_v2.cu", _bind)
-pairwise_count_runs_launches = 0
+_LAUNCHES = LaunchCounts("pairwise_count_runs")
 
 
 def load_library() -> ctypes.CDLL:
@@ -66,12 +66,11 @@ def load_library() -> ctypes.CDLL:
 
 
 def launches() -> dict:
-    return {"pairwise_count_runs": pairwise_count_runs_launches}
+    return _LAUNCHES.snapshot()
 
 
 def reset_launches() -> None:
-    global pairwise_count_runs_launches
-    pairwise_count_runs_launches = 0
+    _LAUNCHES.reset()
 
 
 def merge_leaf_runs(leaf_idx: torch.Tensor, n_cand: torch.Tensor, layout: torch.Tensor,
@@ -150,7 +149,6 @@ def pairwise_count_runs(targets, r2, run_start, run_len, xs, ys, zs, box_params)
     SFC-sorted coordinates; box_params (9,) f32: L (3), 1/L (3), periodic
     flags (3).
     """
-    global pairwise_count_runs_launches
     _check(targets, r2, run_start, run_len, xs, ys, zs, box_params)
     if targets.device.type == "cpu":
         return pairwise_count_runs_plain(targets, r2, run_start, run_len, xs, ys, zs, box_params)
@@ -164,8 +162,7 @@ def pairwise_count_runs(targets, r2, run_start, run_len, xs, ys, zs, box_params)
                                 n_groups, G, run_start.shape[1], *(ptr(a) for a in coords),
                                 ptr(out), stream_of(targets))
     check_launch(err, "pairwise_count_runs")
-    pairwise_count_runs_launches += 1
-    note_launch("pairwise_count_runs", (targets, r2, run_start, run_len, xs, ys, zs, box_params), out)
+    _LAUNCHES.launched("pairwise_count_runs", (targets, r2, run_start, run_len, xs, ys, zs, box_params), out)
     return out
 
 

@@ -13,11 +13,11 @@ from typing import Sequence
 
 import torch
 
-from .keys64 import flip
+from .keys64 import flip, usort
 
 __all__ = [
-    "searchsorted", "multi_searchsorted", "exclusive_scan", "cumsum64",
-    "segment_ids_from_offsets", "segment_max",
+    "searchsorted", "multi_searchsorted", "sort_by_key", "exclusive_scan", "cumsum64",
+    "segment_ids_from_offsets", "segment_max", "segment_sum",
 ]
 
 
@@ -34,6 +34,13 @@ def multi_searchsorted(a: torch.Tensor, queries: Sequence[torch.Tensor], sides: 
     set, each with its own side ("left"/"right"): the per-set-sides
     contract of the JAX version (primitives.py:29-99)."""
     return [searchsorted(a, q, s) for q, s in zip(queries, sides)]
+
+
+def sort_by_key(keys: torch.Tensor, *values: torch.Tensor, stable: bool = True):
+    """Key-value sort on unsigned key patterns: (sorted keys, the values
+    gathered into key order)."""
+    keys, order = usort(keys, stable=stable)
+    return keys, tuple(v[order] for v in values)
 
 
 def exclusive_scan(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
@@ -67,3 +74,12 @@ def segment_max(values: torch.Tensor, segment_offsets: torch.Tensor, num_segment
     lowest = -float("inf") if values.dtype.is_floating_point else torch.iinfo(values.dtype).min
     out = torch.full((num_segments,), lowest, dtype=values.dtype, device=values.device)
     return out.scatter_reduce_(0, seg_id, values, reduce="amax", include_self=True)
+
+
+def segment_sum(values: torch.Tensor, segment_offsets: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Sum over contiguous segments given by offsets, along the first axis
+    of `values` (the JAX package's segment_sum with sorted indices). An
+    empty segment holds 0."""
+    seg_id = segment_ids_from_offsets(segment_offsets, values.shape[0], num_segments)
+    out = values.new_zeros((num_segments,) + tuple(values.shape[1:]))
+    return out.index_add_(0, seg_id, values)

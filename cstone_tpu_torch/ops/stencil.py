@@ -54,7 +54,7 @@ from typing import Tuple
 
 import torch
 
-from .cuda_lib import CudaLibrary, check_launch, note_launch, ptr, stream_of
+from .cuda_lib import CudaLibrary, LaunchCounts, check_launch, ptr, stream_of
 
 __all__ = [
     "stencil_counts",
@@ -92,11 +92,8 @@ def _bind_sym(lib: ctypes.CDLL) -> None:
 LIBRARY = CudaLibrary("stencil.cu", _bind)
 SYM_LIBRARY = CudaLibrary("stencil_sym.cu", _bind_sym)
 
-# launch counters: one per wrapper, incremented where the kernel launches
-stencil_counts_launches = 0
-stencil_density_launches = 0
-stencil_cross_launches = 0
-stencil_asym_launches = 0
+# one count per wrapper, incremented where the kernel launches
+_LAUNCHES = LaunchCounts("stencil_counts", "stencil_density", "stencil_cross", "stencil_counts_asym")
 
 
 def load_library() -> ctypes.CDLL:
@@ -107,19 +104,11 @@ def load_library() -> ctypes.CDLL:
 
 
 def launches() -> dict:
-    return {"stencil_counts": stencil_counts_launches,
-            "stencil_density": stencil_density_launches,
-            "stencil_cross": stencil_cross_launches,
-            "stencil_counts_asym": stencil_asym_launches}
+    return _LAUNCHES.snapshot()
 
 
 def reset_launches() -> None:
-    global stencil_counts_launches, stencil_density_launches
-    global stencil_cross_launches, stencil_asym_launches
-    stencil_counts_launches = 0
-    stencil_density_launches = 0
-    stencil_cross_launches = 0
-    stencil_asym_launches = 0
+    _LAUNCHES.reset()
 
 
 # ----------------------------------------------------------------------------
@@ -238,13 +227,11 @@ def cross_lanes_on_b(valid_a: torch.Tensor, valid_b: torch.Tensor) -> bool:
 
 def stencil_counts(px, py, pz, r2, valid, lengths, periodic, level) -> torch.Tensor:
     """(n_cells, cap) int32 neighbor counts #{j != i : d2 < r2_i} (B1)."""
-    global stencil_counts_launches
     _check((px, py, pz, r2), valid, lengths, periodic, level)
     if px.device.type == "cpu":
         return stencil_counts_plain(px, py, pz, r2, valid, lengths, periodic, level)
     out = _launch_sym(False, px, py, pz, r2, None, valid, lengths, periodic, level)
-    stencil_counts_launches += 1
-    note_launch("stencil_counts", (px, py, pz, r2, valid, lengths, periodic, level), out)
+    _LAUNCHES.launched("stencil_counts", (px, py, pz, r2, valid, lengths, periodic, level), out)
     return out
 
 
@@ -253,14 +240,12 @@ def stencil_density(px, py, pz, h, valid, lengths, periodic, level, mass=None) -
     m_j = 1 when `mass` is None. On the card the terms are summed with
     float atomics, so the last bits of a sum vary from run to run (within
     rtol 1e-5 of stencil_density_plain)."""
-    global stencil_density_launches
     planes = (px, py, pz, h) + (() if mass is None else (mass,))
     _check(planes, valid, lengths, periodic, level)
     if px.device.type == "cpu":
         return stencil_density_plain(px, py, pz, h, valid, lengths, periodic, level, mass)
     out = _launch_sym(True, px, py, pz, h, mass, valid, lengths, periodic, level)
-    stencil_density_launches += 1
-    note_launch("stencil_density", (px, py, pz, h, valid, lengths, periodic, level, mass), out)
+    _LAUNCHES.launched("stencil_density", (px, py, pz, h, valid, lengths, periodic, level, mass), out)
     return out
 
 
@@ -279,7 +264,6 @@ def stencil_cross(tgt, cand, lengths, periodic, level, op: str = "count",
     atomics, so their last bits vary from run to run (within rtol 1e-5 of
     stencil_cross_plain). Counts are bit-equal to it.
     """
-    global stencil_cross_launches
     if op not in ("count", "density"):
         raise ValueError(f"op must be 'count' or 'density', got {op!r}")
     for planes, mass in ((tgt, mass_t), (cand, mass_c)):
@@ -293,8 +277,7 @@ def stencil_cross(tgt, cand, lengths, periodic, level, op: str = "count",
     bx, by, bz, bw, bv = cand
     res_a, res_b = _launch_cross(op == "density", (ax, ay, az, aw, mass_t, av),
                                  (bx, by, bz, bw, mass_c, bv), lengths, periodic, level)
-    stencil_cross_launches += 1
-    note_launch("stencil_cross", (tgt, cand, lengths, periodic, level, op, mass_t, mass_c),
+    _LAUNCHES.launched("stencil_cross", (tgt, cand, lengths, periodic, level, op, mass_t, mass_c),
                 (res_a, res_b))
     return res_a, res_b
 
@@ -304,15 +287,13 @@ def stencil_counts_asym(px, py, pz, r2, valid, lengths, periodic, level) -> torc
     impl="pallas_asym"): the kernel runs without the self mask, so every
     valid target with r2 > 0 counts itself (d2 = 0), and the wrapper
     subtracts that pair. Equals stencil_counts and impl="xla"."""
-    global stencil_asym_launches
     _check((px, py, pz, r2), valid, lengths, periodic, level)
     if px.device.type == "cpu":
         return stencil_counts_asym_plain(px, py, pz, r2, valid, lengths, periodic, level)
     out = _launch(False, (px, py, pz, r2, valid), (px, py, pz, None, valid),
                   lengths, periodic, level, self_mask=False)
-    stencil_asym_launches += 1
     out = out - (valid & (r2 > 0)).to(torch.int32)
-    note_launch("stencil_counts_asym", (px, py, pz, r2, valid, lengths, periodic, level), out)
+    _LAUNCHES.launched("stencil_counts_asym", (px, py, pz, r2, valid, lengths, periodic, level), out)
     return out
 
 

@@ -11,6 +11,7 @@ level.
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, List, Optional, Tuple
 
 import torch
@@ -21,7 +22,9 @@ __all__ = ["batched_collect_leaves_bfs", "batched_mark", "MARK_CHUNK", "mark_lev
 MARK_CHUNK = 1 << 22
 
 # when a list, batched_mark appends the number of levels each call walked
+# (under the lock: ranks that run as threads mark at once)
 mark_levels_log: Optional[List[int]] = None
+_log_lock = threading.Lock()
 
 
 def batched_collect_leaves_bfs(
@@ -146,6 +149,7 @@ def batched_mark(
             next_q.append(q[push])
             next_node.append(cc[push])
         fq, fnode = torch.cat(next_q), torch.cat(next_node)
-    if mark_levels_log is not None:
-        mark_levels_log.append(levels)
+    with _log_lock:
+        if mark_levels_log is not None:
+            mark_levels_log.append(levels)
     return marks[:cap_nodes]

@@ -151,8 +151,8 @@ def test_cuda_device_without_cuda_raises():
         Domain(bucket_size=16, tree_capacity=256, device="cuda")
 
 
-@pytest.mark.parametrize("kwargs", [dict(n_ranks=2), dict(exchange_mode="pool"),
-                                    dict(axis_name="ranks")])
+@pytest.mark.parametrize("kwargs", [dict(n_ranks=2, exchange_mode="p2p"), dict(protocol="ragged"),
+                                    dict(peer_window=1)])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Domain(bucket_size=16, tree_capacity=256, **kwargs)

@@ -1,8 +1,11 @@
-"""SPH density step (cell-list path) of the PyTorch port against the JAX
-package: sync + fused density over carried steps, and a step started from
-the JAX state. Tolerance: the synced particle data bit-equal, density
+"""SPH density step of the PyTorch port against the JAX package: the
+cell-list route (sync + fused density) over carried steps, and a step of
+each route started from the JAX state. Tolerance: the synced particle data bit-equal, density
 within rtol 2e-4 (the tolerance of test_sph_celllist.py)."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -79,7 +82,12 @@ def test_sph_step_continues_from_jax_state():
     _assert_step_same(jout, tout)
 
 
-def test_tree_path_is_not_ported():
-    _, td, _, ts = _initial(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sph_density_step(td, ts)
+def test_tree_path_continues_from_jax_state():
+    # the tree-traversal route (no cell_level): one JAX step, its state
+    # carried into the port, then a step in both
+    jd, td, js, _ = _initial(True)
+    kw = dict(ng_max=128, group_size=32, cand_leaf_cap=128, cand_cap=4096)
+    jstep = jax.jit(functools.partial(jax_sph_density_step, jd, **kw))
+    js, _, _ = jstep(js)
+    ts = cstone_tpu_torch.from_numpy_state(js, device="cpu")
+    _assert_step_same(jstep(js), sph_density_step(td, ts, **kw))
