@@ -89,8 +89,9 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      positions, rank r starting from the strided slice r::8, local
      capacity 262,144, Domain(exchange_mode="pool", comm=...) with
      buckets 64/64 and theta 0.5, the ranks run as threads of this
-     process by parallel.run_ranks. A cold step under a host retry on the
-     largest overflow of any rank, then 3 drift steps (phase 4's drift),
+     process by parallel.run_ranks. A cold step, each rank running
+     sync_with_retry inside run_ranks on the largest overflow of any
+     rank, then 3 drift steps (phase 4's drift),
      each fed by compact_owned; after each sync, B1 and B2 on every rank's
      buffer (n_valid = n_with_halos). Checks against phase 4's run of the
      same steps: every rank's global tree bit-equal, counts included; the
@@ -104,9 +105,18 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      time and its share in mark_macs, the largest gap between a path-E
      density and phase 4's (kept apart from the kernels' max_abs_err,
      which is each kernel against its plain version), the pool bytes per
-     rank, the device count and the peak memory allocated.
+     rank, the device count and the peak memory allocated;
+ 10. path F, the same 8 ranks, inputs and steps with the Domain's
+     default exchange_mode="p2p" (the dense protocols of
+     parallel/exchange.py, capacities from Domain._p2p_caps), the same
+     checks against phase 4, and every rank's assignment, focus leaves,
+     halo flags, layout, n_with_halos and the ids exchange_halos puts
+     into its halo slots (p2p reapply_sync fills the owned slots only)
+     equal to path E's at the same step. Prints per step the all_to_all rounds and their
+     buffer bytes per rank (CommTally), the overflow_detail, and path
+     E's sync walls beside path F's.
 Each path's launch counts are set to 0 just before it is driven and read
-just after. Every kernel's bound is the larger of its FP32 operations over
+just after (paths E and F each over their 4 steps). Every kernel's bound is the larger of its FP32 operations over
 67 TFLOP/s and its bytes over 3.35 TB/s, counted from that run's inputs;
 no single PyTorch call computes any of these functions, so library_ms is
 null. Kernel-vs-plain checks of phases 3, 5 and 6 take the
@@ -1417,11 +1427,44 @@ class RankTimer:
         setattr(self.module, self.name, self.real)
 
 
-def pool_phase(dev, card, reference, tree_cap):
-    """Phase 9: LET_RANKS ranks of Domain(exchange_mode="pool") as threads
-    of this process (parallel.run_ranks), all on the one card, then B1 and
-    B2 on every rank's buffer; checked against phase 4's single-rank run on
-    the same positions."""
+class CommTally:
+    """Counts, per rank thread, the RankComm.all_to_all calls inside the
+    block and the bytes of the (n_ranks, ...) buffers each rank hands
+    them: reckoned from the buffer shapes, its own row included."""
+
+    def __enter__(self):
+        import threading
+
+        from cstone_tpu_torch.parallel.comm import RankComm
+
+        self.cls, self.real, self.calls, self.bytes = RankComm, RankComm.all_to_all, {}, {}
+        real = self.real
+
+        def tallied(comm, t):
+            me = threading.current_thread().name
+            self.calls[me] = self.calls.get(me, 0) + 1
+            self.bytes[me] = self.bytes.get(me, 0) + t.numel() * t.element_size()
+            return real(comm, t)
+
+        RankComm.all_to_all = tallied
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.all_to_all = self.real
+
+    def per_rank(self, n_ranks):
+        return ([self.calls.get(f"rank-{r}", 0) for r in range(n_ranks)],
+                [self.bytes.get(f"rank-{r}", 0) for r in range(n_ranks)])
+
+
+def ranks_phase(dev, card, reference, tree_cap, mode, path_e=None):
+    """Phases 9 and 10: LET_RANKS ranks of Domain(exchange_mode=mode) as
+    threads of this process (parallel.run_ranks), all on the one card,
+    then B1 and B2 on every rank's buffer; checked against phase 4's
+    single-rank run on the same positions and, for path F (mode "p2p"),
+    against path E's record of the same rank and step (`path_e`).
+    Returns (B1/B2 launches, Errors, this path's record: per step, per
+    rank, what path F is held to, and the sync walls)."""
     import torch
 
     from cstone_tpu_torch.domain import Domain, sync_with_retry
@@ -1431,26 +1474,30 @@ def pool_phase(dev, card, reference, tree_cap):
     from cstone_tpu_torch.traversal import cell_list_neighbor_counts, cell_list_sph_density, macs
 
     R = LET_RANKS
+    name = "E" if mode == "pool" else "F"
     (x, y, z), drift, h = uniform_setup(dev)
     box = make_box(0.0, 1.0, boundaries=PERIODIC, device=dev)
     m = torch.full((N,), 1.0 / N, dtype=torch.float32, device=dev)
     ids = torch.arange(N, device=dev)
     torch.cuda.reset_peak_memory_stats(dev)
 
-    def rank_inputs(cap):
+    def rank_input(r, cap):
         """Rank r starts from the strided slice r::R of every field, padded
         to cap: the exchange moves nearly every particle."""
-        def pad(a, r, fill):
+        def pad(a, fill):
             out = torch.full((cap,), fill, dtype=a.dtype, device=dev)
             s = a[r::R]
             out[:s.numel()] = s
             return out
-        return [{"xyz": tuple(pad(c, r, 0.0) for c in (x, y, z)), "h": pad(h, r, 0.0), "m": pad(m, r, 0.0),
-                 "ids": pad(ids, r, -1), "n": torch.tensor(ids[r::R].numel(), device=dev)} for r in range(R)]
+        return {"xyz": tuple(pad(c, 0.0) for c in (x, y, z)), "h": pad(h, 0.0), "m": pad(m, 0.0),
+                "ids": pad(ids, -1), "n": torch.tensor(ids[r::R].numel(), device=dev)}
 
     def make_domain(comm, caps):
+        # the p2p capacities (0: the Domain's defaults); "halo" is both the
+        # request and the particle capacity
         return Domain(bucket_size=BUCKET, tree_capacity=caps["tree"], focus_capacity=caps["focus"],
-                      theta=LET_THETA, exchange_mode="pool", comm=comm, device=dev)
+                      theta=LET_THETA, exchange_mode=mode, comm=comm, device=dev, move_cap=caps["move"],
+                      treelet_cap=caps["treelet"], halo_req_cap=caps["halo"], halo_cap=caps["halo"])
 
     def rank_sync(comm, domain, state, inp):
         """One rank's sync between two barriers: (state, res, (start,
@@ -1462,8 +1509,10 @@ def pool_phase(dev, card, reference, tree_cap):
         return state, res, (t0, time.perf_counter())
 
     def rank_after(comm, domain, state, res, inp):
-        """B1 and B2 on the rank's buffer, the ids of its slots, and the
-        next step's input (the owned particles, by compact_owned)."""
+        """B1 and B2 on the rank's buffer, the ids of its slots (p2p: the
+        owned ones, halo slots 0), the ids exchange_halos puts into the
+        halo slots, and the next step's input (the owned particles, by
+        compact_owned)."""
         rid = domain.reapply_sync(res, inp["ids"])
         counts, c_ovf = cell_list_neighbor_counts(res.keys, res.x, res.y, res.z, res.h, state.box, LEVEL, CAP,
                                                   n_valid=res.n_with_halos, impl="pallas")
@@ -1478,51 +1527,50 @@ def pool_phase(dev, card, reference, tree_cap):
         return {"rid": rid, "counts": counts, "rho": rho, "halo_ids": halo_ids,
                 "cell_ovf": bool(c_ovf | d_ovf), "next": nxt}
 
-    # cold step: a host retry on the overflow, which every rank reports as
-    # the largest of all ranks
-    ranks = {}
+    # cold step: each rank runs the capacity retry itself, inside the
+    # run_ranks call; every rank reports the largest overflow of all ranks
+    # and so takes the same retry
+    caps0 = {"local": POOL_LOCAL_CAP, "tree": tree_cap, "focus": tree_cap, "move": 0, "treelet": 0, "halo": 0}
 
-    def cold(try_caps):
-        caps.update(try_caps)
-        inputs = rank_inputs(caps["local"])
-
-        def fn(comm, inp):
-            domain = make_domain(comm, caps)
+    def cold(comm):
+        def run(caps):
+            domain = make_domain(comm, caps)  # one Domain per capacity, kept across steps
             state = domain.init_state(box=box, boundaries=(1, 1, 1))
-            return rank_sync(comm, domain, state, inp) + (inp, domain)
+            inp = rank_input(comm.rank, caps["local"])
+            state, res, span = rank_sync(comm, domain, state, inp)
+            return state, span, inp, domain, res  # the SyncResult last, for sync_with_retry
 
-        ranks["outs"] = outs = run_ranks(R, fn, inputs)
-        check(all(torch.equal(o[1].overflow_detail, outs[0][1].overflow_detail) for o in outs),
-              "the ranks report different overflows")
-        return outs[0][1]
+        (state, span, inp, domain, res), caps = sync_with_retry(run, caps0)
+        return state, res, span, inp, domain, caps
 
-    caps0 = {"local": POOL_LOCAL_CAP, "tree": tree_cap, "focus": tree_cap}
-    caps = dict(caps0)
     reset_all_launches()
     t0 = time.perf_counter()
-    with RankTimer(macs, "mark_macs") as marking:
-        sync_with_retry(cold, caps0)
-    print(f"{R} ranks, pool mode, theta {LET_THETA}: cold sync with retry {1e3 * (time.perf_counter() - t0):.3f} "
-          f"ms, capacities {caps} [{card}]", flush=True)
+    with RankTimer(macs, "mark_macs") as marking, CommTally() as tally:
+        outs = run_ranks(R, cold)
+    caps = outs[0][5]
+    print(f"path {name}: {R} ranks, {mode} mode, theta {LET_THETA}: cold sync with retry "
+          f"{1e3 * (time.perf_counter() - t0):.3f} ms, capacities {caps} [{card}]", flush=True)
+    check(all(o[5] == caps for o in outs), "the ranks grew different capacities")
     check(caps == caps0, f"the first capacities {caps0} overflowed: {caps}")
-    outs = ranks["outs"]
-    cap = caps["local"]
-    n_pool = R * cap
-    pool_bytes = n_pool * (8 + 8 + 4 * 5)  # keys, pool_perm and x, y, z, h, m
-    print(f"pool per rank: {n_pool} slots, {pool_bytes} bytes of keys, permutation and payload; "
-          f"torch.cuda.device_count() {torch.cuda.device_count()} [{card}]", flush=True)
+    check(all(torch.equal(o[1].overflow_detail, outs[0][1].overflow_detail) for o in outs),
+          "the ranks report different overflows")
+    if mode == "pool":
+        n_pool = R * caps["local"]
+        print(f"pool per rank: {n_pool} slots, {n_pool * (8 + 8 + 4 * 5)} bytes of keys, permutation and "
+              f"payload; torch.cuda.device_count() {torch.cuda.device_count()} [{card}]", flush=True)
 
     err = Errors()
     states, results, spans, inputs, domains = ([o[i] for o in outs] for i in range(5))
+    record, walls = [], []
     sgn = 1.0
     for step in range(1 + POOL_DRIFT_STEPS):
-        what = "cold step" if step == 0 else f"drift step {step}"
+        what = f"path {name}, " + ("cold step" if step == 0 else f"drift step {step}")
         if step > 0:
             inputs = [dict(inp, xyz=tuple((c + sgn * drift[inp["ids"].clamp(min=0), i]) % 1.0
                                           for i, c in enumerate(inp["xyz"])))
                       for inp in inputs]
             sgn = -sgn
-            with RankTimer(macs, "mark_macs") as marking:
+            with RankTimer(macs, "mark_macs") as marking, CommTally() as tally:
                 outs = run_ranks(R, rank_sync, domains, states, inputs)
             states, results, spans = ([o[i] for o in outs] for i in range(3))
         last = step == POOL_DRIFT_STEPS
@@ -1531,34 +1579,69 @@ def pool_phase(dev, card, reference, tree_cap):
         if last:
             launched = list(calls)
         wall = 1e3 * (max(e for _, e in spans) - min(s for s, _ in spans))
+        walls.append(wall)
         per_rank = [1e3 * (e - s) for s, e in spans]
         mark = [marking.ms.get(f"rank-{r}", 0.0) for r in range(R)]
         print(f"{what}: {R}-rank sync wall {wall:.3f} ms; per rank sync ms {json.dumps([round(t, 3) for t in per_rank])}, "
               f"share in mark_macs {json.dumps([round(a / b, 4) for a, b in zip(mark, per_rank)])} [{card}]",
               flush=True)
-        pool_checks(what, reference[step], states, results, after, box, step == 0, card)
+        rounds, nbytes = tally.per_rank(R)
+        print(f"{what}: all_to_all rounds per rank {json.dumps(rounds)}, their buffer bytes per rank "
+              f"{json.dumps(nbytes)}; overflow_detail {results[0].overflow_detail.tolist()}", flush=True)
+        pool_checks(what, reference[step], states, results, after, box, mode == "pool", card)
+        record.append([{"boundaries": st.assignment.boundaries, "leaves": res.tree.leaves[:int(res.tree.n_leaf) + 1],
+                        "halo_flags": res.halo_flags, "layout": res.layout, "n_with_halos": int(res.n_with_halos),
+                        "halo_ids": a["halo_ids"][:int(res.n_with_halos)]}
+                       for st, res, a in zip(states, results, after)])
+        if path_e is not None:
+            same_as_path_e(what, path_e["record"][step], record[step])
         inputs = [a["next"] for a in after]
     launches = all_launches()
-    print(f"phase 9 launches: {json.dumps(launches)}; peak memory allocated "
+    print(f"path {name} launches: {json.dumps(launches)}; peak memory allocated "
           f"{torch.cuda.max_memory_allocated(dev)} bytes [{card}]", flush=True)
     for k in ("stencil_counts", "stencil_density"):
         check(launches[k] == R * (1 + POOL_DRIFT_STEPS), f"{k} should launch once per rank and step: {launches}")
+    if path_e is not None:
+        print(f"8-rank sync wall ms, cold then drift steps: path E {json.dumps([round(t, 3) for t in path_e['walls']])}, "
+              f"path F {json.dumps([round(t, 3) for t in walls])} [{card}]", flush=True)
 
     # every B1 and B2 launch of the last step against its plain version
     names = sorted(c[0] for c in launched)
     check(names == ["stencil_counts"] * R + ["stencil_density"] * R, f"the last step launched {names}")
-    for name, args, got in launched:
-        want = plain_of(name)(*args)
-        if name == "stencil_counts":
-            err.counts(name, got, want, "path-E inputs")
+    for k, args, got in launched:
+        want = plain_of(k)(*args)
+        if k == "stencil_counts":
+            err.counts(k, got, want, f"path-{name} inputs")
         else:
-            err.density(name, got, want, "path-E inputs")
-    print(f"the last step's {len(launched)} B1/B2 launches equal their plain versions", flush=True)
-    return {k: launches[k] for k in ("stencil_counts", "stencil_density")}, err
+            err.density(k, got, want, f"path-{name} inputs")
+    print(f"path {name}: the last step's {len(launched)} B1/B2 launches equal their plain versions", flush=True)
+    return ({k: launches[k] for k in ("stencil_counts", "stencil_density")}, err,
+            {"record": record, "walls": walls})
 
 
-def pool_checks(what, ref, states, results, after, box, check_halos, card) -> None:
-    """Path E against phase 4's single-rank run on the same positions."""
+def same_as_path_e(what, want, got) -> None:
+    """Path F against path E at the same step: per rank the assignment,
+    the focus tree's leaves, the halo flags, the layout and the buffer
+    size are equal, and exchange_halos of the particle ids puts into every
+    slot the id path E's slot holds."""
+    import torch
+
+    for r, (e, f) in enumerate(zip(want, got)):
+        for k in ("boundaries", "leaves", "halo_flags", "layout"):
+            check(e[k].shape == f[k].shape and torch.equal(e[k], f[k]), f"{what}, rank {r}: {k} differs from path E's")
+        check(e["n_with_halos"] == f["n_with_halos"], f"{what}, rank {r}: n_with_halos differs from path E's")
+        check(torch.equal(e["halo_ids"], f["halo_ids"]),
+              f"{what}, rank {r}: exchange_halos put other ids than path E's into "
+              f"{int((e['halo_ids'] != f['halo_ids']).sum())} slots")
+    print(f"{what}: assignment, focus leaves, halo flags, layout, buffer size and the halo slots' ids of every "
+          f"rank equal path E's", flush=True)
+
+
+def pool_checks(what, ref, states, results, after, box, pool, card) -> None:
+    """Path E or F against phase 4's single-rank run on the same positions.
+    pool: reapply_sync filled the halo slots too (pool mode), so
+    exchange_halos must put the same ids there; and on the cold step rank
+    LET_RANK's halo flags are held against all box pairs."""
     import torch
 
     from cstone_tpu_torch.ops.keys64 import ule, ult
@@ -1582,8 +1665,9 @@ def pool_checks(what, ref, states, results, after, box, check_halos, card) -> No
         keys = res.keys[s:e]
         check(bool((ule(bnd[r], keys) & ult(keys, bnd[r + 1])).all()),
               f"{what}, rank {r}: an owned key lies outside the rank's range")
-        rid = a["rid"]
-        check(bool((rid[:nwh] >= 0).all()) and torch.equal(a["halo_ids"][:nwh], rid[:nwh]),
+        rid, hid = a["rid"], a["halo_ids"]
+        check(bool((hid[:nwh] >= 0).all()) and torch.equal(hid[s:e], rid[s:e])
+              and (not pool or torch.equal(hid[:nwh], rid[:nwh])),
               f"{what}, rank {r}: exchange_halos did not put the owners' ids into the halo slots")
         owned_ids.append(rid[s:e])
         counts[rid[s:e]] = a["counts"][s:e]
@@ -1597,13 +1681,13 @@ def pool_checks(what, ref, states, results, after, box, check_halos, card) -> No
     check(ok, f"{what}: B2 densities differ from phase 4's beyond rtol 1e-5 "
           f"(max rel {float(((rho - ref['rho']).abs() / ref['rho']).max())})")
     gap = (rho - ref["rho"]).abs()
-    print(f"{what}: path-E densities against phase 4's, B2 on another buffer: max abs gap {float(gap.max())}, "
+    print(f"{what}: densities against phase 4's, B2 on another buffer: max abs gap {float(gap.max())}, "
           f"max rel gap {float((gap / ref['rho']).max())} [{card}]", flush=True)
     sizes = [int(res.end_index) - int(res.start_index) for res in results]
     halos = [int(res.n_with_halos) - n for res, n in zip(results, sizes)]
     print(f"{what}: global trees equal phase 4's; owned {sizes} (sum {sum(sizes)}), halo particles {halos}; "
           f"B1 counts by particle bit-equal to phase 4's, B2 densities within rtol 1e-5", flush=True)
-    if check_halos:
+    if pool and what.endswith("cold step"):
         r = LET_RANK
         state, res = states[r], results[r]
         leaves = res.tree.leaves
@@ -1729,16 +1813,21 @@ def main():
     del res_c, state_c
 
     phase("9 path E: 8 ranks in pool mode on the card + cell-list counts and density")
-    launches_e, err9 = pool_phase(dev, card, reference, tree_cap)
+    launches_e, err9, path_e = ranks_phase(dev, card, reference, tree_cap, "pool")
 
-    for e in (err4, err5, err6, err7, err9):
+    phase("10 path F: 8 ranks in p2p mode on the card + cell-list counts and density")
+    launches_f, err10, _ = ranks_phase(dev, card, reference, tree_cap, "p2p", path_e)
+    del path_e
+
+    for e in (err4, err5, err6, err7, err9, err10):
         for k, v in e.max.items():
             err.max[k] = max(err.max[k], v)
     print(f"total time {time.perf_counter() - t_start:.3f} s [{card}]", flush=True)
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
          "max_abs_err": err.max[name], "library_ms": None, "path_c_launches": launches_c.get(name, 0),
-         "path_e_launches": launches_e.get(name, 0), **timing[name]}
+         "path_e_launches": launches_e.get(name, 0), "path_f_launches": launches_f.get(name, 0),
+         **timing[name]}
         for name, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

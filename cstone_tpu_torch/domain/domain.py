@@ -4,26 +4,27 @@ include/cstone/domain/domain.hpp).
 
 One `Domain.sync` call corresponds to Domain::sync (domain.hpp:197-243):
 global box, SFC keys and stable sort, global-tree fixed point, SFC
-assignment, particle exchange, focus tree, halo discovery, layout. Two
-exchange modes are ported:
+assignment, particle exchange, focus tree, halo discovery, layout. Both
+exchange modes are ported, at any number of ranks; the ranks talk through
+a `RankComm` (parallel/comm.py), which takes the place of the JAX
+package's `axis_name`:
 
-  - "p2p" at one rank: the sorted particles are the owned set and halo
-    search finds nothing. The focus tree is built by
-    focus/octree_focus.focus_converge with its own bucket size and
-    capacity; where both equal the global tree's, the focus tree is the
-    global cornerstone tree and is mirrored without a converge loop (the
-    JAX `fast_focus` branch).
-  - "pool" at any number of ranks: every rank gathers all ranks' sorted
-    keys and payload, sorts the pool once, builds its locally essential
-    tree from the pool with MAC marks, finds its halos, and fills its
-    buffer [halos | owned | halos] by gathers from the pool. The ranks
-    talk through a `RankComm` (parallel/comm.py), which takes the place
-    of the JAX package's `axis_name`.
+  - "p2p" (the default): the dense point-to-point protocols of
+    parallel/exchange.py. Every rank sends its particles to their owners,
+    builds its focus tree (focus/octree_focus.focus_converge) from exact
+    counts, the foreign cells counted by their owners' range-count
+    service, finds its halos, and fills them by the request-keys protocol.
+    At one rank the sorted particles are the owned set and there are no
+    halos; where the focus tree's bucket and capacity equal the global
+    tree's, it is the global cornerstone tree and is mirrored without a
+    converge loop (the JAX `fast_focus` branch).
+  - "pool": every rank gathers all ranks' sorted keys and payload, sorts
+    the pool once, builds its locally essential tree from the pool with
+    MAC marks, finds its halos, and fills its buffer [halos | owned |
+    halos] by gathers from the pool.
 
-Still raising NotImplementedError, each naming its ROADMAP.md item:
-exchange_mode="p2p" at n_ranks > 1 and update_expansion_centers at
-n_ranks > 1 (Queue 1, item 3: the dense p2p protocol and its range-sum
-service), protocol="ragged" and peer_window (Queue 1, item 4).
+Still raising NotImplementedError, naming ROADMAP.md Queue 1, item 4:
+protocol="ragged" and peer_window > 0.
 
 Shapes are capacity-padded exactly as in the JAX package, so a SyncResult
 compares with JAX slot for slot. The JAX `while_loop`/`cond` become Python
@@ -45,6 +46,9 @@ from ..focus.source_center import set_mac_radii, upsweep_centers
 from ..ops.keys64 import np_key_dtype, usort
 from ..ops.primitives import searchsorted, segment_ids_from_offsets, segment_max, segment_sum, sort_by_key
 from ..parallel.comm import RankComm
+from ..parallel.exchange import (ITEM_WINDOWED, ExchangeRecord, HaloRecord, build_halo_exchange,
+                                 exchange_halo_field, exchange_particles, range_count_service,
+                                 range_sum_service, replay_exchange)
 from ..parallel.global_tree import converge_global_octree, global_bounds
 from ..sfc.box import Box
 from ..sfc.encode import HILBERT, compute_sfc_keys
@@ -60,6 +64,18 @@ from .decomposition import SfcAssignment, limit_boundary_shifts, make_sfc_assign
 from .layout import compute_node_layout
 
 __all__ = ["Domain", "DomainState", "SyncResult", "CAP_NAMES", "sync_with_retry"]
+
+
+def _place(owned: torch.Tensor, start_index, n_owned, fill) -> torch.Tensor:
+    """A buffer of owned's length holding owned[:n_owned] at [start_index,
+    start_index + n_owned) and `fill` elsewhere; slots past the buffer are
+    dropped (the JAX mode="drop" scatter)."""
+    cap = owned.shape[0]
+    j = torch.arange(cap, device=owned.device)
+    tgt = start_index + j
+    buf = owned.new_full((cap + 1,), fill)  # slot cap: dropped
+    buf[torch.where((j < n_owned) & (tgt < cap), tgt, cap)] = owned
+    return buf[:cap]
 
 
 @dataclass(frozen=True)
@@ -86,7 +102,9 @@ class SyncResult:
     tensors are int64 (int32 in the JAX version). global_ids (the pool
     index of every buffer slot) and pool_perm (the pre-sort pool index of
     every sorted pool slot, the ExchangeLog analog) are set in pool mode
-    and None in p2p mode."""
+    and None in p2p mode; ex_record and halo_record (the particle and halo
+    exchanges, parallel/exchange.py) are set in p2p mode at n_ranks > 1
+    and None otherwise."""
 
     keys: torch.Tensor
     x: torch.Tensor
@@ -105,19 +123,18 @@ class SyncResult:
     overflow: torch.Tensor  # > 0 if any capacity was exceeded
     # (7,) per-capacity overflow indicators, each 0 or the required size:
     # [local_buffer, tree_capacity, focus_capacity, move_cap, treelet_cap,
-    #  halo_caps, peer_window] (util/reallocate.hpp:38-107 semantics); in
-    # pool mode, where only the first three can overflow, it and `overflow`
-    # are the largest of all ranks, so every rank takes the same retry
+    #  halo_caps, peer_window] (util/reallocate.hpp:38-107 semantics); it
+    # and `overflow` are the largest of all ranks, so every rank takes the
+    # same retry. As in the JAX package, syncGrav's range-sum overflow
+    # enters `overflow` and no entry of the detail
     overflow_detail: torch.Tensor
     global_ids: Optional[torch.Tensor] = None
     pool_perm: Optional[torch.Tensor] = None
+    ex_record: Optional[ExchangeRecord] = None
+    halo_record: Optional[HaloRecord] = None
 
 
 CAP_NAMES = ("local", "tree", "focus", "move", "treelet", "halo", "window")
-
-# what each refusal names
-_ITEM_P2P = "ROADMAP.md Queue 1, item 3: the dense p2p protocol and its range-sum service"
-_ITEM_RAGGED = "ROADMAP.md Queue 1, item 4: the windowed and ragged protocols"
 
 
 def sync_with_retry(run_sync, caps: dict, max_retries: int = 4, growth: float = 1.6):
@@ -127,9 +144,9 @@ def sync_with_retry(run_sync, caps: dict, max_retries: int = 4, growth: float = 
     CAP_NAMES), runs one sync plus downstream work and returns anything
     whose last element is a SyncResult. On overflow, the capacities named
     by result.overflow_detail grow by `growth` (at least to the reported
-    size) and run_sync runs again. Raises after max_retries. In pool mode
-    the overflow is already the largest of all ranks, so every rank may
-    run this loop inside run_ranks and all take the same decisions.
+    size) and run_sync runs again. Raises after max_retries. The overflow
+    is already the largest of all ranks, so every rank may run this loop
+    inside run_ranks and all take the same decisions.
     """
     caps = dict(caps)
     for _ in range(max_retries + 1):
@@ -167,18 +184,25 @@ class Domain:
     unless the caller names another (device="cpu"); without a card the
     default raises RuntimeError. sync follows its inputs.
 
-    exchange_mode "p2p" runs at one rank; "pool" at any number of ranks.
+    exchange_mode "p2p" (default) or "pool" (see the module docstring).
     Over several ranks, `comm` is this rank's RankComm (parallel/comm.py)
     and gives the Domain its rank and rank count: pass it instead of
     `rank` and `n_ranks`. Its collectives run inside parallel.run_ranks,
     any call of it, so the Domain may live across calls. Without a comm
     the Domain is rank 0 of 1 unless `rank` and `n_ranks` say otherwise
-    (n_ranks > 1 then needs a comm). protocol "dense" (or None) is the
-    only protocol ported.
+    (n_ranks > 1 then needs a comm, or raises ValueError).
 
-    Raises NotImplementedError for exchange_mode="p2p" at n_ranks > 1
-    (ROADMAP.md Queue 1, item 3), protocol="ragged" and peer_window > 0
-    (item 4).
+    move_cap, treelet_cap, halo_req_cap and halo_cap are the p2p
+    protocols' per-rank-pair lane widths (0 = derived from the local
+    capacity and focus_capacity at sync time, _p2p_caps); sync_with_retry
+    grows them on overflow. Overflow slot 5 ("halo") covers both halo
+    widths, so a retry grows both from one value. The local capacity is
+    the length of sync's inputs (the JAX package's `local_capacity`
+    argument, which it never reads, is not taken).
+
+    protocol "dense" (or None) is the only protocol ported:
+    protocol="ragged" and peer_window > 0 raise NotImplementedError
+    (ROADMAP.md Queue 1, item 4).
     """
 
     def __init__(
@@ -196,6 +220,10 @@ class Domain:
         device=None,
         halo_search_ext: float = 1.0,
         comm: Optional[RankComm] = None,
+        move_cap: int = 0,
+        treelet_cap: int = 0,
+        halo_req_cap: int = 0,
+        halo_cap: int = 0,
         protocol: Optional[str] = None,
         peer_window: int = 0,
     ):
@@ -209,10 +237,7 @@ class Domain:
         if protocol not in (None, "dense", "ragged"):
             raise ValueError(f"unknown protocol {protocol!r}")
         if protocol == "ragged" or int(peer_window) > 0:
-            raise NotImplementedError(f"protocol='ragged' and peer_window are not ported yet ({_ITEM_RAGGED})")
-        if exchange_mode == "p2p" and n_ranks > 1:
-            raise NotImplementedError(f"exchange_mode='p2p' at n_ranks > 1 is not ported yet ({_ITEM_P2P}); "
-                                      "use exchange_mode='pool'")
+            raise NotImplementedError(f"protocol='ragged' and peer_window are not ported yet ({ITEM_WINDOWED})")
         if not 0 <= rank < n_ranks:
             raise ValueError(f"rank {rank} outside [0, {n_ranks})")
         if comm is None and n_ranks > 1:
@@ -225,6 +250,10 @@ class Domain:
         self.bucket_size_focus = int(bucket_size_focus) or self.bucket_size
         self.tree_capacity = int(tree_capacity)
         self.focus_capacity = int(focus_capacity) or self.tree_capacity
+        self.move_cap = int(move_cap)
+        self.treelet_cap = int(treelet_cap)
+        self.halo_req_cap = int(halo_req_cap)
+        self.halo_cap = int(halo_cap)
         self.theta = float(theta)
         self.key_dtype = np_key_dtype(key_dtype)
         self.curve = curve
@@ -270,35 +299,65 @@ class Domain:
         n_local are ignored. Returns (new_state, SyncResult).
 
         With grav=True this is syncGrav (domain.hpp:246-325): properties[0]
-        must be the mass. In pool mode the focus tree then uses the
-        worst-case vector MAC and the halo flags take the leaves that fail
-        the vector MAC against the pool's mass centers
-        (octree_focus_mpi.hpp:369-449, :601-610). At one rank in p2p mode
-        no leaf lies outside the focus, and the result equals grav=False.
+        must be the mass. The focus tree then uses the worst-case vector
+        MAC, and the halo flags take the foreign leaves that fail the
+        vector MAC against the exact mass centers (octree_focus_mpi.hpp:
+        369-449, :601-610): from the pool in pool mode, by the owners'
+        range-sum service in p2p mode. At one rank in p2p mode no leaf lies
+        outside the focus, and the result equals grav=False.
         """
         if grav and len(properties) == 0:
             raise ValueError("sync(grav=True) requires the mass as properties[0]")
         if self.exchange_mode == "pool":
             return self._sync_pool(state, x, y, z, h, properties, n_local, boundaries, grav)
-        return self._sync_p2p(state, x, y, z, h, properties, n_local, boundaries)
+        return self._sync_p2p(state, x, y, z, h, properties, n_local, boundaries, grav)
 
     # ------------------------------------------------------------------
-    def _sync_p2p(self, state, x, y, z, h, properties, n_local, boundaries):
-        """The single-rank peer-to-peer path: the sorted particles are the
-        owned set, the layout order is the sorted order."""
+    def _p2p_caps(self, cap: int) -> Tuple[int, int, int, int]:
+        """(move_cap, treelet_cap, halo_req_cap, halo_cap) of the dense
+        protocols, per rank pair: the constructor's, or defaults derived
+        from the local capacity `cap` and focus_capacity."""
+        R = max(self.n_ranks, 1)
+        return (self.move_cap or max(64, (2 * cap) // R),
+                self.treelet_cap or max(64, self.focus_capacity // 4),
+                self.halo_req_cap or max(64, self.focus_capacity // 4),
+                self.halo_cap or max(128, cap // 2))
+
+    # ------------------------------------------------------------------
+    def _sync_p2p(self, state, x, y, z, h, properties, n_local, boundaries, grav):
+        """Peer-to-peer sync (domain.hpp:197-243): assign -> exchange the
+        particles -> focus tree from service counts -> halo discovery ->
+        layout -> halo exchange of x, y, z, h and the properties, each
+        message one all_to_all round of parallel/exchange.py. At one rank
+        the sorted particles are the owned set and the layout order is the
+        sorted order."""
         cap = x.shape[0]
         dev = x.device
         rk = remove_key(self.key_dtype)
+        single = self.n_ranks == 1
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        move_cap, treelet_cap, halo_req_cap, halo_cap = self._p2p_caps(cap)
 
         (box, keys, sort_order, xs, ys, zs, hs, props_s, tree, assignment,
          n_local, tree_changed) = self._common_assign(
             state, x, y, z, h, properties, n_local, boundaries)
 
-        # ---- 6. focused octree (LET) --------------------------------------
-        zero = torch.zeros((), dtype=torch.int64, device=dev)
-        focus_start = assignment.boundaries[0]
-        focus_end = assignment.boundaries[1]
-        fast_focus = (self.bucket_size_focus == self.bucket_size
+        # ---- 5. particle exchange (domaindecomp_mpi.hpp:104-158) -----------
+        if single:
+            # one rank owns everything: the sorted arrays are the owned set
+            okeys, opayload, ex, n_owned, move_ovf = keys, (xs, ys, zs, hs) + props_s, None, n_local, zero
+        else:
+            okeys, opayload, ex = exchange_particles(keys, (xs, ys, zs, hs) + props_s, assignment.boundaries,
+                                                     self.rank, n_local, move_cap, self.comm)
+            n_owned, move_ovf = ex.n_owned, ex.overflow
+        ox, oy, oz, oh, *oprops = opayload
+
+        # ---- 6. focused octree (LET) ---------------------------------------
+        # syncGrav builds the tree for the worst-case vector MAC (domain.hpp:266)
+        itm = inv_theta_vec_mac if grav else inv_theta_min_mac
+        focus_start = assignment.boundaries[self.rank]
+        focus_end = assignment.boundaries[self.rank + 1]
+        fast_focus = (single and self.bucket_size_focus == self.bucket_size
                       and state.focus_leaves.shape[0] == tree.keys.shape[0])
         if fast_focus:
             # one rank and equal buckets: the focus tree's fixed point IS the
@@ -315,16 +374,16 @@ class Domain:
             focus_conv_ovf = svc_ovf = zero
             focus_converged = not tree_changed
         else:
-            # one rank: the sorted particles are the owned set, and every
-            # cell's count is a local binary search (updateCounts,
-            # octree_focus_mpi.hpp:205-273, without its peer round)
+            # own cells are counted locally, foreign cells by their owners'
+            # range-count service (updateCounts, octree_focus_mpi.hpp:205-273)
             def counts_fn(leaves, n_leaf):
-                return self._leaf_counts_service(leaves, n_leaf, keys, n_local)
+                return self._leaf_counts_service(leaves, n_leaf, okeys, n_owned, assignment.boundaries,
+                                                 treelet_cap)
 
             (_, _, linked, node_counts_f, focus_conv_ovf, svc_ovf, focus_converged) = focus_converge(
                 state.focus_leaves, state.focus_n, None, None, box, focus_start, focus_end,
-                assignment.boundaries, self.bucket_size_focus, inv_theta_min_mac(self.theta),
-                curve=self.curve, leaf_counts_fn=counts_fn, skip_macs=True,
+                assignment.boundaries, self.bucket_size_focus, itm(self.theta), comm=self.comm,
+                curve=self.curve, leaf_counts_fn=counts_fn, skip_macs=single,
                 linked0=state.linked,
                 use_carried=state.focus_converged and not state.first_call)
             cap_leaf = linked.leaves.shape[0] - 1
@@ -332,10 +391,30 @@ class Domain:
             lif = torch.arange(cap_leaf, device=dev)
             leaf_counts = torch.where(lif < linked.n_leaf, node_counts_f[linked.leaf_order()], 0)
 
-        first_leaf, last_leaf = searchsorted(linked.leaves, assignment.boundaries[:2])
+        first_leaf, last_leaf = searchsorted(linked.leaves, assignment.boundaries[self.rank:self.rank + 2])
+        mine = (lif >= first_leaf) & (lif < last_leaf)
+        j = torch.arange(cap, device=dev)
 
-        # ---- 7. one rank: every leaf is assigned, no halos -----------------
-        halo_flags = torch.zeros(cap_leaf, dtype=torch.int32, device=dev)
+        # ---- 7. halos: per-leaf radii 2 * ext * max(h) over the own leaves'
+        # owned particles (halos.hpp:116-189); at one rank every leaf is
+        # in the assignment and nothing is a halo
+        grav_ovf = zero
+        if single:
+            halo_flags = torch.zeros(cap_leaf, dtype=torch.int32, device=dev)
+        else:
+            leaf_off = torch.minimum(searchsorted(okeys, linked.leaves), n_owned)
+            leaf_hmax = torch.clamp(segment_max(torch.where(j < n_owned, oh, 0.0), leaf_off, cap_leaf), min=0.0)
+            radii = torch.where(mine, leaf_hmax * (2.0 * self.halo_search_ext), 0.0)
+            halo_flags = find_halos(linked, radii, box, first_leaf, last_leaf, self.curve)
+            if grav:
+                # vector-MAC halo augmentation from the exact mass centers,
+                # foreign leaves summed by their owners (addMacs, :601-610)
+                _, spheres, grav_ovf = self._expansion_centers(linked, okeys, ox, oy, oz, oprops[0], n_owned,
+                                                               assignment.boundaries, treelet_cap, box)
+                mac_marks = mark_macs(linked, spheres, box, focus_start, focus_end, linked.leaves,
+                                      linked.n_leaf, limit_source=False, curve=self.curve)
+                mac_leaf = mac_marks[linked.leaf_order()]
+                halo_flags = torch.where(mine, halo_flags, halo_flags | mac_leaf.to(halo_flags.dtype))
 
         # ---- 8. layout (layout.hpp:150-164) --------------------------------
         layout = compute_node_layout(leaf_counts, halo_flags, first_leaf, last_leaf)
@@ -343,21 +422,45 @@ class Domain:
         start_index = layout[first_leaf]
         end_index = layout[last_leaf]
 
-        # ---- 9./10. placement is the identity: layout order == sorted order
-        j = torch.arange(cap, device=dev)
-        new_keys = torch.where(j < n_with_halos, keys, rk)
+        if single:
+            # ---- 9./10. placement is the identity: layout order == sorted order
+            halo_rec, halo_ovf = None, zero
+            new_keys = torch.where(j < n_with_halos, keys, rk)
+            new_x, new_y, new_z, new_h, new_props = xs, ys, zs, hs, props_s
+        else:
+            # ---- 9. owned particles at [start_index, end_index) -------------
+            def place(owned, fill):
+                return _place(owned, start_index, n_owned, fill)
 
-        overflow, detail = self._overflow(tree, linked, focus_conv_ovf, n_with_halos, cap, svc_ovf)
+            # ---- 10. halo exchange of x, y, z, h and the properties --------
+            dest_leaf = self._owner(assignment.boundaries, linked.leaves[:-1])
+            halo_req = halo_flags.bool() & ~mine & (lif < linked.n_leaf)
+            halo_rec = build_halo_exchange(
+                linked.leaves[:-1], linked.leaves[1:], leaf_counts, layout, halo_req, dest_leaf, okeys, n_owned,
+                self.n_ranks, halo_req_cap, halo_cap, self.comm)
+            halo_ovf = halo_rec.overflow
+            new_x, new_y, new_z, new_h = (exchange_halo_field(o, place(o, 0.0), halo_rec, self.comm)
+                                          for o in (ox, oy, oz, oh))
+            new_props = tuple(exchange_halo_field(o, place(o, 0), halo_rec, self.comm) for o in oprops)
+
+            # halo keys recomputed from the coordinates (domain.hpp:523-540)
+            new_keys = torch.where(j < n_with_halos,
+                                   compute_sfc_keys(new_x, new_y, new_z, box, self.key_dtype, self.curve), rk)
+            new_keys = torch.where((j >= start_index) & (j < end_index), place(okeys, rk), new_keys)
+
+        overflow, detail = self._overflow(tree, linked, focus_conv_ovf, n_with_halos, cap,
+                                          move=move_ovf, svc=svc_ovf, halo=halo_ovf, extra=grav_ovf)
         new_state = DomainState(
             box=box, assignment=assignment, global_tree=tree,
             focus_leaves=linked.leaves, focus_n=linked.n_leaf, first_call=False,
             linked=linked, focus_converged=bool(focus_converged),
         )
         result = SyncResult(
-            keys=new_keys, x=xs, y=ys, z=zs, h=hs, properties=props_s,
+            keys=new_keys, x=new_x, y=new_y, z=new_z, h=new_h, properties=tuple(new_props),
             start_index=start_index, end_index=end_index, n_with_halos=n_with_halos,
             sort_order=sort_order, layout=layout, halo_flags=halo_flags, tree=linked,
             leaf_counts=leaf_counts, overflow=overflow, overflow_detail=detail,
+            ex_record=ex, halo_record=halo_rec,
         )
         return new_state, result
 
@@ -435,10 +538,6 @@ class Domain:
         new_x, new_y, new_z, new_h, *new_props = (p[pool_idx] for p in pool_payload)
 
         overflow, detail = self._overflow(tree, linked, focus_conv_ovf, n_with_halos, cap)
-        if self.comm is not None:
-            # the largest of all ranks: every rank takes the same retry
-            detail = self.comm.all_reduce(detail, "max")
-            overflow = detail.max()
         new_state = DomainState(
             box=box, assignment=assignment, global_tree=tree,
             focus_leaves=linked.leaves, focus_n=linked.n_leaf, first_call=False,
@@ -454,21 +553,25 @@ class Domain:
         return new_state, result
 
     # ------------------------------------------------------------------
-    @staticmethod
-    def _overflow(tree: CsArray, linked: LinkedOctree, focus_conv_ovf, n_with_halos, cap: int,
-                  svc_ovf=None):
-        """(overflow, the 7-entry overflow_detail) of one rank's sync."""
+    def _overflow(self, tree: CsArray, linked: LinkedOctree, focus_conv_ovf, n_with_halos, cap: int,
+                  move=None, svc=None, halo=None, extra=None):
+        """(overflow, the 7-entry overflow_detail), each the largest of all
+        ranks. `extra` enters overflow only (syncGrav's range-sum
+        overflow, as in the JAX package)."""
         zero = torch.zeros((), dtype=torch.int64, device=n_with_halos.device)
-        svc_ovf = zero if svc_ovf is None else svc_ovf
+        move, svc, halo, extra = (zero if v is None else v for v in (move, svc, halo, extra))
         gcap = tree.keys.shape[0] - 1
         cap_leaf = linked.leaves.shape[0] - 1
         tree_ovf = torch.where(tree.n_nodes > gcap, tree.n_nodes, zero)
         focus_ovf = torch.maximum(torch.where(linked.n_leaf > cap_leaf, linked.n_leaf, zero),
                                   focus_conv_ovf)
         local_ovf = torch.where(n_with_halos > cap, n_with_halos, zero)
-        overflow = torch.stack([local_ovf, tree_ovf, focus_ovf, svc_ovf]).max()
-        detail = torch.stack([local_ovf, tree_ovf, focus_ovf, zero, svc_ovf, zero, zero])
-        return overflow, detail
+        detail = torch.stack([local_ovf, tree_ovf, focus_ovf, move, svc, halo, zero])
+        both = torch.cat([detail, torch.stack([detail.max(), extra]).max()[None]])
+        if self.comm is not None:
+            # the largest of all ranks: every rank takes the same retry
+            both = self.comm.all_reduce(both, "max")
+        return both[-1], both[:-1]
 
     # ------------------------------------------------------------------
     def _common_assign(self, state, x, y, z, h, properties, n_local, boundaries):
@@ -525,15 +628,28 @@ class Domain:
                 n_local, tree_changed)
 
     # ------------------------------------------------------------------
-    @staticmethod
-    def _leaf_counts_service(leaves, n_leaf, owned_keys, n_owned):
-        """Per-leaf counts of the focus tree (updateCounts analog,
-        octree_focus_mpi.hpp:205-273). At one rank every cell is local, so
-        no service round is needed and the service never overflows.
-        Returns (counts int64, overflow)."""
+    def _leaf_counts_service(self, leaves, n_leaf, owned_keys, n_owned, boundaries, q_cap: int):
+        """Per-leaf counts of the focus tree (updateCounts,
+        octree_focus_mpi.hpp:205-273): own cells by a local binary search,
+        foreign cells by their owners' range-count service (three
+        all_to_all rounds). At one rank every cell is local and the
+        service never overflows. Returns (counts int64, overflow)."""
+        cap_leaf = leaves.shape[0] - 1
         pos = torch.minimum(searchsorted(owned_keys, leaves, side="left"), n_owned)
-        lvalid = torch.arange(leaves.shape[0] - 1, device=leaves.device) < n_leaf
-        return torch.where(lvalid, pos[1:] - pos[:-1], 0), torch.zeros_like(n_owned)
+        lvalid = torch.arange(cap_leaf, device=leaves.device) < n_leaf
+        local = pos[1:] - pos[:-1]
+        if self.n_ranks == 1:
+            return torch.where(lvalid, local, 0), torch.zeros_like(n_owned)
+        a, b = leaves[:-1], leaves[1:]
+        dest = self._owner(boundaries, a)
+        mine = dest == self.rank
+        foreign, ovf = range_count_service(a, b, dest, lvalid & ~mine, owned_keys, n_owned, self.n_ranks, q_cap,
+                                           self.comm)
+        return torch.where(lvalid, torch.where(mine, local, foreign), 0), ovf
+
+    def _owner(self, boundaries, keys):
+        """The rank whose assignment range holds each key."""
+        return torch.clamp(searchsorted(boundaries, keys, side="right") - 1, 0, self.n_ranks - 1)
 
     # ------------------------------------------------------------------
     def _update_global_tree(self, state: DomainState, keys, n_local) -> Tuple[CsArray, bool]:
@@ -555,43 +671,60 @@ class Domain:
         node_centers = upsweep_centers(linked, torch.cat([leaf_sums[:, :3] * inv, mass], dim=-1))
         return node_centers, set_mac_radii(linked, node_centers, 1.0 / self.theta, box, self.curve)
 
+    def _expansion_centers(self, linked: LinkedOctree, okeys, ox, oy, oz, om, n_owned, boundaries,
+                           treelet_cap: int, box: Box):
+        """Exact mass centers and squared vector-MAC radii per focus node
+        (updateCenters + setMacRadius, octree_focus_mpi.hpp:369-531): own
+        leaves summed from the owned particles (okeys sorted, n_owned of
+        them), foreign leaves by their owners' range-sum service. Returns
+        (centers (n_nodes, 4), mac_spheres (n_nodes, 4), overflow)."""
+        cap = okeys.shape[0]
+        cap_leaf = linked.leaves.shape[0] - 1
+        w = om.abs()
+        vals = torch.stack([w * ox, w * oy, w * oz, w], dim=-1)
+        owned = torch.arange(cap, device=okeys.device) < n_owned
+        leaf_off = torch.minimum(searchsorted(okeys, linked.leaves), n_owned)
+        leaf_sums = segment_sum(torch.where(owned[:, None], vals, 0.0), leaf_off, cap_leaf)
+        sum_ovf = torch.zeros((), dtype=torch.int64, device=okeys.device)
+        if self.n_ranks > 1:
+            a, b = linked.leaves[:-1], linked.leaves[1:]
+            dest = self._owner(boundaries, a)
+            lvalid = torch.arange(cap_leaf, device=okeys.device) < linked.n_leaf
+            foreign, sum_ovf = range_sum_service(a, b, dest, lvalid & (dest != self.rank), okeys, n_owned, vals,
+                                                 self.n_ranks, treelet_cap, self.comm)
+            leaf_sums = torch.where((dest == self.rank)[:, None], leaf_sums, foreign)
+        centers, spheres = self._node_centers(linked, leaf_sums, box)
+        return centers, spheres, sum_ovf
+
     def update_expansion_centers(self, state: DomainState, result: SyncResult, m: torch.Tensor):
         """Expansion-center maintenance between syncs: updateCenters +
-        setMacRadius + updateMacs (octree_focus_mpi.hpp:369-531).
+        setMacRadius + updateMacs (octree_focus_mpi.hpp:369-531), in either
+        exchange mode and at any number of ranks.
 
         m: (local_capacity,) mass in the result's layout order; halo slots
-        are ignored. Returns (centers (n_nodes, 4) x, y, z, mass per focus
-        node; mac_spheres (n_nodes, 4) x, y, z and the squared vector-MAC
-        radius; mac_flags (cap_leaf,) int32 leaf MAC-failure flags relative
-        to the rank's focus range; overflow 0-d int64).
-
-        Raises NotImplementedError at n_ranks > 1: foreign leaves are
-        summed by their owners' range-sum service (ROADMAP.md Queue 1,
-        item 3).
+        are ignored, foreign leaves are summed by their owners' range-sum
+        service (three all_to_all rounds at n_ranks > 1). Returns (centers
+        (n_nodes, 4) x, y, z, mass per focus node; mac_spheres (n_nodes, 4)
+        x, y, z and the squared vector-MAC radius; mac_flags (cap_leaf,)
+        int32 leaf MAC-failure flags relative to the rank's focus range;
+        overflow 0-d int64, the range-sum service's).
         """
-        if self.n_ranks > 1:
-            raise NotImplementedError(f"update_expansion_centers at n_ranks > 1 is not ported yet ({_ITEM_P2P})")
         linked = result.tree
         cap = result.keys.shape[0]
-        dev = result.keys.device
-        j = torch.arange(cap, device=dev)
+        j = torch.arange(cap, device=result.keys.device)
         take = torch.clamp(result.start_index + j, 0, cap - 1)
         n_owned = result.end_index - result.start_index
         owned = j < n_owned
         okeys = torch.where(owned, result.keys[take], remove_key(self.key_dtype))
         ox, oy, oz, om = (torch.where(owned, a[take], 0.0) for a in (result.x, result.y, result.z, m))
 
-        # one rank: every leaf is its own, summed from the owned particles
-        w = om.abs()
-        vals = torch.stack([w * ox, w * oy, w * oz, w], dim=-1)
-        leaf_off = torch.minimum(searchsorted(okeys, linked.leaves), n_owned)
-        leaf_sums = segment_sum(torch.where(owned[:, None], vals, 0.0), leaf_off, linked.leaves.shape[0] - 1)
-        centers, spheres = self._node_centers(linked, leaf_sums, state.box)
-
+        _, treelet_cap, _, _ = self._p2p_caps(cap)
         boundaries = state.assignment.boundaries
+        centers, spheres, ovf = self._expansion_centers(linked, okeys, ox, oy, oz, om, n_owned, boundaries,
+                                                        treelet_cap, state.box)
         mac_marks = mark_macs(linked, spheres, state.box, boundaries[self.rank], boundaries[self.rank + 1],
                               linked.leaves, linked.n_leaf, limit_source=False, curve=self.curve)
-        return centers, spheres, mac_marks[linked.leaf_order()], torch.zeros((), dtype=torch.int64, device=dev)
+        return centers, spheres, mac_marks[linked.leaf_order()], ovf
 
     # ------------------------------------------------------------------
     def exchange_halos(self, result: SyncResult, prop: torch.Tensor) -> torch.Tensor:
@@ -599,15 +732,20 @@ class Domain:
         (domain.hpp:382-386, halos.hpp:224-251).
 
         prop: (local_capacity,) values valid in [start_index, end_index).
-        Single-rank p2p: there are no halo slots. Pool mode: every rank
-        scatters its owned values into a zero pool, the pools are summed
-        over the ranks (each slot has one owner), and every buffer slot
-        gathers its pool slot.
+        p2p mode: the owned range in layout order is the owned key order,
+        and the sync's halo record moves the values (one all_to_all); at
+        one rank there are no halo slots. Pool mode: every rank scatters
+        its owned values into a zero pool, the pools are summed over the
+        ranks (each slot has one owner), and every buffer slot gathers its
+        pool slot.
         """
-        if result.global_ids is None:
-            return prop
         cap = prop.shape[0]
         j = torch.arange(cap, device=prop.device)
+        if result.halo_record is not None:
+            owned_sorted = prop[torch.clamp(result.start_index + j, 0, cap - 1)]
+            return exchange_halo_field(owned_sorted, prop, result.halo_record, self.comm)
+        if result.global_ids is None:
+            return prop
         owned = (j >= result.start_index) & (j < result.end_index)
         n_pool = cap * self.n_ranks
         pool_vals = torch.zeros(n_pool + 1, dtype=prop.dtype, device=prop.device)
@@ -619,11 +757,16 @@ class Domain:
         """Replay the sync's exchange for an extra field (domain.hpp:335-378).
 
         prop: (local_capacity,) values in the PRE-sync local particle order.
-        Returns the field in post-sync layout order: at one rank in p2p mode
-        the sorted order; in pool mode every buffer slot, halos included,
-        gathered from the pool through the recorded permutations.
+        Returns the field in post-sync layout order. p2p mode: at one rank
+        the sorted order; at several the owned slots through the recorded
+        particle exchange, the halo slots zero (exchange_halos fills them).
+        Pool mode: every buffer slot, halos included, gathered from the
+        pool through the recorded permutations.
         """
         sorted_prop = prop[result.sort_order]
+        if result.ex_record is not None:
+            owned = replay_exchange(sorted_prop, result.ex_record, self.comm)
+            return _place(owned, result.start_index, result.ex_record.n_owned, 0)
         if result.pool_perm is None:
             return sorted_prop
         return self._pgather(sorted_prop).reshape(-1)[result.pool_perm][result.global_ids]

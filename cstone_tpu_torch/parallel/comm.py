@@ -4,7 +4,8 @@ of the rank axis that shard_map binds in the JAX package; reference:
 MPI_COMM_WORLD in domain/domaindecomp_mpi.hpp).
 
 `RankComm` is what the port's multi-rank code takes where the JAX package
-takes an `axis_name`: `all_gather`, `all_reduce` and `all_reduce_flag`.
+takes an `axis_name`: `all_gather`, `all_reduce`, `all_reduce_flag` and
+`all_to_all`.
 `run_ranks(n_ranks, fn, *per_rank_args)` runs `fn(comm, *args_r)` on one
 thread per rank; the ranks meet at a barrier inside each collective.
 
@@ -182,6 +183,14 @@ class RankComm:
             raise ValueError(f"op must be 'all' or 'any', got {op!r}")
         flags = [bool(f) for f in self._exchange(bool(flag))]
         return all(flags) if op == "all" else any(flags)
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """t is (n_ranks, ...), row r addressed to rank r. Returns a fresh
+        tensor of t's shape whose row r is row `rank` of rank r's t
+        (jax.lax.all_to_all with split and concat axis 0, tiled)."""
+        if t.shape[0] != self.n_ranks:
+            raise ValueError(f"all_to_all needs a leading axis of {self.n_ranks} rows, got {tuple(t.shape)}")
+        return torch.stack([u[self.rank] for u in self._exchange(t)])
 
 
 def run_ranks(n_ranks: int, fn: Callable, *per_rank_args: Sequence, timeout: float = 600.0) -> list:

@@ -151,8 +151,14 @@ def test_cuda_device_without_cuda_raises():
         Domain(bucket_size=16, tree_capacity=256, device="cuda")
 
 
-@pytest.mark.parametrize("kwargs", [dict(n_ranks=2, exchange_mode="p2p"), dict(protocol="ragged"),
-                                    dict(peer_window=1)])
+@pytest.mark.parametrize("kwargs", [dict(protocol="ragged"), dict(peer_window=1)])
 def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 4"):
         Domain(bucket_size=16, tree_capacity=256, **kwargs)
+
+
+@pytest.mark.parametrize("mode", ["p2p", "pool"])
+def test_several_ranks_need_a_comm(mode):
+    # both exchange modes run at several ranks, through the rank's comm
+    with pytest.raises(ValueError, match="comm"):
+        Domain(n_ranks=2, exchange_mode=mode, bucket_size=16, tree_capacity=256, device="cpu")

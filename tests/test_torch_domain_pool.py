@@ -61,8 +61,9 @@ def rank_slice(tree, r):
     return jax.tree.map(lambda a: a[r], tree)
 
 
-def jax_pool_step(periodic, grav=False, theta=0.5):
-    """jit(shard_map) of one pool sync per rank, the carried state an input:
+def jax_pool_step(periodic, grav=False, theta=0.5, mode="pool", **caps):
+    """jit(shard_map) of one sync per rank (pool mode unless `mode` says
+    otherwise; `caps` go to the Domain), the carried state an input:
     returns (state, result, compact-owned x/y/z/h/m and the owned count,
     reapply_sync and exchange_halos of the global particle id)."""
     mesh = make_mesh(R)
@@ -71,7 +72,7 @@ def jax_pool_step(periodic, grav=False, theta=0.5):
     def step(state, x, y, z, h, m, n_local, ids):
         state, n_local = jax.tree.map(lambda a: a[0], state), n_local[0]
         d = JaxDomain(rank=jax.lax.axis_index(rank_axis), n_ranks=R, key_dtype=jnp.uint64,
-                      axis_name=rank_axis, exchange_mode="pool", theta=theta, **KW)
+                      axis_name=rank_axis, exchange_mode=mode, protocol="dense", theta=theta, **KW, **caps)
         state, res = d.sync(state, x, y, z, h, properties=(m,), n_local=n_local, grav=grav)
         co = d.compact_owned
         moved = tuple(co(res, a) for a in (res.x, res.y, res.z, res.h, res.properties[0]))
@@ -84,7 +85,7 @@ def jax_pool_step(periodic, grav=False, theta=0.5):
 
     fn = jax.jit(shard_map(step, mesh=mesh, in_specs=P(rank_axis), out_specs=P(rank_axis),
                            check_vma=False))
-    d0 = JaxDomain(rank=0, n_ranks=R, key_dtype=jnp.uint64, exchange_mode="pool", **KW)
+    d0 = JaxDomain(rank=0, n_ranks=R, key_dtype=jnp.uint64, exchange_mode=mode, protocol="dense", **KW)
     state0 = d0.init_state(box=jbox if periodic else None, boundaries=jbox.boundaries)
     sharding = NamedSharding(mesh, P(rank_axis))
 
@@ -100,12 +101,12 @@ def jax_pool_step(periodic, grav=False, theta=0.5):
     return run
 
 
-def port_pool_step(periodic, grav=False, theta=0.5):
-    """The port's counterpart: run_ranks(R) of one pool sync per rank."""
+def port_pool_step(periodic, grav=False, theta=0.5, mode="pool", **caps):
+    """The port's counterpart: run_ranks(R) of one sync per rank."""
     tbox = make_box(-1.0, 1.0, boundaries=PERIODIC if periodic else 0, device="cpu")
 
     def rank_fn(comm, state, cols, n_local, ids):
-        d = Domain(exchange_mode="pool", comm=comm, theta=theta, device="cpu", **KW)
+        d = Domain(exchange_mode=mode, comm=comm, theta=theta, device="cpu", **KW, **caps)
         if state is None:
             state = d.init_state(box=tbox if periodic else None, boundaries=tbox.boundaries)
         x, y, z, h, m = (torch.from_numpy(np.ascontiguousarray(c)) for c in cols)
@@ -250,12 +251,94 @@ def test_from_numpy_state_takes_one_rank(runs):
         assert dataclasses.fields(ts) == dataclasses.fields(touts[r][0])
 
 
-def test_update_expansion_centers_refuses_several_ranks(runs):
-    # foreign leaves need their owners' range-sum service, not ported yet
-    _, steps = runs
-    state, res, d = steps[0][3][0][0], steps[0][3][0][1], steps[0][3][0][-1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        d.update_expansion_centers(state, res, res.properties[0])
+def expansion_centers_runs(mode, theta=0.6, n_per=200, cap=800, seed=61):
+    """sync + update_expansion_centers on 8 ranks of n_per particles in
+    exchange mode `mode`, by the JAX package (shard_map) and by the port
+    (run_ranks), on the inputs of tests/test_expansion_centers.py. Returns
+    (JAX, port), each per rank (leaves, n_leaf, leaf centers, leaf MAC
+    spheres, MAC flags, the larger of the sync's and the centers'
+    overflow, box limits), and the (n, 3) positions and (n,) masses."""
+    n = R * n_per
+    rng = np.random.RandomState(seed)
+    pos = rng.uniform(-1, 1, size=(n, 3)).astype(np.float32)
+    h = rng.uniform(0.03, 0.06, size=n).astype(np.float32)
+    m = rng.uniform(0.5, 2.0, size=n).astype(np.float32)
+    cols = np.zeros((5, R, cap), np.float32)
+    for c, a in enumerate((pos[:, 0], pos[:, 1], pos[:, 2], h, m)):
+        cols[c, :, :n_per] = a.reshape(R, n_per)
+
+    def outputs(d, state, res, maximum):
+        centers, spheres, flags, ovf = d.update_expansion_centers(state, res, res.properties[0])
+        lo = res.tree.leaf_order()
+        return (res.tree.leaves, res.tree.n_leaf, centers[lo], spheres[lo], flags, maximum(res.overflow, ovf),
+                state.box.limits)
+
+    mesh = make_mesh(R)
+    jbox = jax_make_box(-1.0, 1.0)
+
+    def step(x, y, z, h, m):
+        d = JaxDomain(rank=jax.lax.axis_index(rank_axis), n_ranks=R, key_dtype=jnp.uint64, axis_name=rank_axis,
+                      exchange_mode=mode, protocol="dense", theta=theta, **KW)
+        state, res = d.sync(d.init_state(box=jbox, boundaries=jbox.boundaries), x, y, z, h, properties=(m,),
+                            n_local=jnp.int32(n_per))
+        return stacked(outputs(d, state, res, jnp.maximum))
+
+    fn = jax.jit(shard_map(step, mesh=mesh, in_specs=P(rank_axis), out_specs=P(rank_axis), check_vma=False))
+    sharding = NamedSharding(mesh, P(rank_axis))
+    jout = jax.block_until_ready(fn(*(jax.device_put(jnp.asarray(c.reshape(-1)), sharding) for c in cols)))
+    tbox = make_box(-1.0, 1.0, device="cpu")
+
+    def rank_fn(comm, c):
+        d = Domain(exchange_mode=mode, comm=comm, theta=theta, device="cpu", **KW)
+        x, y, z, hh, mm = (torch.from_numpy(np.ascontiguousarray(a)) for a in c)
+        state, res = d.sync(d.init_state(box=tbox, boundaries=tbox.boundaries), x, y, z, hh, properties=(mm,),
+                            n_local=n_per)
+        return outputs(d, state, res, torch.maximum)
+
+    tout = run_ranks(R, rank_fn, [cols[:, r] for r in range(R)])
+    return [rank_slice(jout, r) for r in range(R)], tout, pos, m
+
+
+def assert_centers_match(jax_ranks, port_ranks, pos, m):
+    """Leaves and MAC flags bit-equal. Centers: the foreign leaves' sums
+    are differences of float32 prefix sums over the owner's particles,
+    accumulated in another order than XLA's, so each side lies within the
+    tolerances tests/test_expansion_centers.py holds JAX to against the
+    float64 center of mass of every leaf's key range (masses rtol 2e-5,
+    positions rtol 1e-4 and atol 2e-5), and the port's centers and MAC
+    spheres within twice those of JAX's (each ~1.5e-5 from the oracle,
+    on opposite sides at some leaves)."""
+    from cstone_tpu_torch.ops.keys64 import to_numpy
+    from cstone_tpu_torch.sfc.box import Box
+    from cstone_tpu_torch.sfc.encode import HILBERT, compute_sfc_keys
+    from tests.test_expansion_centers import _oracle_centers
+
+    p = torch.from_numpy(pos)
+    for r, (j, t) in enumerate(zip(jax_ranks, port_ranks)):
+        leaves, n_leaf, centers, spheres, flags, ovf, limits = t
+        nl = int(n_leaf)
+        assert int(ovf) == 0 and nl == int(j[1])
+        _assert_same(j[0], leaves, f"rank {r}: leaves")
+        _assert_same(j[4], flags, f"rank {r}: mac flags", nl)
+        keys = to_numpy(compute_sfc_keys(p[:, 0], p[:, 1], p[:, 2], Box(limits=limits, boundaries=(0, 0, 0)),
+                                         np.uint64, HILBERT))
+        oracle = _oracle_centers(to_numpy(leaves), nl, keys, pos, m)
+        sel = oracle[:, 3] > 0
+        for name, got in (("port", centers[:nl].numpy()), ("JAX", np.asarray(j[2])[:nl])):
+            np.testing.assert_allclose(got[:, 3], oracle[:, 3], rtol=2e-5, err_msg=f"rank {r}: {name} mass")
+            np.testing.assert_allclose(got[sel, :3], oracle[sel, :3], rtol=1e-4, atol=2e-5,
+                                       err_msg=f"rank {r}: {name} centers")
+        for name, got, want in (("centers", centers, j[2]), ("spheres", spheres, j[3])):
+            got, want = got[:nl].numpy(), np.asarray(want)[:nl]
+            np.testing.assert_allclose(got[:, :3], want[:, :3], rtol=2e-4, atol=4e-5, err_msg=f"rank {r}: {name}")
+            np.testing.assert_allclose(got[:, 3], want[:, 3], rtol=4e-5 if name == "centers" else 2e-4,
+                                       atol=0 if name == "centers" else 4e-5, err_msg=f"rank {r}: {name}")
+        assert float(centers[:nl, 3].sum()) == pytest.approx(float(m.astype(np.float64).sum()), rel=1e-5)
+
+
+def test_update_expansion_centers_on_pool_ranks_matches_jax():
+    # foreign leaves are summed by their owners' range-sum service
+    assert_centers_match(*expansion_centers_runs("pool"))
 
 
 @pytest.mark.parametrize("periodic", [False, True], ids=["open", "periodic"])
@@ -298,11 +381,10 @@ def test_global_bounds_and_octree_match_jax(periodic):
         np.testing.assert_array_equal(box.limits.numpy(), np.asarray(jl[r]))
 
 
-@pytest.mark.parametrize("route", ["cell", "tree"])
-def test_sph_density_step_on_pool_ranks_matches_one_rank(route):
-    # sph_density_step runs unchanged on every rank: the halos arrive with
-    # x, y, z, h and m, and each owned density equals the one-rank density
-    # of the same particle (float sums in another order: rtol 1e-5)
+def sph_ranks_match_one_rank(route, mode):
+    """sph_density_step on 8 ranks of Domain(exchange_mode=mode) equals the
+    one-rank density of the same particles: the halos arrive with x, y, z,
+    h and m (float sums in another order: rtol 1e-5)."""
     from cstone_tpu_torch.models import SphState, sph_density_step
 
     cols, ids, pos, h = initial(seed=7)
@@ -310,7 +392,7 @@ def test_sph_density_step_on_pool_ranks_matches_one_rank(route):
     tbox = make_box(-1.0, 1.0, boundaries=PERIODIC, device="cpu")
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
 
-    one = Domain(exchange_mode="pool", device="cpu", **KW)
+    one = Domain(exchange_mode=mode, device="cpu", **KW)
     state = SphState(domain=one.init_state(box=tbox, boundaries=tbox.boundaries),
                      x=t(pos[:, 0]), y=t(pos[:, 1]), z=t(pos[:, 2]), h=t(h),
                      m=t(np.concatenate([cols[4, r, :N_PER] for r in range(R)])), n_local=torch.tensor(N))
@@ -320,7 +402,7 @@ def test_sph_density_step_on_pool_ranks_matches_one_rank(route):
     want[res_one.sort_order[:N].numpy()] = rho_one[:N].numpy()
 
     def rank_fn(comm, c, i):
-        d = Domain(exchange_mode="pool", comm=comm, device="cpu", **KW)
+        d = Domain(exchange_mode=mode, comm=comm, device="cpu", **KW)
         s = SphState(domain=d.init_state(box=tbox, boundaries=tbox.boundaries), x=t(c[0]), y=t(c[1]),
                      z=t(c[2]), h=t(c[3]), m=t(c[4]), n_local=torch.tensor(N_PER))
         _, rho, res = sph_density_step(d, s, **kw)
@@ -333,3 +415,8 @@ def test_sph_density_step_on_pool_ranks_matches_one_rank(route):
         s, e = int(res.start_index), int(res.end_index)
         got[rid[s:e].numpy()] = rho[s:e].numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("route", ["cell", "tree"])
+def test_sph_density_step_on_pool_ranks_matches_one_rank(route):
+    sph_ranks_match_one_rank(route, "pool")
