@@ -113,10 +113,31 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      halo flags, layout, n_with_halos and the ids exchange_halos puts
      into its halo slots (p2p reapply_sync fills the owned slots only)
      equal to path E's at the same step. Prints per step the all_to_all rounds and their
-     buffer bytes per rank (CommTally), the overflow_detail, and path
-     E's sync walls beside path F's.
+     buffer bytes per rank (RankTally), the overflow_detail, and path
+     E's sync walls beside path F's;
+ 11. path G, the ranks as processes: LET_RANKS rank processes on the one
+     card (parallel.dist.spawn_ranks over gloo, since nccl refuses two
+     ranks on one device; every collective's CUDA operand goes through
+     host memory), the kernels phase 2 built loaded, never built, in each.
+     Each process runs (a) and then (b). (a) the dry run of
+     cstone_tpu_torch.multichip (dryrun_multichip's rank_step): 256
+     particles a rank, the dense then the ragged protocol, the neighbour
+     sum through B5 equal to brute force, B5 launched once in every rank
+     and protocol, each launch equal to its plain version. (b) path F's inputs and steps in the p2p mode, with the dense
+     protocol and then with protocol="ragged" at its default totals: the
+     checks of path F against phase 4 (global trees, B1 counts by particle,
+     B2 within rtol 1e-5, the owned partition, the halo slots' ids), every
+     rank's assignment, focus leaves, halo flags, layout, buffer size and
+     halo ids equal to path F's (dense) and to the dense run's (ragged),
+     B1 and B2 once a rank and step, and every launch of the last step
+     equal to its plain version. Prints per step the 8-process sync wall
+     and each rank's sync ms beside path F's, each rank's all_to_all and
+     ragged rounds and the bytes it sends in them (RankTally) beside path
+     F's, the bytes staged through host memory, each process's peak
+     memory beside path F's, and the host's core count.
 Each path's launch counts are set to 0 just before it is driven and read
-just after (paths E and F each over their 4 steps). Every kernel's bound is the larger of its FP32 operations over
+just after (paths E and F each over their 4 steps; path G in each rank
+process, summed). Every kernel's bound is the larger of its FP32 operations over
 67 TFLOP/s and its bytes over 3.35 TB/s, counted from that run's inputs;
 no single PyTorch call computes any of these functions, so library_ms is
 null. Kernel-vs-plain checks of phases 3, 5 and 6 take the
@@ -1427,34 +1448,166 @@ class RankTimer:
         setattr(self.module, self.name, self.real)
 
 
-class CommTally:
-    """Counts, per rank thread, the RankComm.all_to_all calls inside the
-    block and the bytes of the (n_ranks, ...) buffers each rank hands
-    them: reckoned from the buffer shapes, its own row included."""
+class RankTally:
+    """Counts one rank's all_to_all and ragged_all_to_all rounds and the
+    bytes it sends in them, by wrapping the methods of its own comm (a
+    thread's RankComm or a process's DistComm alike): an all_to_all sends
+    its (n_ranks, ...) buffer, its own row included, a ragged round the
+    rows of its chunks, summed on the card without a host read. A
+    DistComm under gloo also counts its host staging (staged_bytes)."""
 
-    def __enter__(self):
-        import threading
+    def __init__(self, comm):
+        self.comm = comm
+        a2a, ragged = comm.all_to_all, comm.ragged_all_to_all
+        self.reset()
 
-        from cstone_tpu_torch.parallel.comm import RankComm
+        def all_to_all(t):
+            self.rounds += 1
+            self.nbytes += t.numel() * t.element_size()
+            return a2a(t)
 
-        self.cls, self.real, self.calls, self.bytes = RankComm, RankComm.all_to_all, {}, {}
-        real = self.real
+        def ragged_all_to_all(operand, output, input_offsets, send_sizes, output_offsets, recv_sizes):
+            self.ragged_rounds += 1
+            row = operand[0].numel() * operand.element_size()
+            self.ragged_bytes = self.ragged_bytes + send_sizes.clamp(min=0).sum() * row
+            return ragged(operand, output, input_offsets, send_sizes, output_offsets, recv_sizes)
 
-        def tallied(comm, t):
-            me = threading.current_thread().name
-            self.calls[me] = self.calls.get(me, 0) + 1
-            self.bytes[me] = self.bytes.get(me, 0) + t.numel() * t.element_size()
-            return real(comm, t)
+        comm.all_to_all, comm.ragged_all_to_all, comm.tally = all_to_all, ragged_all_to_all, self
 
-        RankComm.all_to_all = tallied
-        return self
+    @classmethod
+    def of(cls, comm) -> "RankTally":
+        """The comm's tally, attached at the first call."""
+        return getattr(comm, "tally", None) or cls(comm)
 
-    def __exit__(self, *exc):
-        self.cls.all_to_all = self.real
+    def reset(self):
+        self.rounds = self.nbytes = self.ragged_rounds = self.ragged_bytes = 0
+        self.staged0 = getattr(self.comm, "staged_bytes", 0)
 
-    def per_rank(self, n_ranks):
-        return ([self.calls.get(f"rank-{r}", 0) for r in range(n_ranks)],
-                [self.bytes.get(f"rank-{r}", 0) for r in range(n_ranks)])
+    def read(self) -> dict:
+        return {"all_to_all": self.rounds, "all_to_all_bytes": self.nbytes, "ragged": self.ragged_rounds,
+                "ragged_bytes": int(self.ragged_bytes),
+                "staged_bytes": getattr(self.comm, "staged_bytes", 0) - self.staged0}
+
+
+def ranks_setup(dev):
+    """Phase 4's 1M positions, drift and h on dev, with mass 1/N, the
+    particle ids and the periodic unit box: the inputs of paths E-G."""
+    import torch
+
+    from cstone_tpu_torch.sfc import PERIODIC, make_box
+
+    xyz, drift, h = uniform_setup(dev)
+    return {"xyz": xyz, "drift": drift, "h": h, "m": torch.full((N,), 1.0 / N, dtype=torch.float32, device=dev),
+            "ids": torch.arange(N, device=dev), "box": make_box(0.0, 1.0, boundaries=PERIODIC, device=dev)}
+
+
+def rank_input(setup, r, cap):
+    """Rank r of LET_RANKS starts from the strided slice r::LET_RANKS of
+    every field, padded to cap: the exchange moves nearly every
+    particle."""
+    import torch
+
+    def pad(a, fill):
+        out = torch.full((cap,), fill, dtype=a.dtype, device=a.device)
+        s = a[r::LET_RANKS]
+        out[:s.numel()] = s
+        return out
+
+    ids = setup["ids"]
+    return {"xyz": tuple(pad(c, 0.0) for c in setup["xyz"]), "h": pad(setup["h"], 0.0), "m": pad(setup["m"], 0.0),
+            "ids": pad(ids, -1), "n": torch.tensor(ids[r::LET_RANKS].numel(), device=ids.device)}
+
+
+def drift_input(inp, drift, sgn):
+    """A rank's next input: its particles moved by the drift of their ids."""
+    return dict(inp, xyz=tuple((c + sgn * drift[inp["ids"].clamp(min=0), i]) % 1.0
+                               for i, c in enumerate(inp["xyz"])))
+
+
+def make_domain(comm, caps, mode, protocol, dev):
+    """A rank's Domain; the p2p capacities 0 take the Domain's defaults,
+    and "halo" is both the request and the particle capacity."""
+    from cstone_tpu_torch.domain import Domain
+
+    return Domain(bucket_size=BUCKET, tree_capacity=caps["tree"], focus_capacity=caps["focus"], theta=LET_THETA,
+                  exchange_mode=mode, protocol=protocol, comm=comm, device=dev, move_cap=caps["move"],
+                  treelet_cap=caps["treelet"], halo_req_cap=caps["halo"], halo_cap=caps["halo"])
+
+
+def rank_sync(comm, domain, state, inp):
+    """One rank's sync between two barriers: (state, res, (start, end))
+    on the host clock, the rank's stream drained."""
+    import torch
+
+    comm.all_reduce_flag(True)  # start together
+    t0 = time.perf_counter()
+    state, res = domain.sync(state, *inp["xyz"], inp["h"], properties=(inp["m"],), n_local=inp["n"])
+    torch.cuda.current_stream().synchronize()
+    return state, res, (t0, time.perf_counter())
+
+
+def rank_after(comm, domain, state, res, inp):
+    """B1 and B2 on the rank's buffer, the ids of its slots (p2p: the
+    owned ones, halo slots 0), the ids exchange_halos puts into the halo
+    slots, and the next step's input (the owned particles, by
+    compact_owned)."""
+    import torch
+
+    from cstone_tpu_torch.traversal import cell_list_neighbor_counts, cell_list_sph_density
+
+    rid = domain.reapply_sync(res, inp["ids"])
+    counts, c_ovf = cell_list_neighbor_counts(res.keys, res.x, res.y, res.z, res.h, state.box, LEVEL, CAP,
+                                              n_valid=res.n_with_halos, impl="pallas")
+    rho, d_ovf = cell_list_sph_density(res.keys, res.x, res.y, res.z, res.h, state.box, LEVEL, CAP,
+                                       mass=res.properties[0], n_valid=res.n_with_halos)
+    j = torch.arange(rid.shape[0], device=rid.device)
+    owned = (j >= res.start_index) & (j < res.end_index)
+    halo_ids = domain.exchange_halos(res, torch.where(owned, rid, -1))
+    co = domain.compact_owned
+    nxt = {"xyz": tuple(co(res, c) for c in (res.x, res.y, res.z)), "h": co(res, res.h),
+           "m": co(res, res.properties[0]), "ids": co(res, rid), "n": res.end_index - res.start_index}
+    return {"rid": rid, "counts": counts, "rho": rho, "halo_ids": halo_ids,
+            "cell_ovf": bool(c_ovf | d_ovf), "next": nxt}
+
+
+def cold_step(comm, setup, caps0, mode, protocol):
+    """The cold step: the rank runs the capacity retry itself; every rank
+    reports the largest overflow of all ranks and so takes the same retry.
+    Returns (state, res, span, input, domain, capacities, the comm's
+    RankTally, reset before the step: the step's rounds and bytes)."""
+    tally = RankTally.of(comm)
+    tally.reset()
+
+    def run(caps):
+        domain = make_domain(comm, caps, mode, protocol, setup["ids"].device)  # kept across steps
+        state = domain.init_state(box=setup["box"], boundaries=(1, 1, 1))
+        inp = rank_input(setup, comm.rank, caps["local"])
+        state, res, span = rank_sync(comm, domain, state, inp)
+        return state, span, inp, domain, res  # the SyncResult last, for sync_with_retry
+
+    from cstone_tpu_torch.domain import sync_with_retry
+
+    (state, span, inp, domain, res), caps = sync_with_retry(run, caps0)
+    return state, res, span, inp, domain, caps, tally
+
+
+def first_caps(tree_cap):
+    return {"local": POOL_LOCAL_CAP, "tree": tree_cap, "focus": tree_cap, "move": 0, "treelet": 0, "halo": 0}
+
+
+def hold_to_plain(err, calls, what) -> None:
+    """Every recorded launch (record_launches) against its plain version on
+    the same inputs: counts exactly, densities within rtol 1e-5."""
+    for k, args, got in calls:
+        (err.density if k.endswith("density") else err.counts)(k, got, plain_of(k)(*args), what)
+
+
+def path_record(states, results, after):
+    """What a later path is held to at one step, per rank."""
+    return [{"boundaries": st.assignment.boundaries, "leaves": res.tree.leaves[:int(res.tree.n_leaf) + 1],
+             "halo_flags": res.halo_flags, "layout": res.layout, "n_with_halos": int(res.n_with_halos),
+             "halo_ids": a["halo_ids"][:int(res.n_with_halos)]}
+            for st, res, a in zip(states, results, after)]
 
 
 def ranks_phase(dev, card, reference, tree_cap, mode, path_e=None):
@@ -1464,90 +1617,26 @@ def ranks_phase(dev, card, reference, tree_cap, mode, path_e=None):
     single-rank run on the same positions and, for path F (mode "p2p"),
     against path E's record of the same rank and step (`path_e`).
     Returns (B1/B2 launches, Errors, this path's record: per step, per
-    rank, what path F is held to, and the sync walls)."""
+    rank, what path F is held to, the sync walls, per step the ranks' own
+    sync ms, all_to_all rounds and buffer bytes, and the peak memory)."""
     import torch
 
-    from cstone_tpu_torch.domain import Domain, sync_with_retry
     from cstone_tpu_torch.ops.cuda_lib import record_launches
     from cstone_tpu_torch.parallel import run_ranks
-    from cstone_tpu_torch.sfc import PERIODIC, make_box
-    from cstone_tpu_torch.traversal import cell_list_neighbor_counts, cell_list_sph_density, macs
+    from cstone_tpu_torch.traversal import macs
 
     R = LET_RANKS
     name = "E" if mode == "pool" else "F"
-    (x, y, z), drift, h = uniform_setup(dev)
-    box = make_box(0.0, 1.0, boundaries=PERIODIC, device=dev)
-    m = torch.full((N,), 1.0 / N, dtype=torch.float32, device=dev)
-    ids = torch.arange(N, device=dev)
+    setup = ranks_setup(dev)
+    box = setup["box"]
     torch.cuda.reset_peak_memory_stats(dev)
-
-    def rank_input(r, cap):
-        """Rank r starts from the strided slice r::R of every field, padded
-        to cap: the exchange moves nearly every particle."""
-        def pad(a, fill):
-            out = torch.full((cap,), fill, dtype=a.dtype, device=dev)
-            s = a[r::R]
-            out[:s.numel()] = s
-            return out
-        return {"xyz": tuple(pad(c, 0.0) for c in (x, y, z)), "h": pad(h, 0.0), "m": pad(m, 0.0),
-                "ids": pad(ids, -1), "n": torch.tensor(ids[r::R].numel(), device=dev)}
-
-    def make_domain(comm, caps):
-        # the p2p capacities (0: the Domain's defaults); "halo" is both the
-        # request and the particle capacity
-        return Domain(bucket_size=BUCKET, tree_capacity=caps["tree"], focus_capacity=caps["focus"],
-                      theta=LET_THETA, exchange_mode=mode, comm=comm, device=dev, move_cap=caps["move"],
-                      treelet_cap=caps["treelet"], halo_req_cap=caps["halo"], halo_cap=caps["halo"])
-
-    def rank_sync(comm, domain, state, inp):
-        """One rank's sync between two barriers: (state, res, (start,
-        end))."""
-        comm.all_reduce_flag(True)  # start together
-        t0 = time.perf_counter()
-        state, res = domain.sync(state, *inp["xyz"], inp["h"], properties=(inp["m"],), n_local=inp["n"])
-        torch.cuda.current_stream().synchronize()
-        return state, res, (t0, time.perf_counter())
-
-    def rank_after(comm, domain, state, res, inp):
-        """B1 and B2 on the rank's buffer, the ids of its slots (p2p: the
-        owned ones, halo slots 0), the ids exchange_halos puts into the
-        halo slots, and the next step's input (the owned particles, by
-        compact_owned)."""
-        rid = domain.reapply_sync(res, inp["ids"])
-        counts, c_ovf = cell_list_neighbor_counts(res.keys, res.x, res.y, res.z, res.h, state.box, LEVEL, CAP,
-                                                  n_valid=res.n_with_halos, impl="pallas")
-        rho, d_ovf = cell_list_sph_density(res.keys, res.x, res.y, res.z, res.h, state.box, LEVEL, CAP,
-                                           mass=res.properties[0], n_valid=res.n_with_halos)
-        j = torch.arange(rid.shape[0], device=dev)
-        owned = (j >= res.start_index) & (j < res.end_index)
-        halo_ids = domain.exchange_halos(res, torch.where(owned, rid, -1))
-        co = domain.compact_owned
-        nxt = {"xyz": tuple(co(res, c) for c in (res.x, res.y, res.z)), "h": co(res, res.h),
-               "m": co(res, res.properties[0]), "ids": co(res, rid), "n": res.end_index - res.start_index}
-        return {"rid": rid, "counts": counts, "rho": rho, "halo_ids": halo_ids,
-                "cell_ovf": bool(c_ovf | d_ovf), "next": nxt}
-
-    # cold step: each rank runs the capacity retry itself, inside the
-    # run_ranks call; every rank reports the largest overflow of all ranks
-    # and so takes the same retry
-    caps0 = {"local": POOL_LOCAL_CAP, "tree": tree_cap, "focus": tree_cap, "move": 0, "treelet": 0, "halo": 0}
-
-    def cold(comm):
-        def run(caps):
-            domain = make_domain(comm, caps)  # one Domain per capacity, kept across steps
-            state = domain.init_state(box=box, boundaries=(1, 1, 1))
-            inp = rank_input(comm.rank, caps["local"])
-            state, res, span = rank_sync(comm, domain, state, inp)
-            return state, span, inp, domain, res  # the SyncResult last, for sync_with_retry
-
-        (state, span, inp, domain, res), caps = sync_with_retry(run, caps0)
-        return state, res, span, inp, domain, caps
+    caps0 = first_caps(tree_cap)
 
     reset_all_launches()
     t0 = time.perf_counter()
-    with RankTimer(macs, "mark_macs") as marking, CommTally() as tally:
-        outs = run_ranks(R, cold)
-    caps = outs[0][5]
+    with RankTimer(macs, "mark_macs") as marking:
+        outs = run_ranks(R, lambda comm: cold_step(comm, setup, caps0, mode, "dense"))
+    caps, tallies = outs[0][5], [o[6] for o in outs]
     print(f"path {name}: {R} ranks, {mode} mode, theta {LET_THETA}: cold sync with retry "
           f"{1e3 * (time.perf_counter() - t0):.3f} ms, capacities {caps} [{card}]", flush=True)
     check(all(o[5] == caps for o in outs), "the ranks grew different capacities")
@@ -1561,18 +1650,19 @@ def ranks_phase(dev, card, reference, tree_cap, mode, path_e=None):
 
     err = Errors()
     states, results, spans, inputs, domains = ([o[i] for o in outs] for i in range(5))
-    record, walls = [], []
+    record, walls, rank_ms, comm_rounds, comm_bytes = [], [], [], [], []
     sgn = 1.0
     for step in range(1 + POOL_DRIFT_STEPS):
         what = f"path {name}, " + ("cold step" if step == 0 else f"drift step {step}")
         if step > 0:
-            inputs = [dict(inp, xyz=tuple((c + sgn * drift[inp["ids"].clamp(min=0), i]) % 1.0
-                                          for i, c in enumerate(inp["xyz"])))
-                      for inp in inputs]
+            inputs = [drift_input(inp, setup["drift"], sgn) for inp in inputs]
             sgn = -sgn
-            with RankTimer(macs, "mark_macs") as marking, CommTally() as tally:
+            for t in tallies:
+                t.reset()
+            with RankTimer(macs, "mark_macs") as marking:
                 outs = run_ranks(R, rank_sync, domains, states, inputs)
             states, results, spans = ([o[i] for o in outs] for i in range(3))
+        stats = [t.read() for t in tallies]  # the sync's, before exchange_halos' round
         last = step == POOL_DRIFT_STEPS
         with record_launches() as calls:
             after = run_ranks(R, rank_after, domains, states, results, inputs)
@@ -1581,24 +1671,25 @@ def ranks_phase(dev, card, reference, tree_cap, mode, path_e=None):
         wall = 1e3 * (max(e for _, e in spans) - min(s for s, _ in spans))
         walls.append(wall)
         per_rank = [1e3 * (e - s) for s, e in spans]
+        rank_ms.append(per_rank)
         mark = [marking.ms.get(f"rank-{r}", 0.0) for r in range(R)]
         print(f"{what}: {R}-rank sync wall {wall:.3f} ms; per rank sync ms {json.dumps([round(t, 3) for t in per_rank])}, "
               f"share in mark_macs {json.dumps([round(a / b, 4) for a, b in zip(mark, per_rank)])} [{card}]",
               flush=True)
-        rounds, nbytes = tally.per_rank(R)
+        rounds, nbytes = [x["all_to_all"] for x in stats], [x["all_to_all_bytes"] for x in stats]
+        comm_rounds.append(rounds)
+        comm_bytes.append(nbytes)
         print(f"{what}: all_to_all rounds per rank {json.dumps(rounds)}, their buffer bytes per rank "
               f"{json.dumps(nbytes)}; overflow_detail {results[0].overflow_detail.tolist()}", flush=True)
         pool_checks(what, reference[step], states, results, after, box, mode == "pool", card)
-        record.append([{"boundaries": st.assignment.boundaries, "leaves": res.tree.leaves[:int(res.tree.n_leaf) + 1],
-                        "halo_flags": res.halo_flags, "layout": res.layout, "n_with_halos": int(res.n_with_halos),
-                        "halo_ids": a["halo_ids"][:int(res.n_with_halos)]}
-                       for st, res, a in zip(states, results, after)])
+        record.append(path_record(states, results, after))
         if path_e is not None:
             same_as_path_e(what, path_e["record"][step], record[step])
         inputs = [a["next"] for a in after]
     launches = all_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
     print(f"path {name} launches: {json.dumps(launches)}; peak memory allocated "
-          f"{torch.cuda.max_memory_allocated(dev)} bytes [{card}]", flush=True)
+          f"{peak} bytes [{card}]", flush=True)
     for k in ("stencil_counts", "stencil_density"):
         check(launches[k] == R * (1 + POOL_DRIFT_STEPS), f"{k} should launch once per rank and step: {launches}")
     if path_e is not None:
@@ -1608,33 +1699,215 @@ def ranks_phase(dev, card, reference, tree_cap, mode, path_e=None):
     # every B1 and B2 launch of the last step against its plain version
     names = sorted(c[0] for c in launched)
     check(names == ["stencil_counts"] * R + ["stencil_density"] * R, f"the last step launched {names}")
-    for k, args, got in launched:
-        want = plain_of(k)(*args)
-        if k == "stencil_counts":
-            err.counts(k, got, want, f"path-{name} inputs")
-        else:
-            err.density(k, got, want, f"path-{name} inputs")
+    hold_to_plain(err, launched, f"path-{name} inputs")
     print(f"path {name}: the last step's {len(launched)} B1/B2 launches equal their plain versions", flush=True)
     return ({k: launches[k] for k in ("stencil_counts", "stencil_density")}, err,
-            {"record": record, "walls": walls})
+            {"record": record, "walls": walls, "rank_ms": rank_ms, "rounds": comm_rounds, "bytes": comm_bytes,
+             "peak": peak})
 
 
-def same_as_path_e(what, want, got) -> None:
-    """Path F against path E at the same step: per rank the assignment,
-    the focus tree's leaves, the halo flags, the layout and the buffer
-    size are equal, and exchange_halos of the particle ids puts into every
-    slot the id path E's slot holds."""
+# ----------------------------------------------------------------------------
+# phase 11: path G, the ranks as processes on the one card
+# ----------------------------------------------------------------------------
+
+def rank_record(state, res, after, span, comm_stats) -> dict:
+    """What the parent checks of one rank process's step (copies, so that
+    pickling sends no more than these)."""
+    nn, nwh = int(state.global_tree.n_nodes), int(res.n_with_halos)
+    return {"span": span, "comm": comm_stats, "overflow": int(res.overflow),
+            "overflow_detail": res.overflow_detail.tolist(), "cell_ovf": after["cell_ovf"],
+            "tree": (nn, state.global_tree.keys[:nn + 1].clone(), state.global_tree.counts[:nn].clone()),
+            "boundaries": state.assignment.boundaries, "leaves": res.tree.leaves[:int(res.tree.n_leaf) + 1].clone(),
+            "halo_flags": res.halo_flags, "layout": res.layout, "n_with_halos": nwh,
+            "start": int(res.start_index), "end": int(res.end_index), "keys": res.keys[:nwh].clone(),
+            **{k: after[k][:nwh].clone() for k in ("rid", "halo_ids", "counts", "rho")}}
+
+
+def path_g_rank(comm, tree_cap):
+    """One rank process of path G (run by parallel.dist.spawn_ranks): (a)
+    the multi-rank dry run in both protocols, which also takes the
+    process's first syncs; (b) path F's steps in the p2p mode, with the
+    dense protocol, then with the ragged one; B1 and B2 on the rank's
+    buffer after each sync. Every B5 launch of (a) and the last step's
+    launches of (b) are held to their plain versions here, (b)'s after
+    the peak memory is read."""
+    import torch
+
+    from cstone_tpu_torch import multichip
+    from cstone_tpu_torch.ops import neighbors_v1, neighbors_v2, stencil
+    from cstone_tpu_torch.ops.cuda_lib import record_launches
+
+    libs = (stencil.SYM_LIBRARY, stencil.LIBRARY, neighbors_v2.LIBRARY, neighbors_v1.LIBRARY)
+    for lib in libs:
+        lib.load()  # the libraries phase 2 built: loaded, never built here
+    out = {"built": [lib.source.name for lib in libs if lib.build_log]}
+    t0 = time.perf_counter()
+    with record_launches() as calls:
+        out["dry"] = {p: multichip.rank_step(comm, p) for p in multichip.PROTOCOLS}
+    out["dry_span"] = (t0, time.perf_counter())
+    err = Errors()
+    hold_to_plain(err, calls, f"path-G (a) inputs, rank {comm.rank}")
+    out["dry_err"], out["dry_launched"] = err.max, sorted(c[0] for c in calls)
+    out["dry_shapes"] = [tuple(args[0].shape[:2]) + tuple(args[2].shape[1:]) for _, args, _ in calls]
+    dev = comm.device
+    setup = ranks_setup(dev)
+    for protocol in ("dense", "ragged"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_all_launches()
+        state, res, span, inp, domain, caps, tally = cold_step(comm, setup, first_caps(tree_cap), "p2p", protocol)
+        steps, sgn = [], 1.0
+        for step in range(1 + POOL_DRIFT_STEPS):
+            if step > 0:
+                inp = drift_input(inp, setup["drift"], sgn)
+                sgn = -sgn
+                tally.reset()
+                state, res, span = rank_sync(comm, domain, state, inp)
+            stats = tally.read()
+            with record_launches() as calls:
+                after = rank_after(comm, domain, state, res, inp)
+            steps.append(rank_record(state, res, after, span, stats))
+            inp = after["next"]
+        launches = all_launches()
+        peak = torch.cuda.max_memory_allocated(dev)
+        err = Errors()
+        hold_to_plain(err, calls, f"path-G inputs, rank {comm.rank}")  # the last step's launches
+        out[protocol] = {"caps": caps, "steps": steps, "launches": launches, "err": err.max,
+                         "last_launched": sorted(c[0] for c in calls), "peak": peak}
+    return out
+
+
+def rank_views(recs):
+    """pool_checks' (states, results, after) of path G's rank records."""
+    import torch
+    from types import SimpleNamespace as NS
+
+    states, results, after = [], [], []
+    for rec in recs:
+        nn, keys, counts = rec["tree"]
+        states.append(NS(global_tree=NS(n_nodes=nn, keys=keys, counts=counts),
+                         assignment=NS(boundaries=rec["boundaries"])))
+        results.append(NS(overflow=rec["overflow"], overflow_detail=torch.tensor(rec["overflow_detail"]),
+                          start_index=rec["start"], end_index=rec["end"], n_with_halos=rec["n_with_halos"],
+                          keys=rec["keys"]))
+        after.append({k: rec[k] for k in ("cell_ovf", "rid", "halo_ids", "counts", "rho")})
+    return states, results, after
+
+
+def processes_phase(dev, card, reference, tree_cap, path_f):
+    """Phase 11, path G: LET_RANKS rank processes on the one card
+    (parallel.dist.spawn_ranks, gloo), each running (a) the multi-rank dry
+    run of cstone_tpu_torch.multichip in both protocols, checked here
+    against brute force, then (b) path F's inputs and steps with the
+    dense, then the ragged protocol, checked against phase 4 and path F
+    (dense) and the dense run (ragged). Returns (launches summed over the
+    rank processes: B5 of (a), B1 and B2 of (b); Errors)."""
+    import os
+
+    from cstone_tpu_torch import multichip
+    from cstone_tpu_torch.parallel.dist import spawn_ranks
+
+    R = LET_RANKS
+    cores = f"host cores {os.cpu_count()}, {len(os.sched_getaffinity(0))} usable"
+    print(f"path G: {R} rank processes on the one card over gloo (nccl refuses two ranks on one device): "
+          f"every collective's CUDA operand is copied to host memory and back; {cores} [{card}]", flush=True)
+
+    t0 = time.perf_counter()
+    outs = spawn_ranks(R, path_g_rank, [tree_cap] * R, backend="gloo", device=dev, timeout=600.0, deadline=900.0)
+    print(f"path G: {R} rank processes, (a) and (b) in both protocols, {1e3 * (time.perf_counter() - t0):.3f} ms "
+          f"with the processes' start [{card}]", flush=True)
+
+    # (a) the multi-rank dry run, both protocols, B5 on every rank
+    dry = [o["dry"] for o in outs]
+    multichip.check_run(dry[0], R, multichip.N_PER, multichip.expected_sum(R, multichip.N_PER))
+    b5 = sum(d[p]["launches"]["pairwise_count_runs"] for d in dry for p in multichip.PROTOCOLS)
+    check(all(d[p]["launches"]["pairwise_count_runs"] == 1 for d in dry for p in multichip.PROTOCOLS),
+          "path G (a): B5 did not launch once in every rank and protocol")
+    check(all(o["dry_launched"] == ["pairwise_count_runs"] * len(multichip.PROTOCOLS) for o in outs),
+          f"path G (a): the rank processes recorded {[o['dry_launched'] for o in outs]}")
+    err = Errors()
+    for o in outs:
+        for k, v in o["dry_err"].items():
+            err.max[k] = max(err.max[k], v)
+    print(f"path G (a): the {b5} B5 launches equal their plain versions (held in each rank process); their "
+          f"(groups, group size, run cap) per rank, dense then ragged: "
+          f"{json.dumps([o['dry_shapes'] for o in outs])} [{card}]", flush=True)
+    for p in multichip.PROTOCOLS:
+        o = dry[0][p]
+        print(f"path G (a), the dry run of multichip.py, {R} ranks of {multichip.N_PER}, {p}: neighbour sum "
+              f"{o['total']} equals brute force, {o['n_assigned']} assigned, overflow 0, {o['alive']} ranks; per rank "
+              f"sync+count ms {json.dumps([round(d[p]['sync_and_count_ms'], 3) for d in dry])} (the dense run "
+              f"first: each process's first sync) [{card}]", flush=True)
+    spans = [o["dry_span"] for o in outs]
+    print(f"path G (a): {1e3 * (max(e for _, e in spans) - min(s for s, _ in spans)):.3f} ms for both protocols, "
+          f"B5 launches {b5}", flush=True)
+
+    # (b) path F's inputs and steps in the rank processes, dense then ragged
+    check(all(not o["built"] for o in outs), f"a rank process built a kernel: {[o['built'] for o in outs]}")
+    launches = {k: 0 for k in KERNELS}
+    launches["pairwise_count_runs"] = b5
+    caps0 = first_caps(tree_cap)
+    dense_record = []
+    for protocol in ("dense", "ragged"):
+        check(all(o[protocol]["caps"] == caps0 for o in outs), f"path G {protocol}: the first capacities "
+              f"{caps0} overflowed: {[o[protocol]['caps'] for o in outs]}")
+        for step in range(1 + POOL_DRIFT_STEPS):
+            what = f"path G, {protocol}, " + ("cold step" if step == 0 else f"drift step {step}")
+            recs = [o[protocol]["steps"][step] for o in outs]
+            spans = [rec["span"] for rec in recs]
+            wall = 1e3 * (max(e for _, e in spans) - min(s for s, _ in spans))
+            per_rank = [round(1e3 * (e - s), 3) for s, e in spans]
+            print(f"{what}: {R}-process sync wall {wall:.3f} ms (path F {path_f['walls'][step]:.3f}); per rank "
+                  f"sync ms {json.dumps(per_rank)} (path F {json.dumps([round(t, 3) for t in path_f['rank_ms'][step]])}) "
+                  f"[{card}]", flush=True)
+            c = [rec["comm"] for rec in recs]
+            print(f"{what}: per rank all_to_all rounds {json.dumps([x['all_to_all'] for x in c])}, bytes "
+                  f"{json.dumps([x['all_to_all_bytes'] for x in c])}; ragged rounds {json.dumps([x['ragged'] for x in c])}, "
+                  f"bytes {json.dumps([x['ragged_bytes'] for x in c])}; sent a sync "
+                  f"{json.dumps([x['all_to_all_bytes'] + x['ragged_bytes'] for x in c])} (path F: rounds "
+                  f"{json.dumps(path_f['rounds'][step])}, bytes {json.dumps(path_f['bytes'][step])}); staged through "
+                  f"host memory {json.dumps([x['staged_bytes'] for x in c])}; overflow_detail {recs[0]['overflow_detail']}",
+                  flush=True)
+            pool_checks(what, reference[step], *rank_views(recs), None, False, card)
+            record = [{k: rec[k] for k in ("boundaries", "leaves", "halo_flags", "layout", "n_with_halos", "halo_ids")}
+                      for rec in recs]
+            if protocol == "dense":
+                same_as_path_e(what, path_f["record"][step], record, "path F")
+                dense_record.append(record)
+            else:
+                same_as_path_e(what, dense_record[step], record, "the dense protocol")
+        runs = [o[protocol]["launches"] for o in outs]
+        for k in ("stencil_counts", "stencil_density"):
+            check(all(r[k] == 1 + POOL_DRIFT_STEPS for r in runs), f"path G {protocol}: {k} should launch once a "
+                  f"step in every rank: {[r[k] for r in runs]}")
+            launches[k] += sum(r[k] for r in runs)
+        check(all(o[protocol]["last_launched"] == ["stencil_counts", "stencil_density"] for o in outs),
+              f"path G {protocol}: the last step launched {[o[protocol]['last_launched'] for o in outs]}")
+        for o in outs:
+            for k, v in o[protocol]["err"].items():
+                err.max[k] = max(err.max[k], v)
+        print(f"path G {protocol}: the last step's {2 * R} B1/B2 launches equal their plain versions; peak memory "
+              f"allocated per process {json.dumps([o[protocol]['peak'] for o in outs])} bytes (path F, 8 threads in "
+              f"one process: {path_f['peak']}) [{card}]", flush=True)
+    print(f"path G launches, summed over the rank processes: {json.dumps(launches)}", flush=True)
+    return launches, err
+
+
+def same_as_path_e(what, want, got, ref="path E") -> None:
+    """A path against path E (or `ref`) at the same step: per rank the
+    assignment, the focus tree's leaves, the halo flags, the layout and
+    the buffer size are equal, and exchange_halos of the particle ids puts
+    into every slot the id the reference's slot holds."""
     import torch
 
     for r, (e, f) in enumerate(zip(want, got)):
         for k in ("boundaries", "leaves", "halo_flags", "layout"):
-            check(e[k].shape == f[k].shape and torch.equal(e[k], f[k]), f"{what}, rank {r}: {k} differs from path E's")
-        check(e["n_with_halos"] == f["n_with_halos"], f"{what}, rank {r}: n_with_halos differs from path E's")
+            check(e[k].shape == f[k].shape and torch.equal(e[k], f[k]), f"{what}, rank {r}: {k} differs from {ref}'s")
+        check(e["n_with_halos"] == f["n_with_halos"], f"{what}, rank {r}: n_with_halos differs from {ref}'s")
         check(torch.equal(e["halo_ids"], f["halo_ids"]),
-              f"{what}, rank {r}: exchange_halos put other ids than path E's into "
+              f"{what}, rank {r}: exchange_halos put other ids than {ref}'s into "
               f"{int((e['halo_ids'] != f['halo_ids']).sum())} slots")
     print(f"{what}: assignment, focus leaves, halo flags, layout, buffer size and the halo slots' ids of every "
-          f"rank equal path E's", flush=True)
+          f"rank equal {ref}'s", flush=True)
 
 
 def pool_checks(what, ref, states, results, after, box, pool, card) -> None:
@@ -1816,10 +2089,14 @@ def main():
     launches_e, err9, path_e = ranks_phase(dev, card, reference, tree_cap, "pool")
 
     phase("10 path F: 8 ranks in p2p mode on the card + cell-list counts and density")
-    launches_f, err10, _ = ranks_phase(dev, card, reference, tree_cap, "p2p", path_e)
+    launches_f, err10, path_f = ranks_phase(dev, card, reference, tree_cap, "p2p", path_e)
     del path_e
 
-    for e in (err4, err5, err6, err7, err9, err10):
+    phase("11 path G: 8 rank processes on the card, dense and ragged p2p + cell-list counts and density")
+    launches_g, err11 = processes_phase(dev, card, reference, tree_cap, path_f)
+    del path_f
+
+    for e in (err4, err5, err6, err7, err9, err10, err11):
         for k, v in e.max.items():
             err.max[k] = max(err.max[k], v)
     print(f"total time {time.perf_counter() - t_start:.3f} s [{card}]", flush=True)
@@ -1827,7 +2104,7 @@ def main():
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
          "max_abs_err": err.max[name], "library_ms": None, "path_c_launches": launches_c.get(name, 0),
          "path_e_launches": launches_e.get(name, 0), "path_f_launches": launches_f.get(name, 0),
-         **timing[name]}
+         "path_g_launches": launches_g.get(name, 0), **timing[name]}
         for name, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

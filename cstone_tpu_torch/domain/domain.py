@@ -23,8 +23,10 @@ package's `axis_name`:
     MAC marks, finds its halos, and fills its buffer [halos | owned |
     halos] by gathers from the pool.
 
-Still raising NotImplementedError, naming ROADMAP.md Queue 1, item 4:
-protocol="ragged" and peer_window > 0.
+p2p mode runs the dense protocols (protocol="dense", the default) or the
+ragged ones of parallel/ragged.py (protocol="ragged"); the particle
+exchange is dense in both. Still raising NotImplementedError, naming
+ROADMAP.md Queue 1, item 4: peer_window > 0 (the windowed protocol).
 
 Shapes are capacity-padded exactly as in the JAX package, so a SyncResult
 compares with JAX slot for slot. The JAX `while_loop`/`cond` become Python
@@ -36,7 +38,7 @@ the loop branches on it.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -50,6 +52,8 @@ from ..parallel.exchange import (ITEM_WINDOWED, ExchangeRecord, HaloRecord, buil
                                  exchange_halo_field, exchange_particles, range_count_service,
                                  range_sum_service, replay_exchange)
 from ..parallel.global_tree import converge_global_octree, global_bounds
+from ..parallel.ragged import (RaggedHaloRecord, build_halo_exchange_ragged, exchange_halo_field_ragged,
+                               range_count_service_ragged, range_sum_service_ragged)
 from ..sfc.box import Box
 from ..sfc.encode import HILBERT, compute_sfc_keys
 from ..sfc.keys import remove_key
@@ -103,8 +107,9 @@ class SyncResult:
     index of every buffer slot) and pool_perm (the pre-sort pool index of
     every sorted pool slot, the ExchangeLog analog) are set in pool mode
     and None in p2p mode; ex_record and halo_record (the particle and halo
-    exchanges, parallel/exchange.py) are set in p2p mode at n_ranks > 1
-    and None otherwise."""
+    exchanges, parallel/exchange.py; halo_record a RaggedHaloRecord of
+    parallel/ragged.py under protocol="ragged") are set in p2p mode at
+    n_ranks > 1 and None otherwise."""
 
     keys: torch.Tensor
     x: torch.Tensor
@@ -131,7 +136,7 @@ class SyncResult:
     global_ids: Optional[torch.Tensor] = None
     pool_perm: Optional[torch.Tensor] = None
     ex_record: Optional[ExchangeRecord] = None
-    halo_record: Optional[HaloRecord] = None
+    halo_record: Optional[Union[HaloRecord, RaggedHaloRecord]] = None
 
 
 CAP_NAMES = ("local", "tree", "focus", "move", "treelet", "halo", "window")
@@ -192,17 +197,27 @@ class Domain:
     the Domain is rank 0 of 1 unless `rank` and `n_ranks` say otherwise
     (n_ranks > 1 then needs a comm, or raises ValueError).
 
-    move_cap, treelet_cap, halo_req_cap and halo_cap are the p2p
-    protocols' per-rank-pair lane widths (0 = derived from the local
-    capacity and focus_capacity at sync time, _p2p_caps); sync_with_retry
-    grows them on overflow. Overflow slot 5 ("halo") covers both halo
-    widths, so a retry grows both from one value. The local capacity is
-    the length of sync's inputs (the JAX package's `local_capacity`
-    argument, which it never reads, is not taken).
+    protocol "dense" (or None) runs the p2p services and the halo
+    exchange over the dense (n_ranks, cap) protocols of
+    parallel/exchange.py, "ragged" over the ragged ones of
+    parallel/ragged.py (one ragged_all_to_all a payload). The JAX package
+    chooses ragged for None on its TPU and dense elsewhere; the port keeps
+    dense for None.
 
-    protocol "dense" (or None) is the only protocol ported:
-    protocol="ragged" and peer_window > 0 raise NotImplementedError
-    (ROADMAP.md Queue 1, item 4).
+    move_cap, treelet_cap, halo_req_cap and halo_cap are the p2p
+    capacities (0 = derived from the local capacity and focus_capacity at
+    sync time, _p2p_caps); sync_with_retry grows them on overflow. Dense:
+    per-rank-pair lane widths. Ragged: treelet_cap, halo_req_cap and
+    halo_cap are TOTALS a rank serves or moves over all its peers (the
+    particle exchange stays dense, move_cap a lane width). Overflow slot 5
+    ("halo") covers both halo capacities, so a retry grows both from one
+    value. The local capacity is the length of sync's inputs (the JAX
+    package's `local_capacity` argument, which it never reads, is not
+    taken).
+
+    peer_window > 0 raises NotImplementedError with the dense protocol
+    (ROADMAP.md Queue 1, item 4) and ValueError with the ragged one, as in
+    the JAX package (at one rank the window is 0).
     """
 
     def __init__(
@@ -234,10 +249,14 @@ class Domain:
         rank, n_ranks = int(rank or 0), int(1 if n_ranks is None else n_ranks)
         if exchange_mode not in ("p2p", "pool"):
             raise ValueError(f"unknown exchange_mode {exchange_mode!r}")
-        if protocol not in (None, "dense", "ragged"):
+        protocol = "dense" if protocol is None else protocol
+        if protocol not in ("dense", "ragged"):
             raise ValueError(f"unknown protocol {protocol!r}")
-        if protocol == "ragged" or int(peer_window) > 0:
-            raise NotImplementedError(f"protocol='ragged' and peer_window are not ported yet ({ITEM_WINDOWED})")
+        if protocol == "ragged" and min(int(peer_window), max(n_ranks - 1, 0)) > 0:
+            raise ValueError("peer_window applies to protocol='dense' only; the ragged "
+                             "protocols are surface-sized without a rank window")
+        if protocol == "dense" and int(peer_window) > 0:
+            raise NotImplementedError(f"peer_window is not ported yet ({ITEM_WINDOWED})")
         if not 0 <= rank < n_ranks:
             raise ValueError(f"rank {rank} outside [0, {n_ranks})")
         if comm is None and n_ranks > 1:
@@ -246,6 +265,7 @@ class Domain:
         self.n_ranks = n_ranks
         self.comm = comm
         self.exchange_mode = exchange_mode
+        self.protocol = protocol
         self.bucket_size = int(bucket_size)
         self.bucket_size_focus = int(bucket_size_focus) or self.bucket_size
         self.tree_capacity = int(tree_capacity)
@@ -314,23 +334,27 @@ class Domain:
 
     # ------------------------------------------------------------------
     def _p2p_caps(self, cap: int) -> Tuple[int, int, int, int]:
-        """(move_cap, treelet_cap, halo_req_cap, halo_cap) of the dense
-        protocols, per rank pair: the constructor's, or defaults derived
-        from the local capacity `cap` and focus_capacity."""
+        """(move_cap, treelet_cap, halo_req_cap, halo_cap): the
+        constructor's, or defaults derived from the local capacity `cap`
+        and focus_capacity; per rank pair in the dense protocols, totals
+        per rank in the ragged ones (move_cap a lane width in both)."""
         R = max(self.n_ranks, 1)
-        return (self.move_cap or max(64, (2 * cap) // R),
-                self.treelet_cap or max(64, self.focus_capacity // 4),
-                self.halo_req_cap or max(64, self.focus_capacity // 4),
-                self.halo_cap or max(128, cap // 2))
+        move_cap = self.move_cap or max(64, (2 * cap) // R)
+        if self.protocol == "ragged":
+            return (move_cap, self.treelet_cap or max(256, self.focus_capacity),
+                    self.halo_req_cap or max(256, self.focus_capacity), self.halo_cap or max(256, 2 * cap))
+        return (move_cap, self.treelet_cap or max(64, self.focus_capacity // 4),
+                self.halo_req_cap or max(64, self.focus_capacity // 4), self.halo_cap or max(128, cap // 2))
 
     # ------------------------------------------------------------------
     def _sync_p2p(self, state, x, y, z, h, properties, n_local, boundaries, grav):
         """Peer-to-peer sync (domain.hpp:197-243): assign -> exchange the
         particles -> focus tree from service counts -> halo discovery ->
         layout -> halo exchange of x, y, z, h and the properties, each
-        message one all_to_all round of parallel/exchange.py. At one rank
-        the sorted particles are the owned set and the layout order is the
-        sorted order."""
+        message one all_to_all round of parallel/exchange.py (the services
+        and halo moves one ragged_all_to_all of parallel/ragged.py under
+        protocol="ragged"). At one rank the sorted particles are the owned
+        set and the layout order is the sorted order."""
         cap = x.shape[0]
         dev = x.device
         rk = remove_key(self.key_dtype)
@@ -435,13 +459,12 @@ class Domain:
             # ---- 10. halo exchange of x, y, z, h and the properties --------
             dest_leaf = self._owner(assignment.boundaries, linked.leaves[:-1])
             halo_req = halo_flags.bool() & ~mine & (lif < linked.n_leaf)
-            halo_rec = build_halo_exchange(
-                linked.leaves[:-1], linked.leaves[1:], leaf_counts, layout, halo_req, dest_leaf, okeys, n_owned,
-                self.n_ranks, halo_req_cap, halo_cap, self.comm)
+            build = build_halo_exchange_ragged if self.protocol == "ragged" else build_halo_exchange
+            halo_rec = build(linked.leaves[:-1], linked.leaves[1:], leaf_counts, layout, halo_req, dest_leaf, okeys,
+                             n_owned, self.n_ranks, halo_req_cap, halo_cap, self.comm)
             halo_ovf = halo_rec.overflow
-            new_x, new_y, new_z, new_h = (exchange_halo_field(o, place(o, 0.0), halo_rec, self.comm)
-                                          for o in (ox, oy, oz, oh))
-            new_props = tuple(exchange_halo_field(o, place(o, 0), halo_rec, self.comm) for o in oprops)
+            new_x, new_y, new_z, new_h = (self._halo_field(o, place(o, 0.0), halo_rec) for o in (ox, oy, oz, oh))
+            new_props = tuple(self._halo_field(o, place(o, 0), halo_rec) for o in oprops)
 
             # halo keys recomputed from the coordinates (domain.hpp:523-540)
             new_keys = torch.where(j < n_with_halos,
@@ -632,7 +655,7 @@ class Domain:
         """Per-leaf counts of the focus tree (updateCounts,
         octree_focus_mpi.hpp:205-273): own cells by a local binary search,
         foreign cells by their owners' range-count service (three
-        all_to_all rounds). At one rank every cell is local and the
+        all_to_all rounds, or two and two ragged ones). At one rank every cell is local and the
         service never overflows. Returns (counts int64, overflow)."""
         cap_leaf = leaves.shape[0] - 1
         pos = torch.minimum(searchsorted(owned_keys, leaves, side="left"), n_owned)
@@ -643,8 +666,8 @@ class Domain:
         a, b = leaves[:-1], leaves[1:]
         dest = self._owner(boundaries, a)
         mine = dest == self.rank
-        foreign, ovf = range_count_service(a, b, dest, lvalid & ~mine, owned_keys, n_owned, self.n_ranks, q_cap,
-                                           self.comm)
+        service = range_count_service_ragged if self.protocol == "ragged" else range_count_service
+        foreign, ovf = service(a, b, dest, lvalid & ~mine, owned_keys, n_owned, self.n_ranks, q_cap, self.comm)
         return torch.where(lvalid, torch.where(mine, local, foreign), 0), ovf
 
     def _owner(self, boundaries, keys):
@@ -690,8 +713,9 @@ class Domain:
             a, b = linked.leaves[:-1], linked.leaves[1:]
             dest = self._owner(boundaries, a)
             lvalid = torch.arange(cap_leaf, device=okeys.device) < linked.n_leaf
-            foreign, sum_ovf = range_sum_service(a, b, dest, lvalid & (dest != self.rank), okeys, n_owned, vals,
-                                                 self.n_ranks, treelet_cap, self.comm)
+            service = range_sum_service_ragged if self.protocol == "ragged" else range_sum_service
+            foreign, sum_ovf = service(a, b, dest, lvalid & (dest != self.rank), okeys, n_owned, vals, self.n_ranks,
+                                       treelet_cap, self.comm)
             leaf_sums = torch.where((dest == self.rank)[:, None], leaf_sums, foreign)
         centers, spheres = self._node_centers(linked, leaf_sums, box)
         return centers, spheres, sum_ovf
@@ -727,14 +751,21 @@ class Domain:
         return centers, spheres, mac_marks[linked.leaf_order()], ovf
 
     # ------------------------------------------------------------------
+    def _halo_field(self, owned_sorted: torch.Tensor, local_buf: torch.Tensor, rec) -> torch.Tensor:
+        """One field's halo move through the record's protocol."""
+        if isinstance(rec, RaggedHaloRecord):
+            return exchange_halo_field_ragged(owned_sorted, local_buf, rec, self.comm)
+        return exchange_halo_field(owned_sorted, local_buf, rec, self.comm)
+
     def exchange_halos(self, result: SyncResult, prop: torch.Tensor) -> torch.Tensor:
         """Fill the halo slots of `prop` with the values of their owners
         (domain.hpp:382-386, halos.hpp:224-251).
 
         prop: (local_capacity,) values valid in [start_index, end_index).
         p2p mode: the owned range in layout order is the owned key order,
-        and the sync's halo record moves the values (one all_to_all); at
-        one rank there are no halo slots. Pool mode: every rank scatters
+        and the sync's halo record moves the values (one all_to_all, or one
+        ragged_all_to_all under protocol="ragged"); at one rank there are
+        no halo slots. Pool mode: every rank scatters
         its owned values into a zero pool, the pools are summed over the
         ranks (each slot has one owner), and every buffer slot gathers its
         pool slot.
@@ -743,7 +774,7 @@ class Domain:
         j = torch.arange(cap, device=prop.device)
         if result.halo_record is not None:
             owned_sorted = prop[torch.clamp(result.start_index + j, 0, cap - 1)]
-            return exchange_halo_field(owned_sorted, prop, result.halo_record, self.comm)
+            return self._halo_field(owned_sorted, prop, result.halo_record)
         if result.global_ids is None:
             return prop
         owned = (j >= result.start_index) & (j < result.end_index)

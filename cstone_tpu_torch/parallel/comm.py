@@ -4,8 +4,9 @@ of the rank axis that shard_map binds in the JAX package; reference:
 MPI_COMM_WORLD in domain/domaindecomp_mpi.hpp).
 
 `RankComm` is what the port's multi-rank code takes where the JAX package
-takes an `axis_name`: `all_gather`, `all_reduce`, `all_reduce_flag` and
-`all_to_all`.
+takes an `axis_name`: `all_gather`, `all_reduce`, `all_reduce_flag`,
+`all_to_all` and `ragged_all_to_all`. parallel/dist.py's `DistComm` has
+the same collectives over torch.distributed, one process a rank.
 `run_ranks(n_ranks, fn, *per_rank_args)` runs `fn(comm, *args_r)` on one
 thread per rank; the ranks meet at a barrier inside each collective.
 
@@ -45,7 +46,7 @@ from typing import Any, Callable, List, Sequence
 
 import torch
 
-__all__ = ["RankComm", "RanksAborted", "run_ranks"]
+__all__ = ["RankComm", "RanksAborted", "run_ranks", "check_ragged_args"]
 
 _REDUCE = {
     "sum": lambda s: s.sum(dim=0),
@@ -129,6 +130,32 @@ def _pass_baton() -> None:
         _current.group.baton.release()
 
 
+def check_ragged_args(comm, operand, output, *vectors) -> None:
+    """The shapes ragged_all_to_all takes: operand (N, ...) and output
+    (out_cap, ...) of one row shape and dtype, four (n_ranks,) vectors."""
+    if operand.shape[1:] != output.shape[1:] or operand.dtype != output.dtype:
+        raise ValueError(f"operand {tuple(operand.shape)} {operand.dtype} and output {tuple(output.shape)} "
+                         f"{output.dtype} need one row shape and dtype")
+    for v in vectors:
+        if v.shape != (comm.n_ranks,):
+            raise ValueError(f"offset and size vectors need shape ({comm.n_ranks},), got {tuple(v.shape)}")
+
+
+def land_chunk(output, operand, in_off, size, write_off) -> torch.Tensor:
+    """`output` with rows [write_off, write_off + size) taken from operand
+    rows [in_off, in_off + size), by one gather of output's length; rows
+    past either end are clamped (operand) or dropped (output), as in the
+    JAX package's emulation of ragged_all_to_all. All four are tensors on
+    output's device; nothing is read on the host."""
+    if operand.shape[0] == 0:
+        return output
+    j = torch.arange(output.shape[0], device=output.device)
+    k = j - write_off
+    take = (k >= 0) & (k < size)
+    src = torch.clamp(in_off + k, 0, operand.shape[0] - 1)
+    return torch.where(take.reshape((-1,) + (1,) * (output.dim() - 1)), operand[src], output)
+
+
 class RankComm:
     """Rank `rank` of `n_ranks`: the collectives of the in-process backend.
 
@@ -191,6 +218,27 @@ class RankComm:
         if t.shape[0] != self.n_ranks:
             raise ValueError(f"all_to_all needs a leading axis of {self.n_ranks} rows, got {tuple(t.shape)}")
         return torch.stack([u[self.rank] for u in self._exchange(t)])
+
+    def ragged_all_to_all(self, operand: torch.Tensor, output: torch.Tensor, input_offsets: torch.Tensor,
+                          send_sizes: torch.Tensor, output_offsets: torch.Tensor,
+                          recv_sizes: torch.Tensor) -> torch.Tensor:
+        """jax.lax.ragged_all_to_all on rank `rank`: rows [input_offsets[r],
+        + send_sizes[r]) of this rank's operand go to rank r and land there
+        at output_offsets[r], the offset this rank (the sender) declares.
+        Returns a fresh copy of `output` with every chunk addressed to this
+        rank written in; every other row keeps its value. The offset and
+        size vectors are (n_ranks,) integer tensors; recv_sizes[r], the
+        size of rank r's chunk, is the receiver's copy of what rank r
+        sends and is not read here (the senders' sizes are). Each sender's
+        chunk is read with one device-side gather of output's length (no
+        host read, no (n_ranks, out_cap) buffer); a chunk longer than the
+        output or past its end is cut there, as in the JAX package's
+        emulation (cstone_tpu/parallel/ragged.py)."""
+        check_ragged_args(self, operand, output, input_offsets, send_sizes, output_offsets, recv_sizes)
+        out = output.clone()
+        for op, i_off, size, w_off in self._exchange((operand, input_offsets, send_sizes, output_offsets)):
+            out = land_chunk(out, op, i_off[self.rank], size[self.rank], w_off[self.rank])
+        return out
 
 
 def run_ranks(n_ranks: int, fn: Callable, *per_rank_args: Sequence, timeout: float = 600.0) -> list:

@@ -13,8 +13,9 @@ the global particle count.
 Every function takes the rank's `RankComm` (parallel/comm.py) where the
 JAX package takes an `axis_name`; with comm=None (one rank) all_to_all is
 the identity. The JAX scatters with mode="drop" become writes into a
-buffer with one spare row or slot, sliced off afterwards. The peer-window
-protocol (`window`) is not ported (ROADMAP.md Queue 1, item 4).
+buffer with one spare row or slot, sliced off afterwards. The ragged
+protocols are in parallel/ragged.py; the peer-window protocol (`window`)
+is not ported (ROADMAP.md Queue 1, item 4).
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ __all__ = [
     "exchange_halo_field",
 ]
 
-ITEM_WINDOWED = "ROADMAP.md Queue 1, item 4: the windowed and ragged protocols"
+ITEM_WINDOWED = "ROADMAP.md Queue 1, item 4: the windowed protocol"
 
 
 def all_to_all(x: torch.Tensor, comm: Optional[RankComm]) -> torch.Tensor:

@@ -16,6 +16,7 @@ from cstone_tpu.sfc import PERIODIC
 from cstone_tpu.sfc import make_box as jax_make_box
 from cstone_tpu_torch.domain import CAP_NAMES, Domain, sync_with_retry
 from cstone_tpu_torch.ops.keys64 import to_numpy
+from cstone_tpu_torch.parallel import RankComm
 from cstone_tpu_torch.sfc import make_box
 from cstone_tpu_torch.tree import root_tree
 
@@ -151,8 +152,10 @@ def test_cuda_device_without_cuda_raises():
         Domain(bucket_size=16, tree_capacity=256, device="cuda")
 
 
-@pytest.mark.parametrize("kwargs", [dict(protocol="ragged"), dict(peer_window=1)])
+@pytest.mark.parametrize("kwargs", [dict(comm=RankComm(1, 4), peer_window=2), dict(peer_window=1)])
 def test_unported_options_raise(kwargs):
+    # the dense rank window, at several ranks (where it would narrow the
+    # exchange) and at one
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 4"):
         Domain(bucket_size=16, tree_capacity=256, **kwargs)
 

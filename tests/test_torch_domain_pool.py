@@ -61,9 +61,10 @@ def rank_slice(tree, r):
     return jax.tree.map(lambda a: a[r], tree)
 
 
-def jax_pool_step(periodic, grav=False, theta=0.5, mode="pool", **caps):
+def jax_pool_step(periodic, grav=False, theta=0.5, mode="pool", protocol="dense", **caps):
     """jit(shard_map) of one sync per rank (pool mode unless `mode` says
-    otherwise; `caps` go to the Domain), the carried state an input:
+    otherwise, the p2p `protocol`; `caps` go to the Domain), the carried
+    state an input:
     returns (state, result, compact-owned x/y/z/h/m and the owned count,
     reapply_sync and exchange_halos of the global particle id)."""
     mesh = make_mesh(R)
@@ -72,7 +73,7 @@ def jax_pool_step(periodic, grav=False, theta=0.5, mode="pool", **caps):
     def step(state, x, y, z, h, m, n_local, ids):
         state, n_local = jax.tree.map(lambda a: a[0], state), n_local[0]
         d = JaxDomain(rank=jax.lax.axis_index(rank_axis), n_ranks=R, key_dtype=jnp.uint64,
-                      axis_name=rank_axis, exchange_mode=mode, protocol="dense", theta=theta, **KW, **caps)
+                      axis_name=rank_axis, exchange_mode=mode, protocol=protocol, theta=theta, **KW, **caps)
         state, res = d.sync(state, x, y, z, h, properties=(m,), n_local=n_local, grav=grav)
         co = d.compact_owned
         moved = tuple(co(res, a) for a in (res.x, res.y, res.z, res.h, res.properties[0]))
@@ -101,12 +102,12 @@ def jax_pool_step(periodic, grav=False, theta=0.5, mode="pool", **caps):
     return run
 
 
-def port_pool_step(periodic, grav=False, theta=0.5, mode="pool", **caps):
+def port_pool_step(periodic, grav=False, theta=0.5, mode="pool", protocol="dense", **caps):
     """The port's counterpart: run_ranks(R) of one sync per rank."""
     tbox = make_box(-1.0, 1.0, boundaries=PERIODIC if periodic else 0, device="cpu")
 
     def rank_fn(comm, state, cols, n_local, ids):
-        d = Domain(exchange_mode=mode, comm=comm, theta=theta, device="cpu", **KW, **caps)
+        d = Domain(exchange_mode=mode, comm=comm, theta=theta, device="cpu", protocol=protocol, **KW, **caps)
         if state is None:
             state = d.init_state(box=tbox if periodic else None, boundaries=tbox.boundaries)
         x, y, z, h, m = (torch.from_numpy(np.ascontiguousarray(c)) for c in cols)
