@@ -134,13 +134,47 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      and each rank's sync ms beside path F's, each rank's all_to_all and
      ragged rounds and the bytes it sends in them (RankTally) beside path
      F's, the bytes staged through host memory, each process's peak
-     memory beside path F's, and the host's core count.
+     memory beside path F's, and the host's core count;
+ 12. path H, bench.py fn mode's other feeds of B5, on phase 6's last
+     sync (the same sorted particles): groups of 256 with bounding boxes
+     and radii 2 max h (bench.py:594-612); the grid cover
+     (build_cell_table at level 6, group_cover_runs with 8 cells a dim,
+     run cap 48) and the depth-first walk (batched_collect_leaves with
+     bench.py's criterion, 320 leaves a group, then merge_leaf_runs), each
+     feeding one B5 launch. Checks: no run or leaf overflow, the counts by
+     particle of both routes bit-equal to phase 6's "v2" counts, B5
+     launched twice, each launch equal to its plain version. Prints the ms
+     of the table, the cover, the walk, merge_leaf_runs and phase 6's
+     breadth-first walk on the same groups, B5's ms on each route's runs,
+     the candidate pairs each route makes B5 test, the largest runs a
+     group;
+ 13. path I, the clients. (a) the simulation loop (models/simulation.py):
+     phase 4's 1M positions, h = 0.012, velocities normal(0, 0.05) (seed
+     42) minus their mean, sim_init, a cold step and 5 sim_steps at dt
+     2e-3 with JAX's defaults (ng_max 96 raised to 128, and said so, if
+     the cold step overflows); checks overflow 0 at every step, the
+     energy drift over steps 1-5 below 2e-2, |momentum| below 1e-4 x
+     sum |v|, n_local 1M. Then the same positions on 8 ranks as threads
+     (run_ranks, p2p, path F's capacities), a cold step and 2 steps:
+     n_local summing to 1M, energy and momentum equal on every rank and
+     within 1e-4 of |E| and 1e-6 x sum |v| of the one-rank run at the
+     same step. Prints ms a step and the share in find_neighbors, the
+     8-rank walls and the largest gaps. (b) gravity: 1M particles
+     normal(0, 0.25) clipped to +-0.99 in the open box [-1, 1], masses
+     uniform(0.5, 1.5), Domain(theta=0.4, bucket 64).sync(grav=True),
+     update_expansion_centers, gravity_monopole on the focus tree with
+     leaf_cap 4096 and cand_cap sized from a first call's overflow;
+     checks overflow 0, and on 1,024 sampled targets against float64
+     direct sums over all 1M sources on the card the median relative
+     error below 2e-2 and the 95th percentile below 0.2. Prints the ms of
+     the sync, the centres, the call and, apart, its P2P leaf walk,
+     monopole walk and P2P sums. Path I launches no kernel.
 Each path's launch counts are set to 0 just before it is driven and read
 just after (paths E and F each over their 4 steps; path G in each rank
-process, summed). Every kernel's bound is the larger of its FP32 operations over
+process, summed; path H over its two routes). Every kernel's bound is the larger of its FP32 operations over
 67 TFLOP/s and its bytes over 3.35 TB/s, counted from that run's inputs;
 no single PyTorch call computes any of these functions, so library_ms is
-null. Kernel-vs-plain checks of phases 3, 5 and 6 take the
+null. Kernel-vs-plain checks of phases 3, 5, 6 and 12 take the
 arguments and results of the path's own launches (record_launches).
 Kernel times: CUDA events around back-to-back launches (phases 4 and 6);
 in phase 5, whose short launches the host could not keep the card busy
@@ -1079,7 +1113,8 @@ def find_neighbors_phase(dev, card):
         print(f"{name} at {times[name]['shape']}: kernel {times[name]['ms']:.4f} ms, "
               f"plain {times[name]['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), share of bound "
               f"{b_ms / times[name]['ms']:.4f} [{card}]", flush=True)
-    return {k: launches[k] for k in ("pairwise_count_runs", "pairwise_count")}, err, times
+    keep = {"res": res, "box": state.box, "view": view, "counts": counts[:N]}  # path H's inputs
+    return {k: launches[k] for k in ("pairwise_count_runs", "pairwise_count")}, err, times, keep
 
 
 # ----------------------------------------------------------------------------
@@ -1892,6 +1927,341 @@ def processes_phase(dev, card, reference, tree_cap, path_f):
     return launches, err
 
 
+# ----------------------------------------------------------------------------
+# phase 12: path H, bench.py fn mode's other feeds of B5
+# ----------------------------------------------------------------------------
+
+# bench.py's BENCH_GROUP, BENCH_TABLE_LEVEL, BENCH_CELLS_PER_DIM and
+# cand_leaf_cap (:535-537, :654-657); run_cap and frontier_cap are NB_KW's
+FN_GROUP, TABLE_LEVEL, CELLS_PER_DIM, DFS_LEAF_CAP = 256, 6, 8, 320
+
+
+def fn_groups(xs, ys, zs, hs, n, G):
+    """bench.py's s_groups (:594-612) over the first n sorted particles:
+    (targets (n_groups, G, 3), r2, centres, half sizes, radii 2 max h)."""
+    import torch
+
+    n_groups = -(-n // G)
+    pad = n_groups * G - n
+    gx, gy, gz, gh = (torch.cat([a[:n], a.new_zeros(pad)]).reshape(n_groups, G) for a in (xs, ys, zs, hs))
+    gvalid = torch.arange(n_groups * G, device=xs.device).reshape(n_groups, G) < n
+    big = float(np.finfo(np.float32).max)
+    gmin = torch.stack([torch.where(gvalid, a, big).amin(1) for a in (gx, gy, gz)], -1)
+    gmax = torch.stack([torch.where(gvalid, a, -big).amax(1) for a in (gx, gy, gz)], -1)
+    gr = 2.0 * torch.where(gvalid, gh, 0.0).amax(1)
+    r2 = torch.where(gvalid, (2.0 * gh) * (2.0 * gh), -1.0)
+    return torch.stack([gx, gy, gz], -1), r2, (gmin + gmax) * 0.5, (gmax - gmin) * 0.5, gr
+
+
+def run_pairs(r2, run_len) -> int:
+    """Candidate pairs B5 tests: live targets times the group's run lengths."""
+    return int(((r2 >= 0).sum(dim=1).double() * run_len.sum(dim=1).double()).sum())
+
+
+def fn_feeds_phase(dev, card, p6):
+    """Phase 12, path H: B5 fed by bench.py fn mode's grid cover
+    (BENCH_TRAV=cover, :677-683, :781-788) and depth-first walk (:658-667)
+    on phase 6's last sync (the same sorted particles), the counts of both
+    routes held to phase 6's "v2" counts. Returns (B5 launches, Errors,
+    times)."""
+    import torch
+
+    from cstone_tpu_torch.ops import neighbors_v2
+    from cstone_tpu_torch.ops.cuda_lib import record_launches
+    from cstone_tpu_torch.ops.neighbors_v2 import merge_leaf_runs, pairwise_count_runs
+    from cstone_tpu_torch.traversal.boxoverlap import min_distance_boxes
+    from cstone_tpu_torch.traversal.cover import build_cell_table, group_cover_runs
+    from cstone_tpu_torch.traversal.traversal import batched_collect_leaves, batched_collect_leaves_bfs
+
+    res, box, view, v2 = p6["res"], p6["box"], p6["view"], p6["counts"]
+    xs, ys, zs = res.x, res.y, res.z
+    targets, r2, gc, gs, gr = fn_groups(xs, ys, zs, res.h, N, FN_GROUP)
+    n_groups = targets.shape[0]
+    lengths = box.lengths.to(torch.float32)
+    box_params = torch.cat([lengths, 1.0 / lengths, torch.as_tensor(box.periodic_mask, dtype=torch.float32,
+                                                                      device=dev)])
+    run_cap = NB_KW["run_cap"]
+    tree = view.tree
+
+    def crit(q, nid):  # bench.py's s_traverse criterion
+        d = min_distance_boxes(gc[q], gs[q], view.centers[nid], view.sizes[nid], box)
+        return d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2] < gr[q] * gr[q]
+
+    def runs_of(leaves, n_cand):
+        leaf_idx = torch.where(leaves >= 0, tree.internal_to_leaf[torch.clamp(leaves, min=0)], 0)
+        return merge_leaf_runs(leaf_idx, n_cand, view.layout, run_cap)
+
+    ms = {}
+    reset_all_launches()
+    with record_launches() as calls:
+        table, ms["table"] = timed_ms(lambda: build_cell_table(res.keys, TABLE_LEVEL, n_valid=N))
+        (cs, cl, cn, c_ovf), ms["cover"] = timed_ms(lambda: group_cover_runs(
+            gc - gs, gc + gs, gr, table, TABLE_LEVEL, box, np.uint64, cells_per_dim=CELLS_PER_DIM,
+            run_cap=run_cap))
+        cover_counts = pairwise_count_runs(targets, r2, cs, cl, xs, ys, zs, box_params)
+        (leaves, n_cand), ms["walk"] = timed_ms(lambda: batched_collect_leaves(
+            tree.child_offsets, crit, n_groups, DFS_LEAF_CAP))
+        (ds, dl, dn, d_ovf), ms["merge"] = timed_ms(lambda: runs_of(leaves, n_cand))
+        walk_counts = pairwise_count_runs(targets, r2, ds, dl, xs, ys, zs, box_params)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    print(f"phase 12 launches (path H): {json.dumps(launches)}", flush=True)
+    check(launches["pairwise_count_runs"] == 2, f"B5 should launch once per route on path H: {launches}")
+
+    check(not bool(c_ovf) and int(cn.max()) <= run_cap, f"cover runs overflow: largest {int(cn.max())}")
+    check(int(n_cand.max()) <= DFS_LEAF_CAP, f"depth-first walk leaves overflow: {int(n_cand.max())}")
+    check(not bool(d_ovf) and int(dn.max()) <= run_cap, f"walk runs overflow: largest {int(dn.max())}")
+    for name, counts in (("cover", cover_counts), ("depth-first", walk_counts)):
+        check(torch.equal(counts.reshape(-1)[:N], v2[:N]),
+              f"path H {name} counts differ from phase 6's v2 counts at "
+              f"{int((counts.reshape(-1)[:N] != v2[:N]).sum())} particles")
+    print(f"path H: {N} particles, {n_groups} groups of {FN_GROUP}; counts by particle of the cover and the "
+          f"depth-first routes bit-equal to phase 6's v2 counts; largest runs a group: cover {int(cn.max())}, "
+          f"depth-first {int(dn.max())} (run cap {run_cap}); largest leaves a group {int(n_cand.max())} "
+          f"(cap {DFS_LEAF_CAP})", flush=True)
+
+    # phase 6's breadth-first route on the same groups, for its times
+    (bl, bn, bf), ms["bfs walk"] = timed_ms(lambda: batched_collect_leaves_bfs(
+        tree.child_offsets, crit, n_groups, DFS_LEAF_CAP, NB_KW["frontier_cap"]))
+    check(int(bf.max()) <= NB_KW["frontier_cap"], "the breadth-first frontier overflowed")
+    check(torch.equal(bn, n_cand), "the breadth-first and depth-first walks collect different leaf counts")
+    (bfs_start, bfs_len, _, _), ms["bfs merge"] = timed_ms(lambda: runs_of(bl, bn))
+
+    # each route's B5 launch against its plain version, timed at its shape
+    check([c[0] for c in calls] == ["pairwise_count_runs"] * 2, f"path H launched {[c[0] for c in calls]}")
+    err = Errors()
+    times = {}
+    for (name, args, got), route in zip(calls, ("cover", "depth-first")):
+        err.counts(name, got, plain_of(name)(*args), f"path-H {route} inputs")
+        times[route] = cuda_time_ms(lambda: neighbors_v2.pairwise_count_runs(*args), 10)
+    bfs_args = (targets, r2, bfs_start, bfs_len, xs, ys, zs, box_params)
+    times["breadth-first"] = cuda_time_ms(lambda: neighbors_v2.pairwise_count_runs(*bfs_args), 10)
+    pairs = {"cover": run_pairs(r2, cl), "depth-first": run_pairs(r2, dl), "breadth-first": run_pairs(r2, bfs_len)}
+    print(f"path H: the cover's and the depth-first walk's B5 launches equal their plain versions", flush=True)
+    print(f"path H ms (CUDA events): {json.dumps({k: round(v, 4) for k, v in ms.items()})}; B5 ms on each "
+          f"route's runs, 10 launches each: {json.dumps({k: round(v, 4) for k, v in times.items()})}; "
+          f"candidate pairs B5 tests: {json.dumps(pairs)} [{card}]", flush=True)
+    return {"pairwise_count_runs": launches["pairwise_count_runs"]}, err, {"ms": ms, "b5_ms": times,
+                                                                            "pairs": pairs}
+
+
+# ----------------------------------------------------------------------------
+# phase 13: path I, the clients: the simulation loop and gravity
+# ----------------------------------------------------------------------------
+
+SIM_DT = 2e-3
+SIM_STEPS = 5  # after the cold step
+SIM_RANK_STEPS = 2
+SIM_NG_MAX = 96  # JAX's default; raised once if the cold step overflows
+GRAV_THETA = 0.4
+GRAV_SAMPLE = 1024
+
+
+class SpanTimer:
+    """Sums the CUDA-event ms of module.name's calls inside the block
+    (one thread; the calls queue on the current stream)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.ms = module, name, 0.0
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def timed(*a, **k):
+            out, ms = timed_ms(lambda: self.real(*a, **k))
+            self.ms += ms
+            return out
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def sim_setup(dev):
+    """Phase 4's 1M positions and h with velocities normal(0, 0.05) from
+    seed 42, minus their mean."""
+    import torch
+
+    xyz, _, h = uniform_setup(dev)
+    vel = np.random.RandomState(SEED).normal(0.0, 0.05, size=(N, 3)).astype(np.float32)
+    vel -= vel.mean(axis=0, keepdims=True)
+    v = tuple(torch.from_numpy(np.ascontiguousarray(vel[:, i])).to(dev) for i in range(3))
+    return xyz, h, v, float(np.abs(vel).sum())
+
+
+def sim_rank_steps(comm, xyz, h, v, box, caps, ng_max):
+    """One rank of path I (a): rank r's strided slice r::LET_RANKS, a cold
+    step and SIM_RANK_STEPS steps; per step (energy, momentum, overflow,
+    n_local, host span)."""
+    import torch
+
+    from cstone_tpu_torch.models import sim_init, sim_step
+
+    def part(a):
+        out = torch.zeros(caps["local"], dtype=a.dtype, device=a.device)
+        s = a[comm.rank::LET_RANKS]
+        out[:s.numel()] = s
+        return out
+
+    domain = make_domain(comm, caps, "p2p", "dense", h.device)
+    n = h[comm.rank::LET_RANKS].numel()
+    state = sim_init(domain.init_state(box=box, boundaries=(1, 1, 1)), *(part(c) for c in xyz), part(h),
+                     *(part(c) for c in v), n)
+    out = []
+    for _ in range(1 + SIM_RANK_STEPS):
+        comm.all_reduce_flag(True)  # start together
+        t0 = time.perf_counter()
+        state, e, p, ovf = sim_step(domain, state, SIM_DT, ng_max=ng_max)
+        torch.cuda.current_stream().synchronize()
+        out.append((float(e), p.cpu(), int(ovf), int(state.n_local), (t0, time.perf_counter())))
+    return out
+
+
+def simulation_phase(dev, card, tree_cap):
+    """Phase 13 (a): the simulation loop at one rank, then on LET_RANKS
+    ranks as threads with path F's capacities, held to the one-rank run."""
+    import torch
+
+    from cstone_tpu_torch.domain import Domain
+    from cstone_tpu_torch.models import simulation
+    from cstone_tpu_torch.parallel import run_ranks
+    from cstone_tpu_torch.sfc import PERIODIC, make_box
+
+    xyz, h, v, v_abs = sim_setup(dev)
+    domain = Domain(bucket_size=BUCKET, tree_capacity=tree_capacity(N), device=dev)
+    box = make_box(0.0, 1.0, boundaries=PERIODIC, device=dev)
+    state0 = simulation.sim_init(domain.init_state(box=box, boundaries=(1, 1, 1)), *xyz, h, *v, N)
+    ng_max = SIM_NG_MAX
+    _, _, _, ovf = simulation.sim_step(domain, state0, SIM_DT, ng_max=ng_max)
+    if int(ovf):
+        print(f"path I: the cold step overflows with ng_max {ng_max} (JAX's default) at {N} particles; "
+              f"ng_max raised to 128 and the cold step run again", flush=True)
+        ng_max = 128
+    state, energies, moms, step_ms, nb_ms = state0, [], [], [], []
+    for step in range(1 + SIM_STEPS):
+        with SpanTimer(simulation, "_find_neighbors_impl") as nb:
+            (state, e, p, ovf), ms = timed_ms(lambda: simulation.sim_step(domain, state, SIM_DT, ng_max=ng_max))
+        check(int(ovf) == 0, f"path I: overflow at step {step}")
+        energies.append(float(e))
+        moms.append(p.cpu())
+        step_ms.append(ms)
+        nb_ms.append(nb.ms)
+    drift = max(abs(e - energies[1]) for e in energies[1:]) / abs(energies[1])
+    p_max = max(float(p.abs().max()) for p in moms)
+    diag = simulation.sim_diagnostics(state)
+    print(f"path I (a): 1 rank, {N} particles, dt {SIM_DT}, ng_max {ng_max}: cold step and {SIM_STEPS} steps, "
+          f"ms/step {json.dumps([round(t, 3) for t in step_ms])}, share in find_neighbors "
+          f"{json.dumps([round(a / b, 4) for a, b in zip(nb_ms, step_ms)])}; energy "
+          f"{json.dumps(energies)}, drift over steps 1-{SIM_STEPS} {drift:.3e}; largest |momentum| {p_max:.4e} "
+          f"(sum |v| {v_abs:.6g}); v_rms {diag['v_rms']:.6f} [{card}]", flush=True)
+    check(drift < 2e-2, f"path I: energy drift {drift} over steps 1-{SIM_STEPS}")
+    check(p_max < 1e-4 * v_abs, f"path I: |momentum| {p_max} above 1e-4 x sum |v|")
+    check(diag["n_local"] == N, f"path I: n_local {diag['n_local']} != {N}")
+
+    # the same positions on LET_RANKS ranks as threads, path F's capacities
+    caps = first_caps(tree_cap)
+    t0 = time.perf_counter()
+    outs = run_ranks(LET_RANKS, sim_rank_steps, *([a] * LET_RANKS for a in (xyz, h, v, box, caps, ng_max)))
+    wall_all = 1e3 * (time.perf_counter() - t0)
+    e_gap = p_gap = 0.0
+    walls = []
+    for step in range(1 + SIM_RANK_STEPS):
+        per = [o[step] for o in outs]
+        check(all(o[2] == 0 for o in per), f"path I, {LET_RANKS} ranks: overflow at step {step}")
+        check(sum(o[3] for o in per) == N, f"path I, {LET_RANKS} ranks: n_local sums to {sum(o[3] for o in per)}")
+        check(len({o[0] for o in per}) == 1 and all(torch.equal(o[1], per[0][1]) for o in per),
+              f"path I, {LET_RANKS} ranks: energy or momentum differ between ranks at step {step}")
+        e_gap = max(e_gap, abs(per[0][0] - energies[step]) / abs(energies[step]))
+        p_gap = max(p_gap, float((per[0][1] - moms[step]).abs().max()))
+        walls.append(1e3 * (max(o[4][1] for o in per) - min(o[4][0] for o in per)))
+    print(f"path I (a): {LET_RANKS} ranks as threads (p2p, capacities {caps}): cold step and {SIM_RANK_STEPS} "
+          f"steps, {LET_RANKS}-rank step wall ms {json.dumps([round(t, 3) for t in walls])} ({wall_all:.3f} ms in "
+          f"all); owned {[o[-1][3] for o in outs]}; energy and momentum equal on every rank; largest gap to the "
+          f"one-rank run: energy {e_gap:.3e} of |E| (tolerance 1e-4), momentum {p_gap:.4e} (tolerance 1e-6 x "
+          f"sum |v| = {1e-6 * v_abs:.4g}) [{card}]", flush=True)
+    check(e_gap <= 1e-4, f"path I: {LET_RANKS}-rank energy {e_gap} of |E| from the one-rank run")
+    check(p_gap <= 1e-6 * v_abs, f"path I: {LET_RANKS}-rank momentum {p_gap} from the one-rank run")
+    return {"step_ms": step_ms, "nb_ms": nb_ms, "rank_walls": walls, "ng_max": ng_max}
+
+
+def direct_gravity_sample(x, y, z, m, idx, eps2=1e-8):
+    """float64 direct sums over all sources for the targets idx, on the card."""
+    import torch
+
+    P = torch.stack([x, y, z], -1).double()
+    M = m.double()
+    out = []
+    for c in range(0, idx.numel(), 32):
+        t = idx[c:c + 32]
+        d = P[None, :, :] - P[t][:, None, :]
+        r2 = (d * d).sum(-1) + eps2
+        w = torch.where(torch.arange(P.shape[0], device=P.device)[None, :] == t[:, None], 0.0, M * r2 ** -1.5)
+        out.append((w[..., None] * d).sum(1))
+    return torch.cat(out)
+
+
+def gravity_phase(dev, card):
+    """Phase 13 (b): Domain.sync(grav=True) + update_expansion_centers +
+    gravity_monopole at 1M Gaussian, against float64 direct sums."""
+    import torch
+
+    from cstone_tpu_torch.domain import Domain, sync_with_retry
+    from cstone_tpu_torch.models import nbody
+    from cstone_tpu_torch.sfc import make_box
+    from cstone_tpu_torch.traversal.geometry import node_geometry
+
+    rng = np.random.RandomState(SEED)
+    pos = rng.normal(0, 0.25, size=(N, 3)).clip(-0.99, 0.99).astype(np.float32)
+    m = torch.from_numpy(rng.uniform(0.5, 1.5, size=N).astype(np.float32)).to(dev)
+    xyz = tuple(torch.from_numpy(np.ascontiguousarray(pos[:, i])).to(dev) for i in range(3))
+    h = torch.full((N,), H, dtype=torch.float32, device=dev)
+    box = make_box(-1.0, 1.0, device=dev)
+
+    def run(caps):
+        domain = Domain(bucket_size=BUCKET, theta=GRAV_THETA, tree_capacity=caps["tree"], device=dev)
+        state, res = domain.sync(domain.init_state(box=box), *xyz, h, properties=(m,), grav=True)
+        return domain, state, res
+
+    ((domain, state, res), caps), sync_ms = timed_ms(lambda: sync_with_retry(run, {"tree": tree_capacity(N)}))
+    (centers, spheres, _, c_ovf), cent_ms = timed_ms(
+        lambda: domain.update_expansion_centers(state, res, res.properties[0]))
+    check(int(res.overflow) == 0 and int(c_ovf) == 0, "path I (b): sync or expansion-centre overflow")
+    geo_c, geo_s = node_geometry(res.tree, state.box)
+    ms_ = res.properties[0]
+
+    def gravity(leaf_cap, cand_cap):
+        return nbody.gravity_monopole(res.x, res.y, res.z, ms_, res.tree, res.layout, centers, spheres[:, 3],
+                                      geo_c, geo_s, state.box, leaf_cap=leaf_cap, cand_cap=cand_cap, n_targets=N)
+
+    leaf_cap, cand_cap = 4096, 4096
+    *_, ovf0 = gravity(leaf_cap, cand_cap)
+    first = int(ovf0)
+    check(first == 0 or first > cand_cap, f"path I (b): P2P leaves overflow leaf_cap {leaf_cap}: {first}")
+    if first:
+        cand_cap = -(-first // 1024) * 1024
+    with SpanTimer(nbody, "batched_collect_leaves") as walk, SpanTimer(nbody, "_monopoles") as mono, \
+            SpanTimer(nbody, "_p2p_sums") as p2p:
+        (ax, ay, az, ovf), call_ms = timed_ms(lambda: gravity(leaf_cap, cand_cap))
+    check(int(ovf) == 0, f"path I (b): gravity overflow {int(ovf)} with leaf_cap {leaf_cap}, cand_cap {cand_cap}")
+    idx = torch.from_numpy(np.random.RandomState(SEED + 1).choice(N, GRAV_SAMPLE, replace=False)).to(dev)
+    ref = direct_gravity_sample(res.x[:N], res.y[:N], res.z[:N], ms_[:N], idx)
+    a = torch.stack([ax, ay, az], -1)[idx].double()
+    err = ((a - ref).norm(dim=1) / ref.norm(dim=1)).cpu().numpy()
+    med, p95 = float(np.median(err)), float(np.percentile(err, 95))
+    print(f"path I (b): gravity, {N} Gaussian particles, theta {GRAV_THETA}, bucket {BUCKET}, groups of 64: "
+          f"sync(grav=True) {sync_ms:.3f} ms (tree capacity {caps['tree']}, focus leaves {int(res.tree.n_leaf)}), "
+          f"update_expansion_centers {cent_ms:.3f} ms; first call's overflow {first} -> leaf_cap {leaf_cap}, "
+          f"cand_cap {cand_cap}; gravity_monopole {call_ms:.3f} ms: P2P leaf walk {walk.ms:.3f}, monopole walk "
+          f"{mono.ms:.3f}, P2P sums {p2p.ms:.3f} ms; against float64 direct sums on {GRAV_SAMPLE} targets: "
+          f"median relative error {med:.4e}, 95th percentile {p95:.4e} [{card}]", flush=True)
+    check(bool(torch.isfinite(torch.stack([ax, ay, az])).all()), "path I (b): non-finite accelerations")
+    check(med < 2e-2 and p95 < 0.2, f"path I (b): gravity error median {med}, p95 {p95}")
+    return {"call_ms": call_ms, "walk_ms": walk.ms, "mono_ms": mono.ms, "p2p_ms": p2p.ms, "median": med,
+            "p95": p95, "leaf_cap": leaf_cap, "cand_cap": cand_cap}
+
+
 def same_as_path_e(what, want, got, ref="path E") -> None:
     """A path against path E (or `ref`) at the same step: per rank the
     assignment, the focus tree's leaves, the halo flags, the layout and
@@ -2020,7 +2390,7 @@ def pairwise_bound(name, args):
     head = targets.numel() * 4 + r2.numel() * 4 + r2.numel() * 4  # targets, r2, the counts
     if name == "pairwise_count_runs":
         run_start, run_len, xs = args[2], args[3], args[4]
-        pairs = float((live * run_len.sum(dim=1).double()).sum())
+        pairs = run_pairs(r2, run_len)
         nbytes = head + run_start.numel() * run_start.element_size() * 2 + 3 * xs.numel() * 4
         return bound(pairs * (OPS_D2 + OPS_CMP), nbytes)
     cand, cidx = args[2], args[3]
@@ -2074,7 +2444,7 @@ def main():
     timing.update(times5)
 
     phase("6 path B: sync + ns_view + find_neighbors")
-    launches6, err6, times6 = find_neighbors_phase(dev, card)
+    launches6, err6, times6, phase6 = find_neighbors_phase(dev, card)
     launches.update(launches6)
     timing.update(times6)
 
@@ -2096,7 +2466,15 @@ def main():
     launches_g, err11 = processes_phase(dev, card, reference, tree_cap, path_f)
     del path_f
 
-    for e in (err4, err5, err6, err7, err9, err10, err11):
+    phase("12 path H: bench.py fn mode's grid cover and depth-first walk feeding B5")
+    launches_h, err12, _ = fn_feeds_phase(dev, card, phase6)
+    del phase6
+
+    phase("13 path I: the simulation loop and Barnes-Hut gravity")
+    simulation_phase(dev, card, tree_cap)
+    gravity_phase(dev, card)
+
+    for e in (err4, err5, err6, err7, err9, err10, err11, err12):
         for k, v in e.max.items():
             err.max[k] = max(err.max[k], v)
     print(f"total time {time.perf_counter() - t_start:.3f} s [{card}]", flush=True)
@@ -2104,7 +2482,7 @@ def main():
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
          "max_abs_err": err.max[name], "library_ms": None, "path_c_launches": launches_c.get(name, 0),
          "path_e_launches": launches_e.get(name, 0), "path_f_launches": launches_f.get(name, 0),
-         "path_g_launches": launches_g.get(name, 0), **timing[name]}
+         "path_g_launches": launches_g.get(name, 0), "path_h_launches": launches_h.get(name, 0), **timing[name]}
         for name, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -58,7 +58,7 @@ from ..sfc.box import Box
 from ..sfc.encode import HILBERT, compute_sfc_keys
 from ..sfc.keys import remove_key
 from ..tree.csarray import CsArray, root_tree
-from ..traversal.collisions import find_halos
+from ..traversal.collisions import find_halos, leaf_halo_radii
 from ..traversal.macs import inv_theta_min_mac, inv_theta_vec_mac, mark_macs
 from ..traversal.neighbors import OctreeNsView, make_ns_view
 from ..traversal.peers import find_peers_mac
@@ -426,9 +426,7 @@ class Domain:
         if single:
             halo_flags = torch.zeros(cap_leaf, dtype=torch.int32, device=dev)
         else:
-            leaf_off = torch.minimum(searchsorted(okeys, linked.leaves), n_owned)
-            leaf_hmax = torch.clamp(segment_max(torch.where(j < n_owned, oh, 0.0), leaf_off, cap_leaf), min=0.0)
-            radii = torch.where(mine, leaf_hmax * (2.0 * self.halo_search_ext), 0.0)
+            radii = leaf_halo_radii(linked.leaves, okeys, oh, n_owned, mine, self.halo_search_ext)
             halo_flags = find_halos(linked, radii, box, first_leaf, last_leaf, self.curve)
             if grav:
                 # vector-MAC halo augmentation from the exact mass centers,

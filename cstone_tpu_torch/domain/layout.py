@@ -6,7 +6,14 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["compute_node_layout"]
+__all__ = ["leaf_layout_from_counts", "compute_node_layout"]
+
+
+def leaf_layout_from_counts(counts: torch.Tensor) -> torch.Tensor:
+    """Exclusive scan of per-leaf counts: (cap_leaf+1,) int64 particle
+    offsets (the single-device layout)."""
+    c = counts.to(torch.int64)
+    return torch.cat([c.new_zeros(1), torch.cumsum(c, 0)])
 
 
 def compute_node_layout(leaf_counts: torch.Tensor, halo_flags: torch.Tensor,

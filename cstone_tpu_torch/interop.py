@@ -1,7 +1,8 @@
 """Carry state from the JAX package into the port.
 
 `from_numpy_state` rebuilds a port DomainState or SphState from the JAX
-package's state of the same name, `from_numpy_tree` a LinkedOctree and
+package's state of the same name, `from_numpy_sim_state` a SimState (the
+simulation loop's), `from_numpy_tree` a LinkedOctree and
 `from_numpy_ns_view` an OctreeNsView. They read the JAX object's fields with
 `numpy.asarray` only, so this module imports no jax: arrays convert by
 value (keys keep their bits, see ops/keys64.py), index arrays become
@@ -23,6 +24,7 @@ import torch
 
 from .domain.decomposition import SfcAssignment
 from .domain.domain import DomainState
+from .models.simulation import SimState
 from .models.sph import SphState
 from .ops.keys64 import from_numpy as keys_from_numpy
 from .sfc.box import Box
@@ -31,7 +33,7 @@ from .traversal.neighbors import OctreeNsView
 from .tree.octree import LinkedOctree
 from .utils.device import resolve_device
 
-__all__ = ["from_numpy_state", "from_numpy_tree", "from_numpy_ns_view"]
+__all__ = ["from_numpy_state", "from_numpy_sim_state", "from_numpy_tree", "from_numpy_ns_view"]
 
 
 def _t(a, device, dtype=None, rank=None) -> torch.Tensor:
@@ -109,3 +111,13 @@ def from_numpy_state(state, device=None, rank=None):
             m=_t(state.m, device, rank=rank), n_local=_counts(state.n_local, device, rank),
         )
     return _domain_state(state, device, rank)
+
+
+def from_numpy_sim_state(state, device=None, rank=None) -> SimState:
+    """Port SimState from the JAX package's SimState; with `rank`, rank
+    `rank`'s entry of a state stacked along a leading rank axis."""
+    device = resolve_device(device)
+    return SimState(
+        domain=_domain_state(state.domain, device, rank),
+        **{f: _t(getattr(state, f), device, rank=rank) for f in ("x", "y", "z", "h", "vx", "vy", "vz")},
+        n_local=_counts(state.n_local, device, rank))

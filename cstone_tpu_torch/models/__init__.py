@@ -1,5 +1,9 @@
-"""Client models on top of the Domain (counterpart of cstone_tpu/models)."""
+"""Client models on top of the Domain (counterpart of cstone_tpu/models):
+the SPH density step, Barnes-Hut gravity and the simulation loop."""
 
+from .nbody import gravity_monopole
+from .simulation import SimState, sim_diagnostics, sim_init, sim_step
 from .sph import SphState, sph_density_step
 
-__all__ = ["SphState", "sph_density_step"]
+__all__ = ["SphState", "sph_density_step", "gravity_monopole", "SimState", "sim_init", "sim_step",
+           "sim_diagnostics"]

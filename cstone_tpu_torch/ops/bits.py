@@ -12,7 +12,7 @@ import torch
 
 from .keys64 import key_bits
 
-__all__ = ["count_leading_zeros", "count_trailing_zeros"]
+__all__ = ["count_leading_zeros", "count_trailing_zeros", "bit_width"]
 
 
 def count_leading_zeros(k: torch.Tensor) -> torch.Tensor:
@@ -40,3 +40,9 @@ def count_trailing_zeros(k: torch.Tensor) -> torch.Tensor:
     n = key_bits(k.dtype)
     low = k & -k  # lowest set bit
     return torch.where(k == 0, n, n - 1 - count_leading_zeros(low)).to(torch.int32)
+
+
+def bit_width(k: torch.Tensor) -> torch.Tensor:
+    """Position of the highest set bit of the unsigned pattern of `k`, plus
+    one; 0 for 0. Returns int32."""
+    return (key_bits(k.dtype) - count_leading_zeros(k)).to(torch.int32)

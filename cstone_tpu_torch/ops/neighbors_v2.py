@@ -40,6 +40,7 @@ from .pairs import IMAGE_FLOOR, pair_within
 
 __all__ = [
     "merge_leaf_runs",
+    "merge_sorted_ranges",
     "pairwise_count_runs",
     "pairwise_count_runs_plain",
     "pairwise_count_runs_tiled_plain",
@@ -73,6 +74,40 @@ def reset_launches() -> None:
     _LAUNCHES.reset()
 
 
+def merge_sorted_ranges(start: torch.Tensor, end: torch.Tensor, nonempty: torch.Tensor,
+                        run_cap: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Merge each row's disjoint particle ranges [start, end), sorted by
+    start, into maximal contiguous runs. nonempty (n_groups, K) marks the
+    slots that hold a range; the others never break a run. Returns
+    (run_start (n_groups, run_cap), run_len, n_runs), int64; n_runs may
+    exceed run_cap (the runs past it are dropped)."""
+    n_groups, K = start.shape
+    dev = start.device
+    k = torch.arange(K, device=dev)
+    # a run starts at a nonempty slot that does not extend the last
+    # nonempty slot before it
+    tag = torch.where(nonempty, k, -1)
+    last_nonempty = torch.cummax(tag, dim=1).values
+    prev_tag = torch.cat([torch.full((n_groups, 1), -1, dtype=tag.dtype, device=dev),
+                          last_nonempty[:, :-1]], dim=1)
+    prev_end = torch.where(prev_tag >= 0,
+                           torch.gather(end, 1, torch.clamp(prev_tag, min=0)), -1)
+    new_run = nonempty & (start != prev_end)
+
+    run_id = torch.cumsum(new_run.to(torch.int64), dim=1) - 1
+    n_runs = torch.where(nonempty, run_id + 1, 0).max(dim=1).values
+
+    rows = torch.arange(n_groups, device=dev)[:, None].expand(n_groups, K)
+    run_start = torch.zeros((n_groups, run_cap), dtype=torch.int64, device=dev)
+    ok_s = new_run & (run_id < run_cap)
+    run_start[rows[ok_s], run_id[ok_s]] = start[ok_s].to(torch.int64)
+    run_end = torch.zeros((n_groups, run_cap), dtype=torch.int64, device=dev)
+    ok_e = nonempty & (run_id < run_cap)
+    run_end.view(-1).scatter_reduce_(0, rows[ok_e] * run_cap + run_id[ok_e],
+                                     end[ok_e].to(torch.int64), reduce="amax")
+    return run_start, torch.clamp(run_end - run_start, min=0), n_runs
+
+
 def merge_leaf_runs(leaf_idx: torch.Tensor, n_cand: torch.Tensor, layout: torch.Tensor,
                     run_cap: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Merge adjacent candidate leaf ranges into contiguous particle runs.
@@ -95,28 +130,7 @@ def merge_leaf_runs(leaf_idx: torch.Tensor, n_cand: torch.Tensor, layout: torch.
     end = torch.where(valid, layout[leaf_safe + 1], 0)
     nonempty = valid & (end > start)
 
-    # a run starts at a nonempty slot that does not extend the last
-    # nonempty slot before it (empty slots never break runs)
-    tag = torch.where(nonempty, k, -1)
-    last_nonempty = torch.cummax(tag, dim=1).values
-    prev_tag = torch.cat([torch.full((n_groups, 1), -1, dtype=tag.dtype, device=dev),
-                          last_nonempty[:, :-1]], dim=1)
-    prev_end = torch.where(prev_tag >= 0,
-                           torch.gather(end, 1, torch.clamp(prev_tag, min=0)), -1)
-    new_run = nonempty & (start != prev_end)
-
-    run_id = torch.cumsum(new_run.to(torch.int64), dim=1) - 1
-    n_runs = torch.where(nonempty, run_id + 1, 0).max(dim=1).values
-
-    rows = torch.arange(n_groups, device=dev)[:, None].expand(n_groups, K)
-    run_start = torch.zeros((n_groups, run_cap), dtype=torch.int64, device=dev)
-    ok_s = new_run & (run_id < run_cap)
-    run_start[rows[ok_s], run_id[ok_s]] = start[ok_s].to(torch.int64)
-    run_end = torch.zeros((n_groups, run_cap), dtype=torch.int64, device=dev)
-    ok_e = nonempty & (run_id < run_cap)
-    run_end.view(-1).scatter_reduce_(0, rows[ok_e] * run_cap + run_id[ok_e],
-                                     end[ok_e].to(torch.int64), reduce="amax")
-    run_len = torch.clamp(run_end - run_start, min=0)
+    run_start, run_len, n_runs = merge_sorted_ranges(start, end, nonempty, run_cap)
     return run_start, run_len, n_runs, n_runs.max() > run_cap
 
 

@@ -16,7 +16,7 @@ from .box import Box, IBox
 from .keys import max_tree_level, remove_key
 
 __all__ = [
-    "MORTON", "HILBERT", "isfc_key", "decode_sfc", "sfc3d", "compute_sfc_keys", "sfc_ibox",
+    "MORTON", "HILBERT", "isfc_key", "isfc_key_top", "decode_sfc", "sfc3d", "compute_sfc_keys", "sfc_ibox",
 ]
 
 MORTON = "morton"
@@ -29,6 +29,19 @@ def isfc_key(ix, iy, iz, key_dtype, curve: str = HILBERT) -> torch.Tensor:
         return _morton.imorton(ix, iy, iz, key_dtype)
     if curve == HILBERT:
         return _hilbert.ihilbert(ix, iy, iz, key_dtype)
+    raise ValueError(f"unknown curve {curve!r}")
+
+
+def isfc_key_top(ix, iy, iz, levels: int, lmax: int, curve: str = HILBERT) -> torch.Tensor:
+    """Top 3*levels bits of the depth-lmax key of integer coordinates, as
+    int64: equal to isfc_key(...) >> 3*(lmax - levels), from `levels`
+    encode rounds (Hilbert) or the top coordinate bits (Morton) only."""
+    if curve == MORTON:
+        ls = lmax - levels
+        return _morton.imorton(ix.to(torch.int64) >> ls, iy.to(torch.int64) >> ls,
+                               iz.to(torch.int64) >> ls, np.uint32).to(torch.int64)
+    if curve == HILBERT:
+        return _hilbert.ihilbert_top(ix, iy, iz, levels, lmax)
     raise ValueError(f"unknown curve {curve!r}")
 
 

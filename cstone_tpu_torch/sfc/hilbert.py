@@ -14,7 +14,7 @@ import torch
 from ..ops.keys64 import srl, torch_key_dtype
 from .keys import max_tree_level
 
-__all__ = ["ihilbert", "decode_hilbert"]
+__all__ = ["ihilbert", "ihilbert_top", "decode_hilbert"]
 
 
 def _morton_to_hilbert(octant: torch.Tensor) -> torch.Tensor:
@@ -22,15 +22,17 @@ def _morton_to_hilbert(octant: torch.Tensor) -> torch.Tensor:
     return (octant ^ (octant >> 1)) ^ (octant >> 2)
 
 
-def ihilbert(px, py, pz, key_dtype) -> torch.Tensor:
-    """Hilbert key from integer grid coordinates in [0, 2^maxLevel)."""
-    lmax = max_tree_level(key_dtype)
+def _hilbert_rounds(px, py, pz, lmax: int, levels: int) -> torch.Tensor:
+    """The first `levels` rounds of the depth-lmax encode (levels lmax-1
+    down to lmax-levels): the top 3*levels bits of the key, int64. The
+    rounds read coordinate bits top-down, so a prefix of them is the key's
+    prefix."""
     px = px.to(torch.int64)
     py = py.to(torch.int64)
     pz = pz.to(torch.int64)
     key = torch.zeros(torch.broadcast_shapes(px.shape, py.shape, pz.shape),
                       dtype=torch.int64, device=px.device)
-    for level in range(lmax - 1, -1, -1):
+    for level in range(lmax - 1, lmax - 1 - levels, -1):
         xi = (px >> level) & 1
         yi = (py >> level) & 1
         zi = (pz >> level) & 1
@@ -56,7 +58,22 @@ def ihilbert(px, py, pz, key_dtype) -> torch.Tensor:
             torch.where(rot, pz, py),
             torch.where(rot, px, torch.where(swp, px, pz)),
         )
-    return key.to(torch_key_dtype(key_dtype))
+    return key
+
+
+def ihilbert(px, py, pz, key_dtype) -> torch.Tensor:
+    """Hilbert key from integer grid coordinates in [0, 2^maxLevel)."""
+    lmax = max_tree_level(key_dtype)
+    return _hilbert_rounds(px, py, pz, lmax, lmax).to(torch_key_dtype(key_dtype))
+
+
+def ihilbert_top(px, py, pz, levels: int, lmax: int) -> torch.Tensor:
+    """Top 3*levels bits of the depth-lmax Hilbert key, int64: equal to
+    ihilbert(px, py, pz) >> 3*(lmax - levels), from `levels` rounds only
+    (hilbert.py:92-142 of the JAX package; 3*levels <= 30 there)."""
+    if not 0 <= 3 * levels <= 30:
+        raise ValueError(f"ihilbert_top takes 3*levels <= 30, got levels={levels}")
+    return _hilbert_rounds(px, py, pz, lmax, levels)
 
 
 def decode_hilbert(key: torch.Tensor):

@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 
 from ..ops.keys64 import ule
+from ..ops.primitives import searchsorted, segment_max
 from ..sfc.box import Box, IBox
 from ..sfc.encode import HILBERT, sfc_ibox
 from ..sfc.keys import max_tree_level, node_range, tree_level
@@ -22,7 +23,7 @@ from ..tree.octree import LinkedOctree, node_keys_and_levels
 from .boxoverlap import contained_in_keys, make_halo_box, overlap_iboxes
 from .traversal import batched_mark
 
-__all__ = ["find_halos", "node_iboxes"]
+__all__ = ["find_halos", "leaf_halo_radii", "node_iboxes"]
 
 
 def node_iboxes(tree: LinkedOctree, curve: str = HILBERT) -> IBox:
@@ -33,6 +34,18 @@ def node_iboxes(tree: LinkedOctree, curve: str = HILBERT) -> IBox:
 
 def _gather_ibox(b: IBox, ids: torch.Tensor) -> IBox:
     return IBox(b.xmin[ids], b.xmax[ids], b.ymin[ids], b.ymax[ids], b.zmin[ids], b.zmax[ids])
+
+
+def leaf_halo_radii(leaves: torch.Tensor, owned_keys: torch.Tensor, h_owned: torch.Tensor, n_owned,
+                    mine: torch.Tensor, search_ext: float) -> torch.Tensor:
+    """(cap_leaf,) halo search radius per leaf (halos.hpp:116-189):
+    2 * search_ext * the largest h of the leaf's owned particles on the
+    rank's own leaves (`mine`), 0 elsewhere and on empty leaves.
+    owned_keys / h_owned: the owned particles, SFC-sorted, n_owned valid."""
+    leaf_off = torch.clamp(searchsorted(owned_keys, leaves), max=n_owned)
+    j = torch.arange(owned_keys.shape[0], device=owned_keys.device)
+    hmax = segment_max(torch.where(j < n_owned, h_owned, 0.0), leaf_off, leaves.shape[0] - 1)
+    return torch.where(mine, torch.clamp(hmax, min=0.0) * (2.0 * search_ext), 0.0)
 
 
 def find_halos(

@@ -112,11 +112,12 @@ def _image_consts(box: Box, dev) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _groups(x, y, z, h, view: OctreeNsView, box: Box, n: int, group_size: int,
-            cand_leaf_cap: int, frontier_cap: int) -> _Groups:
-    """Group bounding boxes and radii, then one BFS traversal per group."""
+            cand_leaf_cap: int, frontier_cap: int, t0: int = 0) -> _Groups:
+    """Group bounding boxes and radii of the targets [t0, t0 + n), then one
+    BFS traversal per group."""
     dev = x.device
     n_groups = -(-n // group_size)
-    gx, gy, gz, gh = (_group_rows(a, n, group_size, n_groups) for a in (x, y, z, h))
+    gx, gy, gz, gh = (_group_rows(a[t0:], n, group_size, n_groups) for a in (x, y, z, h))
     lane = torch.arange(group_size, device=dev)
     gvalid = torch.arange(n_groups, device=dev)[:, None] * group_size + lane[None, :] < n
 
@@ -143,9 +144,12 @@ def _groups(x, y, z, h, view: OctreeNsView, box: Box, n: int, group_size: int,
     return _Groups(gx, gy, gz, gh, gvalid, g_center, g_size, leaf_idx, n_cand, fmax)
 
 
-def _to_particles(counts: torch.Tensor, n_out: int) -> torch.Tensor:
-    """(n_groups, G) -> (n_out,) in particle order, zero-padded or cut."""
+def _to_particles(counts: torch.Tensor, n_out: int, t0: int = 0) -> torch.Tensor:
+    """(n_groups, G) of the targets from slot t0 on -> (n_out,) in particle
+    order, zero-padded or cut."""
     counts = counts.reshape(-1)
+    if t0:
+        counts = torch.cat([counts.new_zeros(t0), counts])
     if counts.shape[0] < n_out:
         return torch.cat([counts, counts.new_zeros(n_out - counts.shape[0])])
     return counts[:n_out]
@@ -219,10 +223,11 @@ def _dense_inputs(x, y, z, grp: _Groups, box: Box, cand_idx, cand_valid):
 
 
 def _pairs_chunked(x, y, z, grp: _Groups, box: Box, cand_idx, cand_valid, chunk: int,
-                   with_indices: bool, ng_max: int):
+                   with_indices: bool, ng_max: int, t0: int = 0):
     """The XLA route: chunks of groups tested all-pairs in PyTorch with a
     per-pair round(d / L) image; optionally the first ng_max neighbor
-    indices per target in candidate order, -1 padded."""
+    indices per target in candidate order, -1 padded. The targets start
+    at slot t0."""
     dev = x.device
     n_groups, G = grp.gx.shape
     mode = IMAGE_ROUND if _periodic(box) else IMAGE_NONE
@@ -233,7 +238,7 @@ def _pairs_chunked(x, y, z, grp: _Groups, box: Box, cand_idx, cand_valid, chunk:
     for s in range(0, n_groups, chunk):
         e = min(n_groups, s + chunk)
         ci, cv = cand_idx[s:e], cand_valid[s:e]
-        tgt_idx = torch.arange(s, e, device=dev)[:, None] * G + lane[None, :]
+        tgt_idx = t0 + torch.arange(s, e, device=dev)[:, None] * G + lane[None, :]
         ok = (ci[:, None, :] != tgt_idx[:, :, None]) & cv[:, None, :] & grp.gvalid[s:e, :, None]
         th = grp.gh[s:e]
         within = pair_within((grp.gx[s:e], grp.gy[s:e], grp.gz[s:e]), (2.0 * th) * (2.0 * th),
@@ -255,11 +260,18 @@ def _zero(dev) -> torch.Tensor:
 def _find_neighbors_impl(x, y, z, h, view: OctreeNsView, box: Box, ng_max: int, group_size: int,
                          cand_leaf_cap: int, cand_cap: int, chunk: int, with_indices: bool,
                          n_targets: int, use_pallas=False, frontier_cap: int = 64,
-                         run_cap: int = 48):
-    """(counts (len(x),) int32, index lists or None, NbStats)."""
+                         run_cap: int = 48, target_offset: int = 0):
+    """(counts (len(x),) int32, index lists or None, NbStats). The targets
+    are the slots [target_offset, target_offset + n_targets) (the JAX
+    package's targets start at slot 0; an offset runs on the PyTorch
+    route only); every slot is a candidate. Slots outside the targets get
+    count 0 and no neighbours."""
     dev = x.device
     n_out = x.shape[0]
-    grp = _groups(x, y, z, h, view, box, n_targets, group_size, cand_leaf_cap, frontier_cap)
+    t0 = int(target_offset)
+    if t0 and use_pallas:
+        raise ValueError("target_offset runs on the PyTorch route (use_pallas=False) only")
+    grp = _groups(x, y, z, h, view, box, n_targets, group_size, cand_leaf_cap, frontier_cap, t0)
     leaf_max = grp.n_cand.max()
     frontier_max = grp.frontier_max.max()
     no_pbc_fault = torch.zeros((), dtype=torch.bool, device=dev)
@@ -277,14 +289,16 @@ def _find_neighbors_impl(x, y, z, h, view: OctreeNsView, box: Box, ng_max: int, 
         stats = NbStats(leaf_max, frontier_max, total_cand.max(), _zero(dev), bad)
         return _to_particles(counts, n_out), None, stats
 
-    counts, nbs = _pairs_chunked(x, y, z, grp, box, cand_idx, cand_valid, chunk, with_indices, ng_max)
+    counts, nbs = _pairs_chunked(x, y, z, grp, box, cand_idx, cand_valid, chunk, with_indices, ng_max, t0)
     stats = NbStats(leaf_max, frontier_max, total_cand.max(), _zero(dev), no_pbc_fault)
     if with_indices:
         nbs = nbs.reshape(-1, ng_max)
+        if t0:
+            nbs = torch.cat([nbs.new_full((t0, ng_max), -1), nbs])
         if nbs.shape[0] < n_out:
             nbs = torch.cat([nbs, nbs.new_full((n_out - nbs.shape[0], ng_max), -1)])
         nbs = nbs[:n_out]
-    return _to_particles(counts, n_out), nbs, stats
+    return _to_particles(counts, n_out, t0), nbs, stats
 
 
 def check_nb_stats(stats: NbStats, cand_leaf_cap: int, frontier_cap: int, cand_cap: int,
