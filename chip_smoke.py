@@ -169,9 +169,26 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      error below 2e-2 and the 95th percentile below 0.2. Prints the ms of
      the sync, the centres, the call and, apart, its P2P leaf walk,
      monopole walk and P2P sums. Path I launches no kernel.
+ 14. path J, the dense p2p protocol over a peer window: (a) path F's
+     inputs, capacities and steps on LET_RANKS thread ranks with
+     Domain(peer_window=W), the cold step grown from W = 1 by
+     overflow_detail[6] (each try a sync), then 3 drift steps at the
+     converged W. Checks at every try: every rank's halo record holds
+     2W+1 rows, and overflow_detail[6] equals the largest rank offset of
+     the halo leaves' owners and of diagnostics()' mac_peer_max_offset
+     where that exceeds W; at the converged W: path F's checks against
+     phase 4 and every rank's assignment, focus leaves, halo flags,
+     layout, buffer size and halo ids equal to path F's at the same step,
+     B1 and B2 once a rank and step, the last step's launches equal to
+     plain. Prints per sync W, win_need, each rank's ppermute and
+     all_to_all rounds and bytes beside path F's, the sync wall beside
+     path F's, and each rank's ms in find_peers_mac. (b) the converged
+     W's cold step on LET_RANKS rank processes over gloo (spawn_ranks),
+     equal to (a)'s, B1/B2 once in each, held to plain there.
 Each path's launch counts are set to 0 just before it is driven and read
 just after (paths E and F each over their 4 steps; path G in each rank
-process, summed; path H over its two routes). Every kernel's bound is the larger of its FP32 operations over
+process, summed; path H over its two routes; path J over (a), plus (b)'s
+processes). Every kernel's bound is the larger of its FP32 operations over
 67 TFLOP/s and its bytes over 3.35 TB/s, counted from that run's inputs;
 no single PyTorch call computes any of these functions, so library_ms is
 null. Kernel-vs-plain checks of phases 3, 5, 6 and 12 take the
@@ -179,7 +196,9 @@ arguments and results of the path's own launches (record_launches).
 Kernel times: CUDA events around back-to-back launches (phases 4 and 6);
 in phase 5, whose short launches the host could not keep the card busy
 with, device time: CUDA events around launches queued behind a spin
-kernel (device_time_ms); plain times: one call. The
+kernel (device_time_ms), each same-tier B1 launch also timed every way
+scripts/torch_sym_kernels.py times it (tier_timer_readings); plain
+times: one call. The
 line before last is the kernel summary JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -369,6 +388,23 @@ def device_time_ms(fn, reps):
         if queued:
             return start.elapsed_time(end) / reps
     raise RuntimeError("chip_smoke check failed: the calls' issue outlasted every spin kernel")
+
+
+def tier_timer_readings(fn) -> dict:
+    """One launch timed, in ms a call, every way this script and
+    scripts/torch_sym_kernels.py time it: device_time_ms with queues of 1,
+    5 (this script's), 20 (the script's queued_ms) and 80 calls; CUDA
+    events around 20 calls issued to an idle card (the script's ms); the
+    script's torch.profiler sums over 20 calls, of every kernel and memset
+    of the call and of the stencil kernel alone (0 where the profiler
+    records nothing). A cost paid once a queue would show as a reading
+    that falls with the queue's length."""
+    from scripts.torch_sym_kernels import device_ms
+
+    out = {f"queue_{n}": device_time_ms(fn, n) for n in (1, 5, 20, 80)}
+    out["events_20"] = cuda_time_ms(fn, 20)
+    out["profiler_all_20"], out["profiler_kernel_20"] = device_ms(fn, 20)
+    return out
 
 
 def timed_ms(fn):
@@ -977,6 +1013,9 @@ def tiered_phase(dev, card):
             shape = (f"same tier, level {level}, cap {args[0].shape[1]}, bound {b_ms:.4f} ms "
                      f"({b_by})")
             err.counts(name, got, want, shape)
+            readings = tier_timer_readings(new)
+            print(f"{name} on path A, level {level}: the timers' readings, ms a call: "
+                  f"{json.dumps({k: round(v, 5) for k, v in readings.items()})} [{card}]", flush=True)
         print(f"{name} on path A, {shape}: bit-equal to plain; kernel {ms:.4f} ms (device time), "
               f"plain {plain_ms:.4f} ms (one call) [{card}]", flush=True)
 
@@ -1484,16 +1523,17 @@ class RankTimer:
 
 
 class RankTally:
-    """Counts one rank's all_to_all and ragged_all_to_all rounds and the
-    bytes it sends in them, by wrapping the methods of its own comm (a
-    thread's RankComm or a process's DistComm alike): an all_to_all sends
-    its (n_ranks, ...) buffer, its own row included, a ragged round the
-    rows of its chunks, summed on the card without a host read. A
+    """Counts one rank's all_to_all, ragged_all_to_all and ppermute rounds
+    and the bytes it sends in them, by wrapping the methods of its own comm
+    (a thread's RankComm or a process's DistComm alike): an all_to_all
+    sends its (n_ranks, ...) buffer, its own row included, a ragged round
+    the rows of its chunks, summed on the card without a host read, a
+    ppermute round its tensor where a pair names the rank as a source. A
     DistComm under gloo also counts its host staging (staged_bytes)."""
 
     def __init__(self, comm):
         self.comm = comm
-        a2a, ragged = comm.all_to_all, comm.ragged_all_to_all
+        a2a, ragged, ppermute = comm.all_to_all, comm.ragged_all_to_all, comm.ppermute
         self.reset()
 
         def all_to_all(t):
@@ -1507,7 +1547,14 @@ class RankTally:
             self.ragged_bytes = self.ragged_bytes + send_sizes.clamp(min=0).sum() * row
             return ragged(operand, output, input_offsets, send_sizes, output_offsets, recv_sizes)
 
-        comm.all_to_all, comm.ragged_all_to_all, comm.tally = all_to_all, ragged_all_to_all, self
+        def permute(t, pairs):
+            self.ppermute_rounds += 1
+            if any(src == comm.rank for src, _ in pairs):
+                self.ppermute_bytes += t.numel() * t.element_size()
+            return ppermute(t, pairs)
+
+        comm.all_to_all, comm.ragged_all_to_all, comm.ppermute = all_to_all, ragged_all_to_all, permute
+        comm.tally = self
 
     @classmethod
     def of(cls, comm) -> "RankTally":
@@ -1516,11 +1563,13 @@ class RankTally:
 
     def reset(self):
         self.rounds = self.nbytes = self.ragged_rounds = self.ragged_bytes = 0
+        self.ppermute_rounds = self.ppermute_bytes = 0
         self.staged0 = getattr(self.comm, "staged_bytes", 0)
 
     def read(self) -> dict:
         return {"all_to_all": self.rounds, "all_to_all_bytes": self.nbytes, "ragged": self.ragged_rounds,
-                "ragged_bytes": int(self.ragged_bytes),
+                "ragged_bytes": int(self.ragged_bytes), "ppermute": self.ppermute_rounds,
+                "ppermute_bytes": self.ppermute_bytes,
                 "staged_bytes": getattr(self.comm, "staged_bytes", 0) - self.staged0}
 
 
@@ -1559,14 +1608,15 @@ def drift_input(inp, drift, sgn):
                                for i, c in enumerate(inp["xyz"])))
 
 
-def make_domain(comm, caps, mode, protocol, dev):
+def make_domain(comm, caps, mode, protocol, dev, window=0):
     """A rank's Domain; the p2p capacities 0 take the Domain's defaults,
-    and "halo" is both the request and the particle capacity."""
+    and "halo" is both the request and the particle capacity; `window`
+    is the dense protocol's peer window (0: none)."""
     from cstone_tpu_torch.domain import Domain
 
     return Domain(bucket_size=BUCKET, tree_capacity=caps["tree"], focus_capacity=caps["focus"], theta=LET_THETA,
                   exchange_mode=mode, protocol=protocol, comm=comm, device=dev, move_cap=caps["move"],
-                  treelet_cap=caps["treelet"], halo_req_cap=caps["halo"], halo_cap=caps["halo"])
+                  treelet_cap=caps["treelet"], halo_req_cap=caps["halo"], halo_cap=caps["halo"], peer_window=window)
 
 
 def rank_sync(comm, domain, state, inp):
@@ -2262,6 +2312,200 @@ def gravity_phase(dev, card):
             "p95": p95, "leaf_cap": leaf_cap, "cand_cap": cand_cap}
 
 
+# ----------------------------------------------------------------------------
+# phase 14: path J, the dense p2p protocol over a peer window
+# ----------------------------------------------------------------------------
+
+WINDOW_TRIES = 4
+
+
+def window_cold_step(comm, setup, caps, window):
+    """Path J's cold step on one rank: a p2p Domain, dense protocol, over a
+    peer window of `window` ranks, at path F's inputs and capacities, one
+    sync. Returns (state, res, span, input, domain, the comm's RankTally,
+    reset before the sync)."""
+    tally = RankTally.of(comm)
+    tally.reset()
+    domain = make_domain(comm, caps, "p2p", "dense", setup["ids"].device, window)
+    state = domain.init_state(box=setup["box"], boundaries=(1, 1, 1))
+    inp = rank_input(setup, comm.rank, caps["local"])
+    state, res, span = rank_sync(comm, domain, state, inp)
+    return state, res, span, inp, domain, tally
+
+
+def window_need_of(domain, state, res) -> int:
+    """What overflow_detail[6] must say for one rank: the largest rank
+    offset of its halo leaves' owners and of its MAC peers (diagnostics'
+    mac_peer_max_offset), where that exceeds the window; else 0."""
+    import torch
+
+    from cstone_tpu_torch.ops.primitives import searchsorted
+
+    n_leaf = int(res.tree.n_leaf)
+    owner = torch.clamp(searchsorted(state.assignment.boundaries, res.tree.leaves[:n_leaf], side="right") - 1,
+                        0, domain.n_ranks - 1)
+    halo = res.halo_flags[:n_leaf].bool()
+    off = int((owner[halo] - domain.rank).abs().max()) if bool(halo.any()) else 0
+    need = max(off, domain.diagnostics(state, res)["mac_peer_max_offset"])
+    return need if need > domain.peer_window else 0
+
+
+def window_lines(what, window, results, spans, stats, peers_ms, path_f, step, card) -> None:
+    """Print one path-J sync's window, overflow, rounds, bytes and walls
+    beside path F's at the same step."""
+    wall = 1e3 * (max(e for _, e in spans) - min(s for s, _ in spans))
+    per_rank = [1e3 * (e - s) for s, e in spans]
+    detail = results[0].overflow_detail.tolist()
+    peers = [round(peers_ms.get(f"rank-{r}", 0.0), 3) for r in range(len(results))]
+    print(f"{what}: W {window}, win_need {detail[6]}, overflow_detail {detail}; {len(results)}-rank sync wall "
+          f"{wall:.3f} ms (path F {path_f['walls'][step]:.3f}); per rank sync ms "
+          f"{json.dumps([round(t, 3) for t in per_rank])}, of it find_peers_mac ms {json.dumps(peers)} [{card}]",
+          flush=True)
+    print(f"{what}: per rank ppermute rounds {json.dumps([x['ppermute'] for x in stats])}, bytes sent "
+          f"{json.dumps([x['ppermute_bytes'] for x in stats])}; all_to_all rounds "
+          f"{json.dumps([x['all_to_all'] for x in stats])}, bytes {json.dumps([x['all_to_all_bytes'] for x in stats])}"
+          f" (path F: all_to_all rounds {json.dumps(path_f['rounds'][step])}, bytes "
+          f"{json.dumps(path_f['bytes'][step])})", flush=True)
+
+
+def path_j_rank(comm, tree_cap, window):
+    """One rank process of path J (b) (run by parallel.dist.spawn_ranks):
+    the cold step at the window path J (a) converged to, then B1 and B2 on
+    the rank's buffer, each launch held to its plain version here."""
+    from cstone_tpu_torch.ops import neighbors_v1, neighbors_v2, stencil
+    from cstone_tpu_torch.ops.cuda_lib import record_launches
+
+    libs = (stencil.SYM_LIBRARY, stencil.LIBRARY, neighbors_v2.LIBRARY, neighbors_v1.LIBRARY)
+    for lib in libs:
+        lib.load()  # the libraries phase 2 built: loaded, never built here
+    setup = ranks_setup(comm.device)
+    reset_all_launches()
+    state, res, span, inp, domain, tally = window_cold_step(comm, setup, first_caps(tree_cap), window)
+    stats = tally.read()
+    with record_launches() as calls:
+        after = rank_after(comm, domain, state, res, inp)
+    launches = all_launches()
+    err = Errors()
+    hold_to_plain(err, calls, f"path-J (b) inputs, rank {comm.rank}")
+    return {"built": [lib.source.name for lib in libs if lib.build_log], "rec": rank_record(state, res, after, span,
+                                                                                          stats),
+            "rows": (res.halo_record.window, res.halo_record.send_idx.shape[0]), "launches": launches,
+            "launched": sorted(c[0] for c in calls), "err": err.max}
+
+
+def window_phase(dev, card, reference, tree_cap, path_f):
+    """Phase 14, path J: (a) LET_RANKS ranks as threads (run_ranks) of the
+    p2p Domain with the dense protocol over a peer window, path F's inputs
+    and capacities; the cold step grows the window from 1 by
+    overflow_detail[6], then POOL_DRIFT_STEPS drift steps at the converged
+    window, B1 and B2 on every rank's buffer after each sync; checked
+    against phase 4 and path F at every step. (b) the converged window's
+    cold step on LET_RANKS rank processes over gloo, equal to (a). Returns
+    (launches of (a) and (b), Errors)."""
+    import torch
+
+    from cstone_tpu_torch.domain import domain as domain_module
+    from cstone_tpu_torch.ops.cuda_lib import record_launches
+    from cstone_tpu_torch.parallel import run_ranks
+    from cstone_tpu_torch.parallel.dist import spawn_ranks
+
+    R = LET_RANKS
+    setup = ranks_setup(dev)
+    caps = first_caps(tree_cap)
+    t_start = time.perf_counter()
+
+    # (a) the cold step, the window grown from 1
+    reset_all_launches()
+    window, tries = 1, []
+    for _ in range(WINDOW_TRIES):
+        with RankTimer(domain_module, "find_peers_mac") as peers:
+            outs = run_ranks(R, lambda comm: window_cold_step(comm, setup, caps, window))
+        states, results, spans, inputs, domains, tallies = ([o[i] for o in outs] for i in range(6))
+        detail = results[0].overflow_detail.tolist()
+        tries.append((window, detail))
+        for r, res in enumerate(results):
+            rec = res.halo_record
+            check(rec.window == window and rec.send_idx.shape[0] == 2 * window + 1,
+                  f"path J, W={window}, rank {r}: a halo record of window {rec.window}, {rec.send_idx.shape[0]} rows")
+            check(torch.equal(res.overflow_detail, results[0].overflow_detail), "the ranks report different overflows")
+        want = max(window_need_of(d, st, res) for d, st, res in zip(domains, states, results))
+        check(detail[6] == want, f"path J, W={window}: overflow_detail[6] is {detail[6]}, the halo owners and "
+              f"MAC peers need {want}")
+        window_lines(f"path J, cold step, try {len(tries)}", window, results, spans, [t.read() for t in tallies],
+                     peers.ms, path_f, 0, card)
+        if int(results[0].overflow) == 0:
+            break
+        check(detail[6] > window, f"path J: an overflow without a window report: {tries}")
+        window = detail[6]
+    else:
+        raise RuntimeError(f"chip_smoke check failed: path J's window never converged: {tries}")
+    print(f"path J: the window grew {' -> '.join(str(w) for w, _ in tries)} in {len(tries)} cold syncs; halo "
+          f"records of 2W+1 rows at every try [{card}]", flush=True)
+
+    # (a) the drift steps at the converged window
+    err = Errors()
+    box = setup["box"]
+    record, sgn = [], 1.0
+    for step in range(1 + POOL_DRIFT_STEPS):
+        what = f"path J, W={window}, " + ("cold step" if step == 0 else f"drift step {step}")
+        if step > 0:
+            inputs = [drift_input(inp, setup["drift"], sgn) for inp in inputs]
+            sgn = -sgn
+            for t in tallies:
+                t.reset()
+            with RankTimer(domain_module, "find_peers_mac") as peers:
+                outs = run_ranks(R, rank_sync, domains, states, inputs)
+            states, results, spans = ([o[i] for o in outs] for i in range(3))
+            window_lines(what, window, results, spans, [t.read() for t in tallies], peers.ms, path_f, step, card)
+        with record_launches() as calls:
+            after = run_ranks(R, rank_after, domains, states, results, inputs)
+        pool_checks(what, reference[step], states, results, after, box, False, card)
+        record.append(path_record(states, results, after))
+        same_as_path_e(what, path_f["record"][step], record[step], "path F")
+        inputs = [a["next"] for a in after]
+    launches = all_launches()
+    for k in ("stencil_counts", "stencil_density"):
+        check(launches[k] == R * (1 + POOL_DRIFT_STEPS), f"{k} should launch once per rank and step: {launches}")
+    names = sorted(c[0] for c in calls)
+    check(names == ["stencil_counts"] * R + ["stencil_density"] * R, f"path J's last step launched {names}")
+    hold_to_plain(err, calls, "path-J inputs")
+    print(f"path J (a): {R} thread ranks, {1e3 * (time.perf_counter() - t_start):.3f} ms; launches "
+          f"{json.dumps(launches)}; the last step's {len(calls)} B1/B2 launches equal their plain versions [{card}]",
+          flush=True)
+
+    # (b) the converged window's cold step on rank processes
+    t0 = time.perf_counter()
+    outs = spawn_ranks(R, path_j_rank, [tree_cap] * R, [window] * R, backend="gloo", device=dev, timeout=600.0,
+                       deadline=600.0)
+    print(f"path J (b): {R} rank processes over gloo, the cold step at W={window}, "
+          f"{1e3 * (time.perf_counter() - t0):.3f} ms with the processes' start [{card}]", flush=True)
+    check(all(not o["built"] for o in outs), f"a rank process built a kernel: {[o['built'] for o in outs]}")
+    recs = [o["rec"] for o in outs]
+    check(all(o["rows"] == (window, 2 * window + 1) for o in outs), f"path J (b): halo records {[o['rows'] for o in outs]}")
+    check(all(rec["overflow_detail"] == tries[-1][1] for rec in recs), "path J (b): the overflow differs from (a)'s")
+    what = f"path J (b), W={window}, cold step"
+    spans = [rec["span"] for rec in recs]
+    c = [rec["comm"] for rec in recs]
+    print(f"{what}: {R}-process sync wall {1e3 * (max(e for _, e in spans) - min(s for s, _ in spans)):.3f} ms; per "
+          f"rank ppermute rounds {json.dumps([x['ppermute'] for x in c])}, bytes sent "
+          f"{json.dumps([x['ppermute_bytes'] for x in c])}; all_to_all rounds {json.dumps([x['all_to_all'] for x in c])}; "
+          f"staged through host memory {json.dumps([x['staged_bytes'] for x in c])} [{card}]", flush=True)
+    pool_checks(what, reference[0], *rank_views(recs), None, False, card)
+    same_as_path_e(what, record[0], [{k: rec[k] for k in ("boundaries", "leaves", "halo_flags", "layout",
+                                                           "n_with_halos", "halo_ids")} for rec in recs],
+                   "path J (a)")
+    for k in ("stencil_counts", "stencil_density"):
+        check(all(o["launches"][k] == 1 for o in outs), f"path J (b): {k} should launch once in every rank")
+        launches[k] += sum(o["launches"][k] for o in outs)
+    check(all(o["launched"] == ["stencil_counts", "stencil_density"] for o in outs), "path J (b): launches")
+    for o in outs:
+        for k, v in o["err"].items():
+            err.max[k] = max(err.max[k], v)
+    print(f"path J launches, threads and processes: {json.dumps(launches)}; phase 14 took "
+          f"{time.perf_counter() - t_start:.3f} s [{card}]", flush=True)
+    return launches, err
+
+
 def same_as_path_e(what, want, got, ref="path E") -> None:
     """A path against path E (or `ref`) at the same step: per rank the
     assignment, the focus tree's leaves, the halo flags, the layout and
@@ -2464,7 +2708,6 @@ def main():
 
     phase("11 path G: 8 rank processes on the card, dense and ragged p2p + cell-list counts and density")
     launches_g, err11 = processes_phase(dev, card, reference, tree_cap, path_f)
-    del path_f
 
     phase("12 path H: bench.py fn mode's grid cover and depth-first walk feeding B5")
     launches_h, err12, _ = fn_feeds_phase(dev, card, phase6)
@@ -2474,7 +2717,11 @@ def main():
     simulation_phase(dev, card, tree_cap)
     gravity_phase(dev, card)
 
-    for e in (err4, err5, err6, err7, err9, err10, err11, err12):
+    phase("14 path J: 8 ranks of the dense p2p protocol over a peer window, threads then processes")
+    launches_j, err14 = window_phase(dev, card, reference, tree_cap, path_f)
+    del path_f
+
+    for e in (err4, err5, err6, err7, err9, err10, err11, err12, err14):
         for k, v in e.max.items():
             err.max[k] = max(err.max[k], v)
     print(f"total time {time.perf_counter() - t_start:.3f} s [{card}]", flush=True)
@@ -2482,7 +2729,8 @@ def main():
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
          "max_abs_err": err.max[name], "library_ms": None, "path_c_launches": launches_c.get(name, 0),
          "path_e_launches": launches_e.get(name, 0), "path_f_launches": launches_f.get(name, 0),
-         "path_g_launches": launches_g.get(name, 0), "path_h_launches": launches_h.get(name, 0), **timing[name]}
+         "path_g_launches": launches_g.get(name, 0), "path_h_launches": launches_h.get(name, 0),
+         "path_j_launches": launches_j.get(name, 0), **timing[name]}
         for name, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,12 +7,15 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Tuple
 
+import numpy as np
 import torch
 
-from ..ops.keys64 import umax, umin
+from ..ops.keys64 import np_key_dtype, umax, umin
 from ..ops.primitives import searchsorted
+from ..sfc.keys import max_tree_level
 
-__all__ = ["SfcAssignment", "uniform_bins", "make_sfc_assignment", "find_rank", "limit_boundary_shifts"]
+__all__ = ["SfcAssignment", "uniform_bins", "make_sfc_assignment", "find_rank", "limit_boundary_shifts",
+           "create_send_offsets", "translate_assignment", "initial_domain_splits"]
 
 
 @dataclass(frozen=True)
@@ -78,3 +81,43 @@ def limit_boundary_shifts(old: SfcAssignment, new: SfcAssignment, tree_keys, cou
     scan = _count_scan(counts)
     pos = searchsorted(tree_keys, boundaries, side="left")
     return SfcAssignment(boundaries=boundaries, counts=_take(scan, pos[1:]) - _take(scan, pos[:-1]))
+
+
+def create_send_offsets(assignment: SfcAssignment, particle_keys: torch.Tensor, n_particles=None) -> torch.Tensor:
+    """(n_ranks+1,) offsets into the sorted local particle keys, one per
+    destination rank's start (domaindecomp.hpp:208-230); cut at
+    n_particles when given. int64."""
+    offs = searchsorted(particle_keys, assignment.boundaries, side="left")
+    if n_particles is not None:
+        offs = torch.minimum(offs, torch.as_tensor(n_particles, dtype=offs.dtype, device=offs.device))
+    return offs
+
+
+def translate_assignment(assignment: SfcAssignment, focus_leaves: torch.Tensor, n_focus, peer_mask: torch.Tensor,
+                         my_rank: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-rank (start, end) focus-tree leaf index ranges of the peers and
+    of this rank (domaindecomp.hpp:168-206, findNodeAbove/findNodeBelow
+    against the focus tree); ranks that are neither get (0, 0). int64."""
+    b = assignment.boundaries
+    n_focus = torch.as_tensor(n_focus, dtype=torch.int64, device=b.device)
+    starts = torch.minimum(searchsorted(focus_leaves, b[:-1], side="left"), n_focus)
+    ends = torch.minimum(torch.maximum(searchsorted(focus_leaves, b[1:], side="right") - 1, starts), n_focus)
+    r = torch.arange(assignment.n_ranks, device=b.device)
+    keep = peer_mask.to(torch.bool) | (r == my_rank)
+    return torch.where(keep, starts, 0), torch.where(keep, ends, 0)
+
+
+def initial_domain_splits(n_ranks: int, level: int, key_dtype) -> np.ndarray:
+    """Equal-length SFC segments for the first decomposition, each
+    boundary rounded down to a level-`level` node (domaindecomp.hpp:
+    232-255). A host array of the logical key dtype (uint32/uint64)."""
+    dt = np_key_dtype(key_dtype)
+    lmax = max_tree_level(dt)
+    total = np.uint64(1) << np.uint64(3 * lmax)
+    delta = total // np.uint64(n_ranks)
+    mask = ~((np.uint64(1) << np.uint64(3 * (lmax - level))) - np.uint64(1))
+    ret = np.zeros(n_ranks + 1, dtype=dt)
+    for i in range(1, n_ranks):
+        ret[i] = dt.type((np.uint64(i) * delta) & mask)
+    ret[n_ranks] = dt.type(total)
+    return ret

@@ -25,8 +25,9 @@ package's `axis_name`:
 
 p2p mode runs the dense protocols (protocol="dense", the default) or the
 ragged ones of parallel/ragged.py (protocol="ragged"); the particle
-exchange is dense in both. Still raising NotImplementedError, naming
-ROADMAP.md Queue 1, item 4: peer_window > 0 (the windowed protocol).
+exchange is dense in both. With peer_window = W > 0 the dense services
+and halo moves run over the peer window of ranks me-W..me+W
+(parallel/exchange.py's windowed protocol).
 
 Shapes are capacity-padded exactly as in the JAX package, so a SyncResult
 compares with JAX slot for slot. The JAX `while_loop`/`cond` become Python
@@ -48,9 +49,8 @@ from ..focus.source_center import set_mac_radii, upsweep_centers
 from ..ops.keys64 import np_key_dtype, usort
 from ..ops.primitives import searchsorted, segment_ids_from_offsets, segment_max, segment_sum, sort_by_key
 from ..parallel.comm import RankComm
-from ..parallel.exchange import (ITEM_WINDOWED, ExchangeRecord, HaloRecord, build_halo_exchange,
-                                 exchange_halo_field, exchange_particles, range_count_service,
-                                 range_sum_service, replay_exchange)
+from ..parallel.exchange import (ExchangeRecord, HaloRecord, build_halo_exchange, exchange_halo_field,
+                                 exchange_particles, range_count_service, range_sum_service, replay_exchange)
 from ..parallel.global_tree import converge_global_octree, global_bounds
 from ..parallel.ragged import (RaggedHaloRecord, build_halo_exchange_ragged, exchange_halo_field_ragged,
                                range_count_service_ragged, range_sum_service_ragged)
@@ -215,9 +215,16 @@ class Domain:
     package's `local_capacity` argument, which it never reads, is not
     taken).
 
-    peer_window > 0 raises NotImplementedError with the dense protocol
-    (ROADMAP.md Queue 1, item 4) and ValueError with the ragged one, as in
-    the JAX package (at one rank the window is 0).
+    peer_window = W > 0 scopes the dense count and sum services and the
+    halo protocol to the ranks within +-W on the rank axis (SFC-surface
+    peers, the findPeersMac bound, peers.hpp:63-117): buffers of 2W+1 rows
+    instead of n_ranks, moved by ppermute rounds. Foreign cells outside
+    the window take their counts from the global tree (rangeCount,
+    rebalance.hpp:279-299). A window too small for the halo owners or the
+    MAC peers is reported in overflow_detail[6] (the largest rank offset
+    needed), which sync_with_retry grows like any capacity. W is clipped
+    to n_ranks - 1 (0 at one rank), as in the JAX package; with
+    protocol="ragged" a window above 0 raises ValueError.
     """
 
     def __init__(
@@ -252,11 +259,10 @@ class Domain:
         protocol = "dense" if protocol is None else protocol
         if protocol not in ("dense", "ragged"):
             raise ValueError(f"unknown protocol {protocol!r}")
-        if protocol == "ragged" and min(int(peer_window), max(n_ranks - 1, 0)) > 0:
+        peer_window = min(int(peer_window), max(n_ranks - 1, 0))
+        if protocol == "ragged" and peer_window:
             raise ValueError("peer_window applies to protocol='dense' only; the ragged "
                              "protocols are surface-sized without a rank window")
-        if protocol == "dense" and int(peer_window) > 0:
-            raise NotImplementedError(f"peer_window is not ported yet ({ITEM_WINDOWED})")
         if not 0 <= rank < n_ranks:
             raise ValueError(f"rank {rank} outside [0, {n_ranks})")
         if comm is None and n_ranks > 1:
@@ -266,6 +272,7 @@ class Domain:
         self.comm = comm
         self.exchange_mode = exchange_mode
         self.protocol = protocol
+        self.peer_window = peer_window
         self.bucket_size = int(bucket_size)
         self.bucket_size_focus = int(bucket_size_focus) or self.bucket_size
         self.tree_capacity = int(tree_capacity)
@@ -402,7 +409,7 @@ class Domain:
             # range-count service (updateCounts, octree_focus_mpi.hpp:205-273)
             def counts_fn(leaves, n_leaf):
                 return self._leaf_counts_service(leaves, n_leaf, okeys, n_owned, assignment.boundaries,
-                                                 treelet_cap)
+                                                 treelet_cap, tree)
 
             (_, _, linked, node_counts_f, focus_conv_ovf, svc_ovf, focus_converged) = focus_converge(
                 state.focus_leaves, state.focus_n, None, None, box, focus_start, focus_end,
@@ -444,6 +451,7 @@ class Domain:
         start_index = layout[first_leaf]
         end_index = layout[last_leaf]
 
+        win_need = zero
         if single:
             # ---- 9./10. placement is the identity: layout order == sorted order
             halo_rec, halo_ovf = None, zero
@@ -457,9 +465,15 @@ class Domain:
             # ---- 10. halo exchange of x, y, z, h and the properties --------
             dest_leaf = self._owner(assignment.boundaries, linked.leaves[:-1])
             halo_req = halo_flags.bool() & ~mine & (lif < linked.n_leaf)
-            build = build_halo_exchange_ragged if self.protocol == "ragged" else build_halo_exchange
-            halo_rec = build(linked.leaves[:-1], linked.leaves[1:], leaf_counts, layout, halo_req, dest_leaf, okeys,
-                             n_owned, self.n_ranks, halo_req_cap, halo_cap, self.comm)
+            args = (linked.leaves[:-1], linked.leaves[1:], leaf_counts, layout, halo_req, dest_leaf, okeys, n_owned,
+                    self.n_ranks, halo_req_cap, halo_cap, self.comm)
+            if self.protocol == "ragged":
+                halo_rec = build_halo_exchange_ragged(*args)
+            else:
+                W = self.peer_window or None
+                if W is not None:
+                    win_need = self._window_need(dest_leaf, halo_req, assignment, linked, box, itm)
+                halo_rec = build_halo_exchange(*args, my_rank=self.rank, window=W)
             halo_ovf = halo_rec.overflow
             new_x, new_y, new_z, new_h = (self._halo_field(o, place(o, 0.0), halo_rec) for o in (ox, oy, oz, oh))
             new_props = tuple(self._halo_field(o, place(o, 0), halo_rec) for o in oprops)
@@ -469,8 +483,8 @@ class Domain:
                                    compute_sfc_keys(new_x, new_y, new_z, box, self.key_dtype, self.curve), rk)
             new_keys = torch.where((j >= start_index) & (j < end_index), place(okeys, rk), new_keys)
 
-        overflow, detail = self._overflow(tree, linked, focus_conv_ovf, n_with_halos, cap,
-                                          move=move_ovf, svc=svc_ovf, halo=halo_ovf, extra=grav_ovf)
+        overflow, detail = self._overflow(tree, linked, focus_conv_ovf, n_with_halos, cap, move=move_ovf,
+                                          svc=svc_ovf, halo=halo_ovf, window=win_need, extra=grav_ovf)
         new_state = DomainState(
             box=box, assignment=assignment, global_tree=tree,
             focus_leaves=linked.leaves, focus_n=linked.n_leaf, first_call=False,
@@ -575,19 +589,19 @@ class Domain:
 
     # ------------------------------------------------------------------
     def _overflow(self, tree: CsArray, linked: LinkedOctree, focus_conv_ovf, n_with_halos, cap: int,
-                  move=None, svc=None, halo=None, extra=None):
+                  move=None, svc=None, halo=None, window=None, extra=None):
         """(overflow, the 7-entry overflow_detail), each the largest of all
         ranks. `extra` enters overflow only (syncGrav's range-sum
         overflow, as in the JAX package)."""
         zero = torch.zeros((), dtype=torch.int64, device=n_with_halos.device)
-        move, svc, halo, extra = (zero if v is None else v for v in (move, svc, halo, extra))
+        move, svc, halo, window, extra = (zero if v is None else v for v in (move, svc, halo, window, extra))
         gcap = tree.keys.shape[0] - 1
         cap_leaf = linked.leaves.shape[0] - 1
         tree_ovf = torch.where(tree.n_nodes > gcap, tree.n_nodes, zero)
         focus_ovf = torch.maximum(torch.where(linked.n_leaf > cap_leaf, linked.n_leaf, zero),
                                   focus_conv_ovf)
         local_ovf = torch.where(n_with_halos > cap, n_with_halos, zero)
-        detail = torch.stack([local_ovf, tree_ovf, focus_ovf, move, svc, halo, zero])
+        detail = torch.stack([local_ovf, tree_ovf, focus_ovf, move, svc, halo, window])
         both = torch.cat([detail, torch.stack([detail.max(), extra]).max()[None]])
         if self.comm is not None:
             # the largest of all ranks: every rank takes the same retry
@@ -649,11 +663,18 @@ class Domain:
                 n_local, tree_changed)
 
     # ------------------------------------------------------------------
-    def _leaf_counts_service(self, leaves, n_leaf, owned_keys, n_owned, boundaries, q_cap: int):
+    def _leaf_counts_service(self, leaves, n_leaf, owned_keys, n_owned, boundaries, q_cap: int,
+                             global_tree: CsArray):
         """Per-leaf counts of the focus tree (updateCounts,
         octree_focus_mpi.hpp:205-273): own cells by a local binary search,
         foreign cells by their owners' range-count service (three
-        all_to_all rounds, or two and two ragged ones). At one rank every cell is local and the
+        all_to_all rounds, or two and two ragged ones, or three windowed
+        exchanges). With a peer window, foreign cells of ranks outside it
+        take their counts from `global_tree` (rangeCount,
+        rebalance.hpp:279-299): exact where the cell is a union of global
+        cells, else the enclosing range's count, which can only delay a
+        merge; the layout counts only own and halo cells, whose owners
+        the window must hold. At one rank every cell is local and the
         service never overflows. Returns (counts int64, overflow)."""
         cap_leaf = leaves.shape[0] - 1
         pos = torch.minimum(searchsorted(owned_keys, leaves, side="left"), n_owned)
@@ -664,9 +685,42 @@ class Domain:
         a, b = leaves[:-1], leaves[1:]
         dest = self._owner(boundaries, a)
         mine = dest == self.rank
-        service = range_count_service_ragged if self.protocol == "ragged" else range_count_service
-        foreign, ovf = service(a, b, dest, lvalid & ~mine, owned_keys, n_owned, self.n_ranks, q_cap, self.comm)
-        return torch.where(lvalid, torch.where(mine, local, foreign), 0), ovf
+        args = (a, b, dest, lvalid & ~mine, owned_keys, n_owned, self.n_ranks, q_cap, self.comm)
+        W = self.peer_window or None
+        if self.protocol == "ragged":
+            foreign, ovf = range_count_service_ragged(*args)
+        else:
+            foreign, ovf = range_count_service(*args, my_rank=self.rank, window=W)
+        counts = torch.where(mine, local, foreign)
+        if W is not None:
+            far = ~mine & ((dest - self.rank).abs() > W)
+            counts = torch.where(far, self._global_range_counts(global_tree, a, b), counts)
+        return torch.where(lvalid, counts, 0), ovf
+
+    @staticmethod
+    def _global_range_counts(tree: CsArray, a, b):
+        """Counts of the key ranges [a, b) summed from the global tree
+        (rangeCount, focus/rebalance.hpp:279-299), over the global cells
+        from the one holding a to the last starting before b: exact where
+        the range is a union of global cells, an overcount otherwise. The
+        sums wrap at 2^32 as the JAX package's uint32 sums do."""
+        n_nodes = tree.n_nodes
+        gi = torch.arange(tree.counts.shape[0], device=a.device)
+        csum = torch.cat([tree.counts.new_zeros(1), torch.cumsum(torch.where(gi < n_nodes, tree.counts, 0), 0)])
+        i0 = torch.clamp(searchsorted(tree.keys, a, side="right") - 1, min=0)
+        i0 = torch.minimum(i0, n_nodes)
+        i1 = torch.minimum(torch.maximum(searchsorted(tree.keys, b, side="left"), i0), n_nodes)
+        return (csum[i1] - csum[i0]) & 0xFFFFFFFF
+
+    def _window_need(self, dest_leaf, halo_req, assignment, linked, box, itm):
+        """overflow_detail[6]: the largest rank offset the windowed protocols
+        must reach, over the halo owners and the MAC peers (findPeersMac,
+        peers.hpp:63-117), where it exceeds the window; else 0."""
+        off = torch.where(halo_req, (dest_leaf - self.rank).abs(), 0).max()
+        peers = find_peers_mac(self.rank, assignment, linked, box, itm(self.theta), self.curve)
+        r_ids = torch.arange(self.n_ranks, device=dest_leaf.device)
+        need = torch.maximum(off, torch.where(peers > 0, (r_ids - self.rank).abs(), 0).max())
+        return torch.where(need > self.peer_window, need, 0)
 
     def _owner(self, boundaries, keys):
         """The rank whose assignment range holds each key."""
@@ -711,9 +765,14 @@ class Domain:
             a, b = linked.leaves[:-1], linked.leaves[1:]
             dest = self._owner(boundaries, a)
             lvalid = torch.arange(cap_leaf, device=okeys.device) < linked.n_leaf
-            service = range_sum_service_ragged if self.protocol == "ragged" else range_sum_service
-            foreign, sum_ovf = service(a, b, dest, lvalid & (dest != self.rank), okeys, n_owned, vals, self.n_ranks,
-                                       treelet_cap, self.comm)
+            args = (a, b, dest, lvalid & (dest != self.rank), okeys, n_owned, vals, self.n_ranks, treelet_cap,
+                    self.comm)
+            if self.protocol == "ragged":
+                foreign, sum_ovf = range_sum_service_ragged(*args)
+            else:
+                # cells beyond a peer window are no MAC peers: their zero-mass
+                # centers take no part in the halo search
+                foreign, sum_ovf = range_sum_service(*args, my_rank=self.rank, window=self.peer_window or None)
             leaf_sums = torch.where((dest == self.rank)[:, None], leaf_sums, foreign)
         centers, spheres = self._node_centers(linked, leaf_sums, box)
         return centers, spheres, sum_ovf

@@ -5,8 +5,9 @@ MPI_COMM_WORLD in domain/domaindecomp_mpi.hpp).
 
 `RankComm` is what the port's multi-rank code takes where the JAX package
 takes an `axis_name`: `all_gather`, `all_reduce`, `all_reduce_flag`,
-`all_to_all` and `ragged_all_to_all`. parallel/dist.py's `DistComm` has
-the same collectives over torch.distributed, one process a rank.
+`all_to_all`, `ragged_all_to_all` and `ppermute`. parallel/dist.py's
+`DistComm` has the same collectives over torch.distributed, one process a
+rank.
 `run_ranks(n_ranks, fn, *per_rank_args)` runs `fn(comm, *args_r)` on one
 thread per rank; the ranks meet at a barrier inside each collective.
 
@@ -42,11 +43,11 @@ others.
 from __future__ import annotations
 
 import threading
-from typing import Any, Callable, List, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["RankComm", "RanksAborted", "run_ranks", "check_ragged_args"]
+__all__ = ["RankComm", "RanksAborted", "run_ranks", "check_ragged_args", "check_pairs", "source_of"]
 
 _REDUCE = {
     "sum": lambda s: s.sum(dim=0),
@@ -139,6 +140,21 @@ def check_ragged_args(comm, operand, output, *vectors) -> None:
     for v in vectors:
         if v.shape != (comm.n_ranks,):
             raise ValueError(f"offset and size vectors need shape ({comm.n_ranks},), got {tuple(v.shape)}")
+
+
+def check_pairs(comm, pairs) -> None:
+    """ppermute's pairs: (src, dst) ranks of the comm, no rank twice a
+    source or twice a destination."""
+    src, dst = [p[0] for p in pairs], [p[1] for p in pairs]
+    if any(not 0 <= r < comm.n_ranks for r in src + dst):
+        raise ValueError(f"ppermute pairs name ranks outside [0, {comm.n_ranks}): {list(pairs)}")
+    if len(set(src)) != len(src) or len(set(dst)) != len(dst):
+        raise ValueError(f"ppermute pairs name a rank twice as source or as destination: {list(pairs)}")
+
+
+def source_of(rank: int, pairs) -> Optional[int]:
+    """The rank that sends to `rank` under ppermute's pairs, or None."""
+    return next((s for s, d in pairs if d == rank), None)
 
 
 def land_chunk(output, operand, in_off, size, write_off) -> torch.Tensor:
@@ -239,6 +255,17 @@ class RankComm:
         for op, i_off, size, w_off in self._exchange((operand, input_offsets, send_sizes, output_offsets)):
             out = land_chunk(out, op, i_off[self.rank], size[self.rank], w_off[self.rank])
         return out
+
+    def ppermute(self, t: torch.Tensor, pairs: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        """jax.lax.ppermute: for every (src, dst) in pairs, rank dst gets
+        rank src's `t`; a rank that no pair names as dst gets zeros. Every
+        rank passes the same pairs and a `t` of one shape and dtype; no
+        rank is named twice as src or twice as dst. Returns a fresh
+        tensor."""
+        check_pairs(self, pairs)
+        src = source_of(self.rank, pairs)
+        got = self._exchange(t)
+        return torch.zeros_like(t) if src is None else got[src].clone()
 
 
 def run_ranks(n_ranks: int, fn: Callable, *per_rank_args: Sequence, timeout: float = 600.0) -> list:

@@ -4,7 +4,8 @@ axis that shard_map binds; reference: MPI_COMM_WORLD in
 domain/domaindecomp_mpi.hpp).
 
 `DistComm` has the collectives of parallel/comm.RankComm (`all_gather`,
-`all_reduce`, `all_reduce_flag`, `all_to_all`, `ragged_all_to_all`) over
+`all_reduce`, `all_reduce_flag`, `all_to_all`, `ragged_all_to_all`,
+`ppermute`) over
 an initialised torch.distributed process group, one process a rank, so
 the Domain and parallel/exchange.py and parallel/ragged.py take it
 unchanged.
@@ -41,12 +42,12 @@ import time
 import traceback
 import warnings
 from datetime import timedelta
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-from .comm import check_ragged_args
+from .comm import check_pairs, check_ragged_args, source_of
 
 __all__ = ["DistComm", "spawn_ranks", "comm_from_env", "RankFailed"]
 
@@ -184,6 +185,25 @@ class DistComm:
         out = torch.cat([output, output.new_zeros((1,) + tuple(output.shape[1:]))])  # row out_cap: dropped
         out[torch.where(keep, tgt, out_cap)] = got
         return out[:out_cap]
+
+    def ppermute(self, t: torch.Tensor, pairs: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        """jax.lax.ppermute (see RankComm.ppermute): rank dst gets rank
+        src's `t` for every (src, dst) in pairs, zeros where no pair names
+        it as dst. The rank's send and receive are posted together in one
+        batch_isend_irecv (blocking send/recv pairs can deadlock under
+        gloo); a rank that no pair names takes no part."""
+        check_pairs(self, pairs)
+        src = source_of(self.rank, pairs)
+        dst = next((d for s, d in pairs if s == self.rank), None)
+        w = self._send_form(t) if dst is not None else None
+        wire = torch.device("cpu") if self._staged else t.device
+        got = torch.empty(t.shape, dtype=t.dtype, device=wire) if src is not None else None
+        ops = ([dist.P2POp(dist.isend, w, dst)] if dst is not None else []) + \
+              ([dist.P2POp(dist.irecv, got, src)] if src is not None else [])
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return torch.zeros_like(t) if src is None else self._recv_form(got)
 
 
 def _quiet_deprecation() -> None:

@@ -16,7 +16,8 @@ from .keys import max_tree_level
 
 __all__ = [
     "OPEN", "PERIODIC", "FIXED", "Box", "IBox", "make_box",
-    "pbc_adjust", "pbc_distance", "apply_pbc", "center_and_size",
+    "pbc_adjust", "pbc_distance", "apply_pbc", "put_in_box", "center_and_size", "create_fp_box", "create_ibox",
+    "limit_box_shrinking",
 ]
 
 # boundary types (box.hpp:97-102)
@@ -105,6 +106,16 @@ def apply_pbc(dX: torch.Tensor, box: Box) -> torch.Tensor:
     return dX - pbc * lengths * torch.round(dX * il)
 
 
+def put_in_box(X: torch.Tensor, box: Box) -> torch.Tensor:
+    """Fold positions (..., 3) one box length back into the box along its
+    periodic dimensions (box.hpp:209-231)."""
+    pbc = torch.as_tensor(box.periodic_mask, dtype=X.dtype, device=X.device)
+    mins, maxs = box.mins.to(X.dtype), box.maxs.to(X.dtype)
+    lengths = box.lengths.to(X.dtype)
+    shift = torch.where(X > maxs, -lengths, torch.where(X < mins, lengths, torch.zeros_like(X)))
+    return X + pbc * shift
+
+
 def center_and_size(ibox: IBox, box: Box, key_dtype) -> Tuple[torch.Tensor, torch.Tensor]:
     """FP center and half-extent vectors of integer boxes (box.hpp:334-351),
     each (..., 3) in the box's float type."""
@@ -116,3 +127,30 @@ def center_and_size(ibox: IBox, box: Box, key_dtype) -> Tuple[torch.Tensor, torc
     center = box.mins + (imaxs + imins) * half
     size = (imaxs - imins) * half
     return center, size
+
+
+def create_fp_box(ibox: IBox, box: Box, key_dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Float (min, max) corners of integer boxes (box.hpp:361-370), each
+    (..., 3)."""
+    center, size = center_and_size(ibox, box, key_dtype)
+    return center - size, center + size
+
+
+def create_ibox(center: torch.Tensor, size: torch.Tensor, box: Box, key_dtype) -> IBox:
+    """The smallest integer box covering the float box center +- size, each
+    (..., 3); inverts create_fp_box (box.hpp:381-407)."""
+    mc = 1 << max_tree_level(key_dtype)
+    il = 1.0 / box.lengths
+    imin = torch.floor((center - size - box.mins) * il * mc).to(torch.int64)
+    imax = torch.ceil((center + size - box.mins) * il * mc).to(torch.int64)
+    return IBox(imin[..., 0], imax[..., 0], imin[..., 1], imax[..., 1], imin[..., 2], imax[..., 2])
+
+
+def limit_box_shrinking(fitting: Box, previous: Box, shrink_limit: float = 0.05) -> Box:
+    """The fitting box, each side moved in by at most shrink_limit of the
+    previous length (box.hpp:414-431); the previous box's boundaries."""
+    lengths = previous.lengths
+    mins = torch.minimum(fitting.mins, previous.mins + shrink_limit * lengths)
+    maxs = torch.maximum(fitting.maxs, previous.maxs - shrink_limit * lengths)
+    limits = torch.stack([mins[0], maxs[0], mins[1], maxs[1], mins[2], maxs[2]])
+    return Box(limits=limits.to(previous.limits.dtype), boundaries=previous.boundaries)

@@ -12,11 +12,12 @@ import torch
 
 from . import hilbert as _hilbert
 from . import morton as _morton
-from .box import Box, IBox
-from .keys import max_tree_level, remove_key
+from .box import Box, IBox, pbc_adjust
+from .keys import common_prefix, enclosing_box_code, encode_placeholder_bit, max_tree_level, remove_key, tree_level
 
 __all__ = [
     "MORTON", "HILBERT", "isfc_key", "isfc_key_top", "decode_sfc", "sfc3d", "compute_sfc_keys", "sfc_ibox",
+    "sfc_ibox_keys", "common_node_prefix", "sfc_neighbor",
 ]
 
 MORTON = "morton"
@@ -104,3 +105,30 @@ def sfc_ibox(key_start: torch.Tensor, level, curve: str = HILBERT) -> IBox:
         mask = ~(cube - 1)
         ix, iy, iz = ix & mask, iy & mask, iz & mask
     return IBox(ix, ix + cube, iy, iy + cube, iz, iz + cube)
+
+
+def sfc_ibox_keys(key_start: torch.Tensor, key_end: torch.Tensor, curve: str = HILBERT) -> IBox:
+    """sfc_ibox of the node [key_start, key_end) (sfc.hpp:226-231)."""
+    return sfc_ibox(key_start, tree_level(key_end - key_start), curve)
+
+
+def common_node_prefix(center: torch.Tensor, size: torch.Tensor, box: Box, key_dtype,
+                       curve: str = HILBERT) -> torch.Tensor:
+    """Placeholder-bit key of the smallest node holding the float box
+    center +- size, each (..., 3) (sfc.hpp:233-244)."""
+    lower = sfc3d(*(center[..., d] - size[..., d] for d in range(3)), box, key_dtype, curve)
+    upper = sfc3d(*(center[..., d] + size[..., d] for d in range(3)), box, key_dtype, curve)
+    level = torch.div(common_prefix(lower, upper), 3, rounding_mode="floor")
+    return encode_placeholder_bit(enclosing_box_code(lower, level), 3 * level)
+
+
+def sfc_neighbor(ibox: IBox, level, dx: int, dy: int, dz: int, key_dtype, curve: str = HILBERT) -> torch.Tensor:
+    """Start key of the level-`level` node holding ibox's lowest corner
+    shifted by (dx, dy, dz) box lengths, wrapped periodically
+    (sfc.hpp:246-270)."""
+    r = 1 << max_tree_level(key_dtype)
+    shift = ibox.xmax - ibox.xmin
+    x = pbc_adjust(ibox.xmin + dx * shift, r)
+    y = pbc_adjust(ibox.ymin + dy * shift, r)
+    z = pbc_adjust(ibox.zmin + dz * shift, r)
+    return enclosing_box_code(isfc_key(x, y, z, key_dtype, curve), level)

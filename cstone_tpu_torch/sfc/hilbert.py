@@ -14,7 +14,7 @@ import torch
 from ..ops.keys64 import srl, torch_key_dtype
 from .keys import max_tree_level
 
-__all__ = ["ihilbert", "ihilbert_top", "decode_hilbert"]
+__all__ = ["ihilbert", "ihilbert_top", "decode_hilbert", "ihilbert_2d", "decode_hilbert_2d"]
 
 
 def _morton_to_hilbert(octant: torch.Tensor) -> torch.Tensor:
@@ -111,3 +111,37 @@ def decode_hilbert(key: torch.Tensor):
         py = py | ((xi ^ yi) << level)
         pz = pz | ((yi ^ zi) << level)
     return px, py, pz
+
+
+def ihilbert_2d(px, py, key_dtype) -> torch.Tensor:
+    """2D Hilbert key of integer grid coordinates in [0, 2^maxLevel)
+    (hilbert.hpp:118-142)."""
+    lmax = max_tree_level(key_dtype)
+    px = px.to(torch.int64)
+    py = py.to(torch.int64)
+    key = torch.zeros(torch.broadcast_shapes(px.shape, py.shape), dtype=torch.int64, device=px.device)
+    for level in range(lmax - 1, -1, -1):
+        xi = (px >> level) & 1
+        yi = (py >> level) & 1
+        # where yi == 0: swap x and y, complemented where xi == 1
+        px, py = torch.where(yi == 0, py ^ -xi, px), torch.where(yi == 0, px ^ -xi, py)
+        key = key * 4 + (2 * xi + (xi ^ yi))
+    return key.to(torch_key_dtype(key_dtype))
+
+
+def decode_hilbert_2d(key: torch.Tensor):
+    """Inverse of ihilbert_2d, Lam-Shapiro style (hilbert.hpp:191-222):
+    int64 grid coordinates. The coordinates run in 32-bit words, as in the
+    reference, whose top maxLevel bits end as the result."""
+    order = max_tree_level(key.dtype)
+    x = torch.zeros(key.shape, dtype=torch.int64, device=key.device)
+    y = torch.zeros_like(x)
+    for i in range(order):
+        sa = (srl(key, 2 * i + 1) & 1).to(torch.int64)
+        sb = (srl(key, 2 * i) & 1).to(torch.int64)
+        swap = (sa ^ sb) == 0
+        nx = torch.where(swap, y ^ -sa, x) & 0xFFFFFFFF
+        ny = torch.where(swap, x ^ -sa, y) & 0xFFFFFFFF
+        x = (nx >> 1) | (sa << 31)
+        y = (ny >> 1) | ((sa ^ sb) << 31)
+    return x >> (32 - order), y >> (32 - order)

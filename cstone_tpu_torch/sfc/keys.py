@@ -18,25 +18,34 @@ import numpy as np
 import torch
 
 from ..ops.bits import count_leading_zeros, count_trailing_zeros
-from ..ops.keys64 import key_bits, key_const, np_key_dtype, srl, torch_key_dtype
+from ..ops.keys64 import key_bits, key_const, np_key_dtype, srl, torch_key_dtype, ult
 
 __all__ = [
     "max_tree_level",
     "unused_bits",
+    "max_coord",
     "node_range",
     "remove_key",
+    "to_nbit_int",
+    "to_nbit_int_ceil",
+    "pad_prefix",
     "log8_ceil",
+    "is_power_of_8",
     "common_prefix",
     "tree_level",
     "encode_placeholder_bit",
+    "encode_placeholder_bit_2k",
     "decode_prefix_length",
     "decode_placeholder_bit",
+    "mask_key",
+    "unmask_key",
+    "is_masked",
     "octal_digit",
     "digit_weight",
-    "to_nbit_int_ceil",
     "is_ancestor",
     "enclosing_box_code",
     "smallest_common_box",
+    "zero_low_bits",
     "last_nz_place",
     "make_prefix",
     "octal_power",
@@ -53,6 +62,11 @@ def max_tree_level(dtype) -> int:
 def unused_bits(dtype) -> int:
     """2 unused leading bits in 32-bit keys, 1 in 64-bit (definitions.h:45-64)."""
     return 2 if np_key_dtype(dtype) == np.dtype(np.uint32) else 1
+
+
+def max_coord(dtype) -> int:
+    """Integer coordinates per dimension: 2^maxLevel."""
+    return 1 << max_tree_level(dtype)
 
 
 def node_range(dtype, level):
@@ -74,12 +88,34 @@ def remove_key(dtype) -> int:
     return node_range(dtype, 0)
 
 
+def to_nbit_int(x: torch.Tensor, key_dtype) -> torch.Tensor:
+    """Normalized x in [0,1] -> integer grid coordinate, truncating
+    (common.hpp:57-67). int64."""
+    nbits = max_tree_level(key_dtype)
+    return torch.clamp((x * float(1 << nbits)).to(torch.int64), max=(1 << nbits) - 1)
+
+
+def pad_prefix(prefix: torch.Tensor, length) -> torch.Tensor:
+    """A key prefix of `length` bits zero-padded to the full key
+    (common.hpp:109-113)."""
+    lmax = max_tree_level(prefix.dtype)
+    if isinstance(length, (int, np.integer)):
+        return prefix << (3 * lmax - int(length))
+    return prefix << (3 * lmax - length).to(prefix.dtype)
+
+
 def log8_ceil(n: torch.Tensor) -> torch.Tensor:
     """ceil(log8(n)); 0 for n == 0 (common.hpp:135-142). int32."""
     lmax = max_tree_level(n.dtype)
     lz = count_leading_zeros(n - 1)
     return torch.where(n == 0, 0, lmax - torch.div(lz - unused_bits(n.dtype), 3,
                                                    rounding_mode="floor")).to(torch.int32)
+
+
+def is_power_of_8(n: torch.Tensor) -> torch.Tensor:
+    """True where n is a power of 8 (common.hpp:145-150)."""
+    lz = count_leading_zeros(n - 1) - unused_bits(n.dtype)
+    return (lz % 3 == 0) & ((n & (n - 1)) == 0)
 
 
 def common_prefix(k1: torch.Tensor, k2: torch.Tensor) -> torch.Tensor:
@@ -106,6 +142,12 @@ def encode_placeholder_bit(code: torch.Tensor, prefix_length) -> torch.Tensor:
     return srl(code, 3 * lmax - pl_) | (torch.ones_like(code) << pl_)
 
 
+def encode_placeholder_bit_2k(k1: torch.Tensor, k2: torch.Tensor) -> torch.Tensor:
+    """Placeholder-bit key of the node spanning [k1, k2) (common.hpp:199-205)."""
+    prefix_length = count_leading_zeros(k2 - k1 - 1) - unused_bits(k1.dtype)
+    return encode_placeholder_bit(k1, prefix_length)
+
+
 def decode_prefix_length(code: torch.Tensor) -> torch.Tensor:
     """Number of key bits in a placeholder-bit key (common.hpp:208-212)."""
     return key_bits(code.dtype) - 1 - count_leading_zeros(code)
@@ -117,6 +159,26 @@ def decode_placeholder_bit(code: torch.Tensor) -> torch.Tensor:
     plen = decode_prefix_length(code).to(code.dtype)
     ret = code ^ (torch.ones_like(code) << plen)
     return ret << (3 * lmax - plen)
+
+
+def mask_key(key: torch.Tensor) -> torch.Tensor:
+    """Set the status bit above the key range, except on 0 and remove_key
+    (common.hpp:233-238)."""
+    nr0 = remove_key(key.dtype)
+    return torch.where((key == 0) | (key == nr0), key, key | nr0)
+
+
+def unmask_key(key: torch.Tensor) -> torch.Tensor:
+    """Inverse of mask_key (common.hpp:241-246)."""
+    nr0 = remove_key(key.dtype)
+    used = key_const((1 << (3 * max_tree_level(key.dtype))) - 1, key.dtype)  # nr0 - 1, unsigned
+    return torch.where(key == nr0, key, key & used)
+
+
+def is_masked(key: torch.Tensor) -> torch.Tensor:
+    """True where the status bit of mask_key is set: key > remove_key,
+    unsigned."""
+    return ult(remove_key(key.dtype), key)
 
 
 def octal_digit(code: torch.Tensor, position) -> torch.Tensor:
@@ -163,6 +225,16 @@ def smallest_common_box(k1: torch.Tensor, k2: torch.Tensor):
     level = torch.div(common_prefix(k1, k2), 3, rounding_mode="floor")
     node_start = enclosing_box_code(k1, level)
     return node_start, node_start + node_range(k1.dtype, level)
+
+
+def zero_low_bits(code: torch.Tensor, n_bits) -> torch.Tensor:
+    """Zero all but the highest n_bits of the key's used bits
+    (common.hpp:322-329)."""
+    lmax = max_tree_level(code.dtype)
+    if isinstance(n_bits, (int, np.integer)):
+        return code & ~((1 << (3 * lmax - int(n_bits))) - 1)
+    mask = (torch.ones_like(code) << (3 * lmax - n_bits).to(code.dtype)) - 1
+    return code & ~mask
 
 
 def last_nz_place(x: torch.Tensor) -> torch.Tensor:

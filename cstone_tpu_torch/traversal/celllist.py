@@ -44,6 +44,7 @@ __all__ = [
     "stencil_neighbor_counts",
     "cell_list_neighbor_counts",
     "cell_list_sph_density",
+    "stencil_stats",
 ]
 
 INVALID_COORD = 1e30  # float32-representable fill of empty ELL slots
@@ -249,3 +250,28 @@ def cell_list_sph_density(
         norm = float(np.float32(mass) / np.float32(np.pi))
         rho_ell = norm * ((wsum + 1.0) * inv_h * inv_h * inv_h)
     return _scatter_back(rho_ell, valid, pidx, keys_sorted.shape[0]), overflow
+
+
+def stencil_stats(offsets: torch.Tensor, perm: torch.Tensor, level: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(pairs_tested, max_occupancy) of the 27-point stencil (the NcStats
+    counters, reference find_neighbors.cuh:346-369 sumP2P/maxP2P).
+
+    offsets: (n_cells+1,) particle offsets per SFC-ordered cell
+    (cover.build_cell_table); perm: (n_cells,) row-major -> SFC cell
+    index. pairs_tested, the distance evaluations the stencil makes, is
+    the sum over cells of occ(c) x the occupancy of c's periodic
+    27-neighbourhood. It is a float32 as in the JAX package, which sums
+    it in float32: that sum is exact while every partial sum stays below
+    2^24, and past that its rounding follows XLA's reduction order, which
+    on the CPU changes with the array size. The port sums exactly in
+    int64 and rounds once, which equals JAX's value wherever JAX's is
+    exact. max_occupancy: int64."""
+    d = 1 << int(level)
+    occ_i = offsets[perm + 1] - offsets[perm]
+    occ = occ_i.reshape(d, d, d)
+    nb = torch.zeros_like(occ)
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dz in (-1, 0, 1):
+                nb = nb + torch.roll(occ, shifts=(-dx, -dy, -dz), dims=(0, 1, 2))
+    return (occ * nb).sum().to(torch.float32), occ_i.max()

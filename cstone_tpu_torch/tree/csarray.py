@@ -23,9 +23,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops.keys64 import torch_key_dtype
+from ..ops.keys64 import torch_key_dtype, ult
 from ..ops.primitives import searchsorted
-from ..sfc.keys import log8_ceil, max_tree_level, node_range, octal_digit, tree_level
+from ..sfc.keys import (log8_ceil, max_tree_level, node_range, octal_digit, span_sfc_range, span_sfc_range_count,
+                        tree_level)
 from ..utils.device import resolve_device
 
 __all__ = [
@@ -33,11 +34,15 @@ __all__ = [
     "CsArray",
     "root_tree",
     "uniform_tree",
+    "find_node_below",
+    "find_node_above",
     "compute_node_counts",
     "rebalance_decision",
     "rebalance_tree",
     "update_octree",
     "compute_octree",
+    "update_treelet_ops",
+    "compute_spanning_tree",
 ]
 
 MAX_UINT32 = 0xFFFFFFFF
@@ -91,6 +96,20 @@ def uniform_tree(key_dtype, level: int, capacity: int, device=None) -> CsArray:
     counts = torch.zeros((capacity,), dtype=torch.int64, device=device)
     return CsArray(keys=keys, counts=counts,
                    n_nodes=torch.tensor(n_nodes, dtype=torch.int64, device=device))
+
+
+def find_node_below(tree_keys: torch.Tensor, n_nodes, key: torch.Tensor) -> torch.Tensor:
+    """Index of the last node starting at or below `key`
+    (csarray.hpp:79-83), at most n_nodes - 1. int64."""
+    return torch.minimum(searchsorted(tree_keys, key, side="right") - 1,
+                         torch.as_tensor(n_nodes, device=tree_keys.device) - 1)
+
+
+def find_node_above(tree_keys: torch.Tensor, n_nodes, key: torch.Tensor) -> torch.Tensor:
+    """Index of the first node starting at or above `key`
+    (csarray.hpp:86-90). int64."""
+    del n_nodes
+    return searchsorted(tree_keys, key, side="left")
 
 
 def compute_node_counts(tree_keys, codes, max_count=MAX_UINT32, n_codes=None) -> torch.Tensor:
@@ -257,3 +276,36 @@ def compute_octree(codes, bucket_size: int, capacity: int | None = None,
             f"octree capacity {capacity} exhausted (n_nodes={int(tree.n_nodes)}); "
             "pass a larger capacity")
     return tree
+
+
+def update_treelet_ops(treelet_keys, counts, n_nodes, bucket_size):
+    """Rebalance op codes and convergence flag of a treelet, a partial SFC
+    cover (csarray.hpp:467-488): rebalance_decision on its keys."""
+    return rebalance_decision(treelet_keys, counts, n_nodes, bucket_size)
+
+
+def compute_spanning_tree(split_keys: torch.Tensor, n_splits, capacity: int):
+    """The smallest cornerstone tree holding every split key as a node
+    boundary (csarray.hpp:490-531).
+
+    split_keys: (m+1,) sorted, split_keys[0] == 0 and split_keys[n_splits]
+    == node_range(0); entries past n_splits repeat node_range(0). Each
+    interval's span_sfc_range cover is written into its slot range.
+    Returns (tree_keys (capacity+1,), n_nodes 0-d int64)."""
+    dt = split_keys.dtype
+    dev = split_keys.device
+    m = split_keys.shape[0] - 1
+    a, b = split_keys[:-1], split_keys[1:]
+    valid = (torch.arange(m, device=dev) < n_splits) & ult(a, b)
+    per_interval = torch.where(valid, span_sfc_range_count(a, b), 0)
+    inc = torch.cumsum(per_interval, 0)
+    total = inc[-1]
+
+    # slot j takes key `within` of the interval whose slot range holds it
+    j = torch.arange(capacity, device=dev)
+    seg = torch.clamp(torch.searchsorted(inc, j, right=True), max=m - 1)
+    within = j - (inc[seg] - per_interval[seg])
+    all_keys, _ = span_sfc_range(a, b, capacity)  # (m, capacity)
+    end_key = node_range(dt, 0)
+    keys = torch.where(j < total, all_keys[seg, within], end_key)
+    return torch.cat([keys, keys.new_full((1,), end_key)]), total

@@ -152,12 +152,13 @@ def test_cuda_device_without_cuda_raises():
         Domain(bucket_size=16, tree_capacity=256, device="cuda")
 
 
-@pytest.mark.parametrize("kwargs", [dict(comm=RankComm(1, 4), peer_window=2), dict(peer_window=1)])
-def test_unported_options_raise(kwargs):
-    # the dense rank window, at several ranks (where it would narrow the
-    # exchange) and at one
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 4"):
-        Domain(bucket_size=16, tree_capacity=256, **kwargs)
+@pytest.mark.parametrize("kwargs, window", [(dict(comm=RankComm(1, 4), peer_window=2), 2),
+                                            (dict(comm=RankComm(1, 4), peer_window=9), 3), (dict(peer_window=1), 0)])
+def test_unported_options_raise(kwargs, window):
+    # the dense rank window, once refused, is ported: it is taken at
+    # several ranks, clipped to n_ranks - 1 as in JAX (0 at one rank), and
+    # no constructor option is left unported
+    assert Domain(bucket_size=16, tree_capacity=256, device="cpu", **kwargs).peer_window == window
 
 
 @pytest.mark.parametrize("mode", ["p2p", "pool"])

@@ -165,12 +165,12 @@ def test_ragged_overflow_reports_totals_and_the_retry_fits(runs):
 
 def test_ragged_constructor_checks():
     # the ragged protocols have no rank window (JAX's ValueError), and at
-    # one rank the window is 0; the dense window is not ported yet
+    # one rank the window is 0; the dense window is taken, clipped to 0 at
+    # one rank
     with pytest.raises(ValueError, match="peer_window applies to protocol='dense' only"):
         Domain(rank=0, n_ranks=2, protocol="ragged", peer_window=1, bucket_size=16, tree_capacity=256,
                device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 4"):
-        Domain(protocol="dense", peer_window=1, bucket_size=16, tree_capacity=256, device="cpu")
+    assert Domain(protocol="dense", peer_window=1, bucket_size=16, tree_capacity=256, device="cpu").peer_window == 0
     with pytest.raises(ValueError, match="unknown protocol"):
         Domain(protocol="sparse", bucket_size=16, tree_capacity=256, device="cpu")
     assert Domain(protocol="ragged", peer_window=1, bucket_size=16, tree_capacity=256, device="cpu").protocol == "ragged"

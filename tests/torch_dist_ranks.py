@@ -60,6 +60,23 @@ def collectives(comm, seed):
     return out
 
 
+def ppermutes(comm, seed):
+    """ppermute on a ring, a one-way shift, pairs that leave ranks out,
+    an empty pair list, and windowed_exchange at every window."""
+    from cstone_tpu_torch.parallel.exchange import windowed_exchange
+
+    R, r = comm.n_ranks, comm.rank
+    g = torch.Generator().manual_seed(seed + r)
+    t = torch.randn(3, 2, generator=g)
+    out = {"ring": comm.ppermute(t, [(q, (q + 1) % R) for q in range(R)]),
+           "shift": comm.ppermute(t, [(q, q + 1) for q in range(R - 1)]),
+           "ends": comm.ppermute(t.to(torch.int64), [(0, R - 1), (R - 1, 0)]),
+           "none": comm.ppermute(t, [])}
+    for w in range(1, R):
+        out[f"window{w}"] = windowed_exchange(torch.randint(-9, 9, (2 * w + 1, 4), generator=g), comm, w, R)
+    return out
+
+
 def fail_at(comm, bad_rank):
     """Rank bad_rank raises after one collective; the others go on to
     another, which it never joins."""
@@ -121,15 +138,22 @@ def tensors_of(obj, prefix=""):
     return out
 
 
-def domain_steps(comm, cols, ids, periodic):
-    """A cold and a warm sync (compact_owned plus a fixed drift) in pool,
-    dense p2p and ragged p2p mode: per mode and step, every tensor of the
-    state and SyncResult, reapply_sync and exchange_halos of the ids."""
+MODES = (("pool", "dense", 0), ("p2p", "dense", 0), ("p2p", "ragged", 0))
+
+
+def domain_steps(comm, cols, ids, periodic, modes=MODES):
+    """A cold and a warm sync (compact_owned plus a fixed drift) in each of
+    `modes`, (exchange mode, protocol, peer window) triples, by default
+    pool, dense p2p and ragged p2p: per mode and step, every tensor of the
+    state and SyncResult, reapply_sync and exchange_halos of the ids. The
+    keys are "<mode>-<protocol>-<step>", with "-w<window>" before the
+    step where the window is not 0."""
     box = make_box(-1.0, 1.0, boundaries=PERIODIC if periodic else 0, device="cpu")
     drift = torch.from_numpy(np.random.RandomState(100).uniform(-0.02, 0.02, size=(3, CAP)).astype(np.float32))
     out = {}
-    for mode, protocol in (("pool", "dense"), ("p2p", "dense"), ("p2p", "ragged")):
-        d = Domain(exchange_mode=mode, protocol=protocol, comm=comm, device="cpu", **KW)
+    for mode, protocol, window in modes:
+        name = f"{mode}-{protocol}" + (f"-w{window}" if window else "")
+        d = Domain(exchange_mode=mode, protocol=protocol, comm=comm, device="cpu", peer_window=window, **KW)
         state = d.init_state(box=box if periodic else None, boundaries=box.boundaries)
         x, y, z, h, m = (torch.from_numpy(np.ascontiguousarray(c)) for c in cols)
         pid, n_local = torch.from_numpy(ids), N_PER
@@ -138,7 +162,7 @@ def domain_steps(comm, cols, ids, periodic):
             rids = d.reapply_sync(res, pid)
             j = torch.arange(CAP)
             hids = d.exchange_halos(res, torch.where((j >= res.start_index) & (j < res.end_index), rids, -1))
-            out[f"{mode}-{protocol}-{step}"] = tensors_of({"state": state, "result": res, "rids": rids,
+            out[f"{name}-{step}"] = tensors_of({"state": state, "result": res, "rids": rids,
                                                           "hids": hids})
             co = d.compact_owned
             n_local = res.end_index - res.start_index
