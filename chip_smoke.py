@@ -18,7 +18,11 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      both sides) at levels 2 and 3 with unequal caps, its lanes on each
      table in turn, one lane-table cap above 1024, periodic and open,
      count and density with masses, and on the wrap pair split across the
-     two tables; B4 against impl="xla"; B5 and B6 on the arguments
+     two tables; B4 against impl="xla" and against its plain version on
+     rows of 0/1/32/33/64 valid slots at levels 2-5 (cell_rows), periodic
+     and open, at caps 1088 and 2496 and on the wrap pairs; B6 on groups of
+     1, 33, 256 and 1024 over 300 and 4133 candidates with holes, an empty
+     group, self indices at tile edges and r2 < 0 (dense_groups); B5 and B6 on the arguments
      find_neighbors launched them with after Domain.sync of 16K uniform
      and Gaussian particles with the test_neighbors.py group settings; B5
      on tiles that need no image, one hoisted shift or the per-pair image,
@@ -32,7 +36,10 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      1 + 1/(pi h^3 n), the cornerstone invariants, and that B1/B2
      launched; on the last step's inputs times B1/B2 against the
      one-sided kernel (csrc/stencil.cu, self mask on) in turns (old, new,
-     new, old) and against their plain versions, with each kernel's bound;
+     new, old) and against their plain versions, with each kernel's bound,
+     and B4 (the one-sided mode of csrc/stencil_sym.cu) in turns against
+     its first draft (csrc/stencil.cu, self mask off), with B1's function
+     bound and the one-sided work bound (every ordered pair tested);
   5. path A, the tiered adaptive-h cell list: 1M Gaussian particles (seed
      42) in the periodic unit box, h = adaptive_h(pos, 100 neighbours),
      bucket 64, tiers from choose_tier_levels(max_tiers=3) and tier_caps
@@ -240,13 +247,12 @@ NB_KW = dict(group_size=256, cand_leaf_cap=320, cand_cap=4096, run_cap=48, front
 # the group settings of tests/test_neighbors.py
 NB_TEST_KW = dict(group_size=32, cand_cap=8192, cand_leaf_cap=640)
 
-STENCIL_SRC = "cstone_tpu_torch/csrc/stencil.cu"
 SYM_SRC = "cstone_tpu_torch/csrc/stencil_sym.cu"
 KERNELS = {  # name: (source, TPU kernel it replaces)
     "stencil_counts": (SYM_SRC, "cstone_tpu/ops/pallas_stencil.py:295"),
     "stencil_density": (SYM_SRC, "cstone_tpu/ops/pallas_stencil.py:295"),
     "stencil_cross": (SYM_SRC, "cstone_tpu/ops/pallas_stencil.py:589"),
-    "stencil_counts_asym": (STENCIL_SRC, "cstone_tpu/ops/pallas_stencil.py:149"),
+    "stencil_counts_asym": (SYM_SRC, "cstone_tpu/ops/pallas_stencil.py:149"),
     "pairwise_count_runs": ("cstone_tpu_torch/csrc/neighbors_v2.cu",
                             "cstone_tpu/ops/pallas_neighbors_v2.py:103"),
     "pairwise_count": ("cstone_tpu_torch/csrc/neighbors_v1.cu",
@@ -496,7 +502,7 @@ def ell_inputs(keys, xs, ys, zs, hs, box, level, cap, mass=None, n_valid=None):
 
     perm, _ = celllist.rowmajor_cell_perm(level, device=xs.device)
     fields = (xs, ys, zs, hs) + (() if mass is None else (mass,))
-    packed, valid, _, ovf = celllist.ell_pack(keys, perm, fields, cap, level, n_valid=n_valid)
+    packed, valid, _, ovf = celllist.ell_pack_gather(keys, perm, fields, cap, level, n_valid=n_valid)
     check(not bool(ovf), f"ELL cap {cap} overflowed at level {level}")
     px, py, pz, ph = packed[:4]
     r2 = torch.where(valid, (2.0 * ph) * (2.0 * ph), -1.0)
@@ -582,10 +588,15 @@ def kernel_vs_plain_phase(dev, err: Errors):
     """Phase 3: every kernel against its plain version on small grids."""
     import torch
 
-    from cstone_tpu_torch.ops import neighbors_v2, stencil
+    from cstone_tpu_torch.ops.keys64 import usort
+    from cstone_tpu_torch.sfc import compute_sfc_keys, make_box
+
+    from cstone_tpu_torch.ops import neighbors_v1, neighbors_v2, stencil
     from cstone_tpu_torch.ops.cuda_lib import record_launches
     from cstone_tpu_torch.traversal import neighbors
     from cstone_tpu_torch.utils.workloads import (
+        cell_rows,
+        dense_groups,
         mixed_image_runs,
         wrap_threshold_cross,
         wrap_threshold_ell,
@@ -608,9 +619,32 @@ def kernel_vs_plain_phase(dev, err: Errors):
         valid, L = torch.from_numpy(valid).to(dev), torch.ones(3, device=dev)
         want = stencil.stencil_counts_plain(px, py, pz, r2, valid, L, (True,) * 3, level)
         check(int(want.sum()) == 1, "the wrap case should hold one counted end")
+        what = f"wrap pair on axis {axis}, d2 {d2_i!r} / {d2_j!r}"
         err.counts("stencil_counts", stencil.stencil_counts(px, py, pz, r2, valid, L, (True,) * 3, level),
-                   want, f"wrap pair on axis {axis}, d2 {d2_i!r} / {d2_j!r}")
-    print("B1 vs plain: pairs across the periodic wrap with end-dependent d2: ok", flush=True)
+                   want, what)
+        err.counts("stencil_counts_asym",
+                   stencil.stencil_counts_asym(px, py, pz, r2, valid, L, (True,) * 3, level),
+                   stencil.stencil_counts_asym_plain(px, py, pz, r2, valid, L, (True,) * 3, level), what)
+    print("B1/B4 vs plain: pairs across the periodic wrap with end-dependent d2: ok", flush=True)
+
+    # B4 on rows of 0, 1, 32, 33 and 64 valid slots (before, at and past a
+    # 32-slot chunk edge), levels 2-5, periodic and open
+    for level in (2, 3, 4, 5):
+        pos, h = cell_rows(level, seed=level)
+        for periodic in (True, False):
+            box = make_box(0.0, 1.0, boundaries=int(periodic), device=dev)
+            p = torch.from_numpy(pos).to(dev)
+            keys, order = usort(compute_sfc_keys(p[:, 0], p[:, 1], p[:, 2], box, np.uint64))
+            cols = (p[:, 0], p[:, 1], p[:, 2], torch.from_numpy(h).to(dev))
+            px, py, pz, _, r2, _, valid = ell_inputs(keys, *(c[order].contiguous() for c in cols),
+                                                     box, level, CAP)
+            lengths = sorted(set(valid.sum(dim=1).tolist()))
+            check(lengths == [0, 1, 32, 33, 64], f"rows of {lengths} slots")
+            args = (px, py, pz, r2, valid, box.lengths, flags_of(box), level)
+            what = f"level {level}, {pos.shape[0]} particles in rows of {lengths} slots, periodic {periodic}"
+            err.counts("stencil_counts_asym", stencil.stencil_counts_asym(*args),
+                       stencil.stencil_counts_asym_plain(*args), what)
+            print(f"B4 vs plain: {what}: ok", flush=True)
 
     # caps above 1024: level 2, Gaussian, densest cell 1060 (n 16,500) and 2284 (n 35,000)
     for cap, n in ((1088, 16_500), (2496, 35_000)):
@@ -620,8 +654,8 @@ def kernel_vs_plain_phase(dev, err: Errors):
             fullest = int(planes[-1].sum(dim=1).max())
             check(fullest > 1024, f"densest cell {fullest} should exceed 1024")
             what = f"level 2 cap {cap} densest cell {fullest} periodic {periodic}"
-            compare_stencil(err, planes, box, 2, what)
-            print(f"B1/B2 vs plain: {what}: ok", flush=True)
+            compare_stencil(err, planes, box, 2, what, asym=True)
+            print(f"B1/B2/B4 vs plain: {what}: ok", flush=True)
 
     # B3: one launch for both sides, unequal caps; the kernel puts its lanes
     # on the 70% share, A in the first cases, B in the last, whose densest
@@ -684,6 +718,18 @@ def kernel_vs_plain_phase(dev, err: Errors):
             what = f"mixed images, {n_groups} groups of {G}, periodic {periodic}"
             err.counts("pairwise_count_runs", neighbors_v2.pairwise_count_runs(*args), want, what)
             print(f"B5 vs plain: {what}: ok", flush=True)
+
+    # B6 on groups of 1, 33, 256 and 1024 over candidate counts that are no
+    # multiple of its 256-candidate tile: an empty group, holes of -1 slots,
+    # a target's own index at tile edges, targets with r2 < 0
+    for G in (1, 33, 256, 1024):
+        for C in (300, 4133):
+            args = tuple(torch.from_numpy(a).to(dev) for a in dense_groups(G, 8, C, seed=G + C))
+            want = neighbors_v1.pairwise_count_plain(*args)
+            check(int(want.sum()) > 0 and int(want[1].sum()) == 0, "dense_groups should count, group 1 not")
+            what = f"8 groups of {G}, {C} candidates with holes, self at tile edges"
+            err.counts("pairwise_count", neighbors_v1.pairwise_count(*args), want, what)
+            print(f"B6 vs plain: {what}: ok", flush=True)
     torch.cuda.synchronize()
 
 
@@ -865,11 +911,31 @@ def main_path_phase(dev, card):
               f"speed-up {old_ms / ms:.3f}x; bound {b_ms:.4f} ms ({b_by}), share of bound: "
               f"half-stencil {b_ms / ms:.4f}, one-sided {b_ms / old_ms:.4f}; plain {plain:.4f} ms "
               f"[{card}]", flush=True)
-    ms = cuda_time_ms(lambda: stencil.stencil_counts_asym(*counts_args), 20)
+
+    # B4: the one-sided mode of csrc/stencil_sym.cu against its first draft
+    # (csrc/stencil.cu, self mask off, the self pair subtracted as the
+    # wrapper did) on the same inputs, in turns: old, new, new, old
+    def old_asym():
+        return (stencil._launch(False, (px, py, pz, r2, valid), (px, py, pz, None, valid), L, flags,
+                                LEVEL, False) - (valid & (r2 > 0)).to(torch.int32))
+
+    def new_asym():
+        return stencil.stencil_counts_asym(*counts_args)
+
+    check(torch.equal(old_asym(), new_asym()), "the old and new one-sided kernels disagree")
+    turns = [cuda_time_ms(fn, 20) for fn in (old_asym, new_asym, new_asym, old_asym)]
+    old_ms, ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     plain = cuda_time_ms(lambda: stencil.stencil_counts_asym_plain(*counts_args), 3)
     times["stencil_counts_asym"] = (ms, plain)
-    print(f"stencil_counts_asym at {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms [{card}]",
-          flush=True)
+    b_ms, b_by = bounds["stencil_counts_asym"]
+    tests = stencil_pairs(valid, valid, flags, LEVEL, same=False)  # every ordered pair, self included
+    w_ms, w_by = bound(tests * (OPS_D2 + OPS_CMP), stencil_bytes(valid, 4))
+    print(f"stencil_counts_asym at {shape}: one-sided mode {turns[1]:.4f} / {turns[2]:.4f} ms, first "
+          f"draft {turns[0]:.4f} / {turns[3]:.4f} ms (turns old, new, new, old), speed-up "
+          f"{old_ms / ms:.3f}x; bound {b_ms:.4f} ms ({b_by}, the function of B1), share of bound: "
+          f"new {b_ms / ms:.4f}, old {b_ms / old_ms:.4f}; one-sided work bound ({tests:.6g} tests x "
+          f"{OPS_D2 + OPS_CMP} operations) {w_ms:.4f} ms ({w_by}), share new {w_ms / ms:.4f}, old "
+          f"{w_ms / old_ms:.4f}; plain {plain:.4f} ms [{card}]", flush=True)
     launches = {k: launches[k] for k in ("stencil_counts", "stencil_density")}
     return launches, err, {k: {"ms": ms, "plain_ms": p, "shape": shape, "bound_ms": bounds[k][0],
                                "bound_by": bounds[k][1]} for k, (ms, p) in times.items()}, \

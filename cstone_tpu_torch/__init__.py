@@ -16,8 +16,8 @@ its plain PyTorch version.
 """
 
 from .interop import from_numpy_state
-from .sfc.box import FIXED, OPEN, PERIODIC, Box, make_box
+from .sfc.box import FIXED, OPEN, PERIODIC, Box, IBox, make_box
 
 __version__ = "0.1.0"
 
-__all__ = ["Box", "OPEN", "PERIODIC", "FIXED", "make_box", "from_numpy_state"]
+__all__ = ["Box", "IBox", "OPEN", "PERIODIC", "FIXED", "make_box", "from_numpy_state"]

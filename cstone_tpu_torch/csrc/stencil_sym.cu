@@ -1,11 +1,14 @@
-// Symmetric cell-list stencil kernels for NVIDIA Hopper (sm_90a): the
-// half stencil of one table for neighbour counts (B1) and SPH density sums
-// (B2), and the cross pass between two disjoint tables (B3), in one source.
+// Cell-list stencil kernels for NVIDIA Hopper (sm_90a): the half stencil
+// of one table for neighbour counts (B1) and SPH density sums (B2), the
+// cross pass between two disjoint tables (B3), and the one-sided counts
+// of one table (B4), in one source.
 //
-// Replaces the Pallas TPU kernel cstone_tpu/ops/pallas_stencil.py:295
-// _kernel_sym, op="count" and op="density" (self excluded), and its
-// cross=True variant (_call_sym_cross :589). The one-sided kernel of
-// csrc/stencil.cu keeps serving B4 (one-sided) and is the yardstick.
+// Replaces the Pallas TPU kernels cstone_tpu/ops/pallas_stencil.py:295
+// _kernel_sym, op="count" and op="density" (self excluded), its
+// cross=True variant (_call_sym_cross :589), and :149 _kernel (_call
+// :225), the one-sided impl="pallas_asym" route (B4, mode ONE_SIDED).
+// csrc/stencil.cu, the first draft of all four, is kept only as the
+// yardstick of B1-B4 (ops/stencil.py `_launch`).
 //
 // Contract (that of stencil.cu, once from each end): inputs are (n_cells,
 // cap) ELL planes in row-major cell order of a D^3 grid, D = 2^level >= 4;
@@ -79,6 +82,30 @@
 // load, two compares, the staged-end ballot or shuffle sum, the loop) and
 // the idle lanes of warps whose chunk holds few of a row's slots.
 //
+// B4, the one-sided mode: slot i counts every valid slot j of the 27
+// neighbour cells with d2 < r2_i, itself included (the wrapper subtracts
+// the self pair, the JAX kernel's contract); a periodic shift is added to
+// the staged slot, x_j + o L, as the plain version shifts its candidate,
+// so every test has the plain version's arguments and counts are
+// bit-equal to it across a wrap. Its bound at the phase-4 shape: the
+// function's is B1's, 0.062 ms; tested one-sided, each ordered pair once,
+// 8.2e8 tests x 9 operations (d2, a compare) = 7.4e9, 0.11 ms at 67
+// TFLOP/s, or twice that at one flop an instruction. What held the first
+// draft (csrc/stencil.cu) back: 64-thread blocks, one a cell, so the
+// second warp of nearly every block held no valid target yet staged and
+// waited at every barrier; 27 x (__syncthreads + __syncthreads_count) a
+// block around synchronous loads, so the load latency was exposed 27
+// times; three scalar shared loads and a byte-wide valid read per test.
+// The mode runs on the machinery above: the work list of busy (cell,
+// 64-slot chunk) units, so no warp runs an empty chunk; lanes on the
+// target slots, two a lane (slots lane and lane + 32) in a unit that
+// holds more than 32, so a row of 33-64 slots is walked once and not by a
+// second, mostly idle warp; each warp walks the valid prefixes of all 27
+// neighbour rows with double-buffered cp.async staging of (x, y, z) and
+// warp barriers only; one broadcast 16-byte shared load serves each test,
+// or two; each lane owns its counts and stores them once, so there are no
+// atomics and the result is deterministic.
+//
 // C interface: each entry point launches on the given stream and returns
 // cudaGetLastError() (0 on success).
 
@@ -92,6 +119,16 @@ namespace {
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS = 4;  // warps per CTA, one work unit each
 constexpr float QCUT2 = 4.0004f;
+
+// HALF: B1/B2, the half stencil of one table; CROSS: B3, two disjoint
+// tables; ONE_SIDED: B4, counts of one table from the lane end only, over
+// all 27 cells, the self pair included.
+enum Mode { HALF = 0, CROSS = 1, ONE_SIDED = 2 };
+
+// Lane-table slots a work unit covers: one per lane, or two in the
+// one-sided mode (slots lane and lane + 32), so that a row of 33-64 slots
+// is walked once and each staged load serves two tests.
+__host__ __device__ constexpr int unit_slots(Mode m) { return m == ONE_SIDED ? 64 : 32; }
 
 __device__ __forceinline__ float cubic_spline_w(float q) {
     if (q < 1.0f) {
@@ -157,10 +194,11 @@ __global__ void row_counts_kernel(const uint8_t* __restrict__ valid, int cap, in
 }
 
 // The table's work list: the units a * n_cells + cell (lane chunk a of a
-// row) whose chunk holds valid slots, one thread per unit of the full grid
-// of n_grid = n_cells * ceil(cap / 32). Each block compacts its range of
-// the grid and reserves its place with one atomicAdd on stats[0], which
-// counts the table's busy chunks; stats[1] sums its valid slots. Blocks
+// row, `width` slots a chunk) whose chunk holds valid slots, one thread
+// per unit of the full grid of n_grid = n_cells * ceil(cap / width). Each
+// block compacts its range of the grid and reserves its place with one
+// atomicAdd on stats[0], which counts the table's busy chunks; stats[1]
+// sums its valid slots. Blocks
 // reserve in about grid order, so the list runs chunk by chunk: the chunks
 // of one row are far apart in it, and the warps that run at once seldom
 // credit the same staged slots with their atomics. The order changes no
@@ -168,7 +206,7 @@ __global__ void row_counts_kernel(const uint8_t* __restrict__ valid, int cap, in
 constexpr int LIST_THREADS = 1024;
 
 __global__ void __launch_bounds__(LIST_THREADS)
-work_list_kernel(const int32_t* __restrict__ counts, int n_cells, int64_t n_grid,
+work_list_kernel(const int32_t* __restrict__ counts, int n_cells, int64_t n_grid, int width,
                  int32_t* __restrict__ units, unsigned long long* __restrict__ stats) {
     __shared__ int warp_busy[LIST_THREADS / 32];
     __shared__ int warp_slots[LIST_THREADS / 32];
@@ -180,7 +218,7 @@ work_list_kernel(const int32_t* __restrict__ counts, int n_cells, int64_t n_grid
     if (v < n_grid) {
         const int a = static_cast<int>(v / n_cells);
         const int n = counts[v - static_cast<int64_t>(a) * n_cells];
-        busy = a * 32 < n;
+        busy = a * width < n;
         slots = a == 0 ? n : 0;  // each row's slots once
     }
     const unsigned bal = __ballot_sync(FULL, busy);
@@ -207,7 +245,7 @@ work_list_kernel(const int32_t* __restrict__ counts, int n_cells, int64_t n_grid
     }
 }
 
-template <bool DENSITY>
+template <bool DENSITY, bool KEY>
 __device__ __forceinline__ void stage_chunk(const Table& t, int64_t row, int n, Stage& s, int buf,
                                             int lane) {
     if (lane < n) {
@@ -216,7 +254,7 @@ __device__ __forceinline__ void stage_chunk(const Table& t, int64_t row, int n, 
         cp_async4(d + 0, t.x + g);
         cp_async4(d + 1, t.y + g);
         cp_async4(d + 2, t.z + g);
-        cp_async4(d + 3, t.w + g);
+        if (KEY) cp_async4(d + 3, t.w + g);
         if (DENSITY) {
             if (t.m != nullptr) cp_async4(&s.m[buf][lane], t.m + g);
             else s.m[buf][lane] = 1.0f;
@@ -271,19 +309,56 @@ __device__ __forceinline__ void test_chunk(const float4* __restrict__ c4, const 
     }
 }
 
+// cnt += d2 < r2 as one compare and a predicated add (setp.lt is false on
+// NaN, as the C++ compare is); compiled from C++ the increment becomes a
+// select between cnt and cnt + 1, two instructions.
+__device__ __forceinline__ void count_if_less(int& cnt, float d2, float r2) {
+    asm("{\n\t.reg .pred p;\n\tsetp.lt.f32 p, %1, %2;\n\t@p add.s32 %0, %0, 1;\n\t}"
+        : "+r"(cnt)
+        : "f"(d2), "f"(r2));
+}
+
+// One-sided counts (B4): the tests of one staged chunk of n slots against
+// this lane's target slot t1 = (x, y, z, r2) and, with TWO, its second
+// slot t2; r2 is -1 for an empty slot. WRAP: the chunk's cell was reached
+// across a periodic wrap, and the shift o L = (sx, sy, sz) is added to the
+// staged slot, as the plain version shifts its candidate.
+template <bool WRAP, bool TWO>
+__device__ __forceinline__ void count_chunk(const float4* __restrict__ c4, int n, float4 t1,
+                                            float4 t2, float sx, float sy, float sz, int& cnt1,
+                                            int& cnt2) {
+#pragma unroll 4
+    for (int k = 0; k < n; ++k) {
+        float4 c = c4[k];
+        if (WRAP) {
+            c.x = __fadd_rn(c.x, sx);
+            c.y = __fadd_rn(c.y, sy);
+            c.z = __fadd_rn(c.z, sz);
+        }
+        count_if_less(cnt1, dist2(__fsub_rn(t1.x, c.x), __fsub_rn(t1.y, c.y), __fsub_rn(t1.z, c.z)),
+                      t1.w);
+        if (TWO) {
+            count_if_less(cnt2, dist2(__fsub_rn(t2.x, c.x), __fsub_rn(t2.y, c.y), __fsub_rn(t2.z, c.z)),
+                          t2.w);
+        }
+    }
+}
+
 // One work unit: lane chunk a of cell `cell` of the lane table t against
-// the staged table c (the same table when !CROSS), crediting out_t and
-// out_c. Every lane of the warp calls it with the same unit.
-template <bool DENSITY, bool CROSS>
+// the staged table c (the same table unless M == CROSS), crediting out_t
+// and, unless M == ONE_SIDED, out_c. Every lane of the warp calls it with
+// the same unit.
+template <bool DENSITY, Mode M>
 __device__ __forceinline__ void run_unit(const Table& t, const Table& c,
                                          const int32_t* __restrict__ counts_t,
                                          const int32_t* __restrict__ counts_c, int a, int cell,
                                          const float* __restrict__ lengths, int per_x, int per_y,
                                          int per_z, int level, void* out_t, void* out_c, Stage& s,
                                          int lane) {
-    constexpr int NDIR = CROSS ? 27 : 14;
+    constexpr bool ALL27 = M != HALF;  // all 27 cells, from the lane end's first
+    constexpr int NDIR = ALL27 ? 27 : 14;
     const int nT = counts_t[cell];
-    const int t0 = a * 32;
+    const int t0 = a * unit_slots(M);
 
     const int D = 1 << level;
     const int ix = cell >> (2 * level);
@@ -301,13 +376,21 @@ __device__ __forceinline__ void run_unit(const Table& t, const Table& c,
         if (DENSITY && t.m != nullptr) tm = t.m[trow + ti];
     }
     if (DENSITY) tw = __fdiv_rn(1.0f, tw);
+    // the one-sided mode's second slot, 32 above the first; `two` is
+    // warp-uniform: the unit holds more than 32 slots
+    const bool two = M == ONE_SIDED && nT - t0 > 32;
+    const bool tv2 = two && ti + 32 < nT;
+    float4 t2 = make_float4(0.0f, 0.0f, 0.0f, -1.0f);  // r2 -1: an empty slot counts nothing
+    if (tv2) t2 = make_float4(t.x[trow + ti + 32], t.y[trow + ti + 32], t.z[trow + ti + 32],
+                              t.w[trow + ti + 32]);
+    if (M == ONE_SIDED && !tv) tw = -1.0f;
 
     // lane d < NDIR holds direction d: its cell, row length and wrap shift
     int f_cell = 0, f_n = 0;
     float f_sx = 0.0f, f_sy = 0.0f, f_sz = 0.0f;
     if (lane < NDIR) {
         // (dx, dy, dz) in lexicographic order; B1/B2 start at 13, the centre
-        const int lin = CROSS ? lane : 13 + lane;
+        const int lin = ALL27 ? lane : 13 + lane;
         const int cx = ix + lin / 9 - 1, cy = iy + (lin / 3) % 3 - 1, cz = iz + lin % 3 - 1;
         const int ox = cx < 0 ? -1 : (cx >= D ? 1 : 0);
         const int oy = cy < 0 ? -1 : (cy >= D ? 1 : 0);
@@ -330,13 +413,14 @@ __device__ __forceinline__ void run_unit(const Table& t, const Table& c,
     };
     auto stage_at = [&](int d, int b, int buf) {
         const int64_t row = static_cast<int64_t>(__shfl_sync(FULL, f_cell, d)) * c.cap + b * 32;
-        stage_chunk<DENSITY>(c, row, min(32, __shfl_sync(FULL, f_n, d) - b * 32), s, buf, lane);
+        stage_chunk<DENSITY, M != ONE_SIDED>(c, row, min(32, __shfl_sync(FULL, f_n, d) - b * 32), s,
+                                             buf, lane);
     };
 
-    int cnt = 0;
+    int cnt = 0, cnt2 = 0;
     float acc = 0.0f;
     // B1/B2 start at the centre cell's own chunk, which exists since t0 < nT
-    int d = 0, b = CROSS ? 0 : a, buf = 0;
+    int d = 0, b = ALL27 ? 0 : a, buf = 0;
     skip_empty(d, b);
     if (d == NDIR) return;  // no staged slot in any neighbour cell
     stage_at(d, b, 0);
@@ -357,10 +441,26 @@ __device__ __forceinline__ void run_unit(const Table& t, const Table& c,
         if (DENSITY && lane < n) s.c[buf][lane].w = __fdiv_rn(1.0f, s.c[buf][lane].w);
         __syncwarp();  // every lane's copies are visible to the warp
 
-        const int kmin = (!CROSS && d == 0 && b == a) ? lane : -1;
+        const bool wrap = sx != 0.0f || sy != 0.0f || sz != 0.0f;  // warp-uniform
+        if (M == ONE_SIDED) {
+            const float4 t1 = make_float4(tx, ty, tz, tw);
+            if (two) {
+                if (wrap) count_chunk<true, true>(s.c[buf], n, t1, t2, sx, sy, sz, cnt, cnt2);
+                else count_chunk<false, true>(s.c[buf], n, t1, t2, 0.0f, 0.0f, 0.0f, cnt, cnt2);
+            } else {
+                if (wrap) count_chunk<true, false>(s.c[buf], n, t1, t2, sx, sy, sz, cnt, cnt2);
+                else count_chunk<false, false>(s.c[buf], n, t1, t2, 0.0f, 0.0f, 0.0f, cnt, cnt2);
+            }
+            __syncwarp();  // the buffer is read before the next stage overwrites it
+            d = nd;
+            b = nb;
+            buf ^= 1;
+            continue;
+        }
+        const int kmin = (M == HALF && d == 0 && b == a) ? lane : -1;
         int ccnt = 0;
         float cacc = 0.0f;
-        if (sx != 0.0f || sy != 0.0f || sz != 0.0f) {
+        if (wrap) {
             const float txs = __fsub_rn(tx, sx), tys = __fsub_rn(ty, sy), tzs = __fsub_rn(tz, sz);
             test_chunk<DENSITY, true>(s.c[buf], s.m[buf], n, kmin, tv, tx, ty, tz, tw, tm, sx, sy,
                                       sz, txs, tys, tzs, lane, cnt, acc, ccnt, cacc);
@@ -379,7 +479,11 @@ __device__ __forceinline__ void run_unit(const Table& t, const Table& c,
         b = nb;
         buf ^= 1;
     }
-    if (DENSITY) {
+    if (M == ONE_SIDED) {
+        // the unit owns its lane slots
+        if (tv) static_cast<int32_t*>(out_t)[trow + ti] = cnt;
+        if (tv2) static_cast<int32_t*>(out_t)[trow + ti + 32] = cnt2;
+    } else if (DENSITY) {
         if (acc != 0.0f) atomicAdd(static_cast<float*>(out_t) + trow + ti, acc);
     } else {
         if (cnt != 0) atomicAdd(static_cast<int32_t*>(out_t) + trow + ti, cnt);
@@ -388,15 +492,16 @@ __device__ __forceinline__ void run_unit(const Table& t, const Table& c,
 
 // Tables a and b with their row lengths and work lists; stats holds each
 // table's (busy chunks, valid slots) and, at [4], the units handed out.
-// CROSS = false (B1/B2): a and b are one table, walked over the centre
-// cell (slots j > i) and the 13 forward cells. CROSS = true (B3): two
-// disjoint tables; the lanes go on the one whose rows fill their 32-slot
-// chunks better (each lane chunk costs a full warp however few slots it
-// holds), and all 27 cells of the other are staged. out_a / out_b are the
-// tables' zeroed outputs (int32 counts or float32 sums; one array when
-// !CROSS). The grid holds at most as many warps as the card keeps resident;
-// each warp takes units from the lane table's list until it is spent.
-template <bool DENSITY, bool CROSS>
+// HALF (B1/B2): a and b are one table, walked over the centre cell (slots
+// j > i) and the 13 forward cells. CROSS (B3): two disjoint tables; the
+// lanes go on the one whose rows fill their 32-slot chunks better (each
+// lane chunk costs a full warp however few slots it holds), and all 27
+// cells of the other are staged. ONE_SIDED (B4): one table, all 27 cells
+// staged, the lane end credited alone. out_a / out_b are the tables'
+// zeroed outputs (int32 counts or float32 sums; one array unless CROSS).
+// The grid holds at most as many warps as the card keeps resident; each
+// warp takes units from the lane table's list until it is spent.
+template <bool DENSITY, Mode M>
 __global__ void __launch_bounds__(WARPS * 32)
 sym_kernel(Table ta, Table tb, const int32_t* __restrict__ counts_a,
            const int32_t* __restrict__ counts_b, const int32_t* __restrict__ units_a,
@@ -407,7 +512,7 @@ sym_kernel(Table ta, Table tb, const int32_t* __restrict__ counts_a,
     const int lane = threadIdx.x & 31;
     const int wid = threadIdx.x >> 5;
     // lanes on b when b's busy chunks hold more slots each: sb / cb > sa / ca
-    const bool lanes_b = CROSS && stats[3] * stats[0] > stats[1] * stats[2];
+    const bool lanes_b = M == CROSS && stats[3] * stats[0] > stats[1] * stats[2];
     const Table t = lanes_b ? tb : ta;
     const Table c = lanes_b ? ta : tb;
     const int32_t* counts_t = lanes_b ? counts_b : counts_a;
@@ -423,36 +528,36 @@ sym_kernel(Table ta, Table tb, const int32_t* __restrict__ counts_a,
         if (static_cast<long long>(u) >= n_units) return;
         const int unit = units[u];
         const int a = unit / n_cells;  // lane chunk
-        run_unit<DENSITY, CROSS>(t, c, counts_t, counts_c, a, unit - a * n_cells, lengths, per_x,
-                                 per_y, per_z, level, out_t, out_c, stage[wid], lane);
+        run_unit<DENSITY, M>(t, c, counts_t, counts_c, a, unit - a * n_cells, lengths, per_x,
+                             per_y, per_z, level, out_t, out_c, stage[wid], lane);
         __syncwarp();  // the warp's staging buffers are free for the next unit
     }
 }
 
 // Blocks of the symmetric kernel the card keeps resident at once.
-template <bool DENSITY, bool CROSS>
+template <bool DENSITY, Mode M>
 int resident_blocks() {
     static int blocks = 0;
     if (blocks == 0) {
         int dev = 0, sms = 0, per_sm = 0;
         cudaGetDevice(&dev);
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sym_kernel<DENSITY, CROSS>,
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sym_kernel<DENSITY, M>,
                                                       WARPS * 32, 0);
         blocks = sms * per_sm;
     }
     return blocks;
 }
 
-template <bool DENSITY, bool CROSS>
+template <bool DENSITY, Mode M>
 void launch_sym(const Table& a, const Table& b, const int32_t* counts_a, const int32_t* counts_b,
                 const int32_t* units_a, const int32_t* units_b, unsigned long long* stats,
                 int n_cells, int64_t max_units, const float* lengths, int per_x, int per_y,
                 int per_z, int level, void* out_a, void* out_b, cudaStream_t s) {
     const int64_t want = (max_units + WARPS - 1) / WARPS;
-    const int blocks = static_cast<int>(std::min<int64_t>(want, resident_blocks<DENSITY, CROSS>()));
+    const int blocks = static_cast<int>(std::min<int64_t>(want, resident_blocks<DENSITY, M>()));
     if (blocks > 0) {
-        sym_kernel<DENSITY, CROSS><<<blocks, WARPS * 32, 0, s>>>(
+        sym_kernel<DENSITY, M><<<blocks, WARPS * 32, 0, s>>>(
             a, b, counts_a, counts_b, units_a, units_b, stats, n_cells, lengths, per_x, per_y,
             per_z, level, out_a, out_b);
     }
@@ -460,7 +565,7 @@ void launch_sym(const Table& a, const Table& b, const int32_t* counts_a, const i
 
 // Row lengths, work lists and the symmetric kernel. units_* hold n_cells *
 // ceil(cap / 32) int32 each; stats is 5 zeroed-here unsigned 64-bit words.
-template <bool CROSS>
+template <Mode M>
 int launch(int density, const Table& a, const uint8_t* a_valid, const Table& b,
            const uint8_t* b_valid, const float* lengths, int per_x, int per_y, int per_z,
            int level, int32_t* counts_a, int32_t* counts_b, int32_t* units_a, int32_t* units_b,
@@ -471,25 +576,28 @@ int launch(int density, const Table& a, const uint8_t* a_valid, const Table& b,
         return static_cast<int>(cudaErrorInvalidValue);  // a unit must fit in int32
     }
     cudaMemsetAsync(stats, 0, 5 * sizeof(unsigned long long), s);
+    constexpr int W = unit_slots(M);
     auto list = [&](const Table& t, const uint8_t* valid, int32_t* counts, int32_t* units,
                     unsigned long long* table_stats) {
-        const int64_t n_grid = static_cast<int64_t>(n_cells) * ((t.cap + 31) / 32);
+        const int64_t n_grid = static_cast<int64_t>(n_cells) * ((t.cap + W - 1) / W);
         row_counts_kernel<<<(n_cells + 7) / 8, 256, 0, s>>>(valid, t.cap, n_cells, counts);
         work_list_kernel<<<static_cast<unsigned>((n_grid + LIST_THREADS - 1) / LIST_THREADS),
-                           LIST_THREADS, 0, s>>>(counts, n_cells, n_grid, units, table_stats);
+                           LIST_THREADS, 0, s>>>(counts, n_cells, n_grid, W, units, table_stats);
     };
     list(a, a_valid, counts_a, units_a, stats);
-    if (CROSS) list(b, b_valid, counts_b, units_b, stats + 2);
+    if (M == CROSS) list(b, b_valid, counts_b, units_b, stats + 2);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     const int64_t max_units = static_cast<int64_t>(n_cells) * chunks;
-    if (density) {
-        launch_sym<true, CROSS>(a, b, counts_a, counts_b, units_a, units_b, stats, n_cells,
-                                max_units, lengths, per_x, per_y, per_z, level, out_a, out_b, s);
-    } else {
-        launch_sym<false, CROSS>(a, b, counts_a, counts_b, units_a, units_b, stats, n_cells,
-                                 max_units, lengths, per_x, per_y, per_z, level, out_a, out_b, s);
+    if constexpr (M == ONE_SIDED) {  // counts only
+        if (density) return static_cast<int>(cudaErrorInvalidValue);
+    } else if (density) {
+        launch_sym<true, M>(a, b, counts_a, counts_b, units_a, units_b, stats, n_cells, max_units,
+                            lengths, per_x, per_y, per_z, level, out_a, out_b, s);
+        return static_cast<int>(cudaGetLastError());
     }
+    launch_sym<false, M>(a, b, counts_a, counts_b, units_a, units_b, stats, n_cells, max_units,
+                         lengths, per_x, per_y, per_z, level, out_a, out_b, s);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -505,10 +613,10 @@ extern "C" int cstone_stencil_sym(int density, const float* x, const float* y, c
                                   int32_t* row_counts, int32_t* units, void* stats, void* out,
                                   void* stream) {
     const Table t{x, y, z, w, m, cap};
-    return launch<false>(density, t, valid, t, valid, lengths, per_x, per_y, per_z, level,
-                         row_counts, row_counts, units, units,
-                         static_cast<unsigned long long*>(stats), out, out,
-                         static_cast<cudaStream_t>(stream));
+    return launch<HALF>(density, t, valid, t, valid, lengths, per_x, per_y, per_z, level,
+                        row_counts, row_counts, units, units,
+                        static_cast<unsigned long long*>(stats), out, out,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // B3: the cross pass between tables a and b, two disjoint sets on one grid.
@@ -528,8 +636,24 @@ extern "C" int cstone_stencil_cross(int density, const float* ax, const float* a
                                     void* out_b, void* stream) {
     const Table a{ax, ay, az, aw, am, cap_a};
     const Table b{bx, by, bz, bw, bm, cap_b};
-    return launch<true>(density, a, a_valid, b, b_valid, lengths, per_x, per_y, per_z, level,
+    return launch<CROSS>(density, a, a_valid, b, b_valid, lengths, per_x, per_y, per_z, level,
                         row_counts_a, row_counts_b, units_a, units_b,
                         static_cast<unsigned long long*>(stats), out_a, out_b,
                         static_cast<cudaStream_t>(stream));
+}
+
+// B4: one-sided counts of one table, the self pair included (the wrapper
+// subtracts it): slot i counts the valid slots j of the 27 neighbour cells
+// with d2 < r2_i, d2 from i's end. `out` must be zeroed (empty slots stay
+// 0); scratch as for cstone_stencil_sym.
+extern "C" int cstone_stencil_one_sided(const float* x, const float* y, const float* z,
+                                        const float* r2, const uint8_t* valid, int cap,
+                                        const float* lengths, int per_x, int per_y, int per_z,
+                                        int level, int32_t* row_counts, int32_t* units, void* stats,
+                                        void* out, void* stream) {
+    const Table t{x, y, z, r2, nullptr, cap};
+    return launch<ONE_SIDED>(0, t, valid, t, valid, lengths, per_x, per_y, per_z, level,
+                             row_counts, row_counts, units, units,
+                             static_cast<unsigned long long*>(stats), out, out,
+                             static_cast<cudaStream_t>(stream));
 }

@@ -11,10 +11,14 @@ Candidates arrive wrapped to the periodic image nearest the group centre
 (find_neighbors does it), so there is no per-pair image arithmetic.
 Targets with r2 < 0 count 0.
 
-Kernel design (csrc/neighbors_v1.cu): one CTA per group, one thread per
-target, candidates staged through shared memory in tiles of G; bound by
-FP32 issue on the pair tests. Counts are int32 (uint32 in the JAX
-package).
+Kernel design (csrc/neighbors_v1.cu, redesigned for Hopper): one CTA per
+group, four targets a thread, so one broadcast 16-byte shared load of a
+candidate serves four tests; candidates staged as float4 (x, y, z, index)
+in double-buffered cp.async tiles of 256; each tile cut to one past its
+last valid slot and its empty slots poisoned (x = +inf), so tiles of
+empty slots cost no tests, exactly for any input; the self test an
+integer compare. Bound by FP32 issue on the pair tests (the source's
+note has the numbers). Counts are int32 (uint32 in the JAX package).
 
 CPU tensors take the plain version; CUDA tensors always launch the kernel,
 and a build or launch failure raises.

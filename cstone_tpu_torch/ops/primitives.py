@@ -9,7 +9,7 @@ port uses it directly, on sign-flipped keys (ops/keys64.py).
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -29,17 +29,21 @@ def searchsorted(a: torch.Tensor, v: torch.Tensor, side: str = "left") -> torch.
     return torch.searchsorted(flip(a), flip(v.to(a.dtype)), right=side == "right")
 
 
-def multi_searchsorted(a: torch.Tensor, queries: Sequence[torch.Tensor], sides: Sequence[str]):
+def multi_searchsorted(a: torch.Tensor, queries: Sequence[torch.Tensor], side: str = "left",
+                       sides: Optional[Sequence[str]] = None):
     """Positions of several query sets in sorted `a`, one list entry per
-    set, each with its own side ("left"/"right"): the per-set-sides
-    contract of the JAX version (primitives.py:29-99)."""
+    set; `sides` (optional) gives each set its own side ("left"/"right"),
+    overriding `side` (the contract of the JAX version,
+    primitives.py:29-99)."""
+    if sides is None:
+        sides = [side] * len(queries)
     return [searchsorted(a, q, s) for q, s in zip(queries, sides)]
 
 
-def sort_by_key(keys: torch.Tensor, *values: torch.Tensor, stable: bool = True):
+def sort_by_key(keys: torch.Tensor, *values: torch.Tensor, is_stable: bool = True):
     """Key-value sort on unsigned key patterns: (sorted keys, the values
     gathered into key order)."""
-    keys, order = usort(keys, stable=stable)
+    keys, order = usort(keys, stable=is_stable)
     return keys, tuple(v[order] for v in values)
 
 

@@ -6,14 +6,14 @@ Replaces the Pallas TPU kernels of `cstone_tpu/ops/pallas_stencil.py`:
   B1  `_kernel_sym` op="count" (:295)     -> stencil_counts      (csrc/stencil_sym.cu)
   B2  `_kernel_sym` op="density" (:295)   -> stencil_density     (csrc/stencil_sym.cu)
   B3  `_kernel_sym` cross=True (:589)     -> stencil_cross       (csrc/stencil_sym.cu)
-  B4  `_kernel` (:149), impl="pallas_asym" -> stencil_counts_asym (csrc/stencil.cu)
+  B4  `_kernel` (:149), impl="pallas_asym" -> stencil_counts_asym (csrc/stencil_sym.cu)
 
 Contract (celllist.stencil_neighbor_counts, reference
 findneighbors.hpp:96-165): inputs are (n_cells, cap) ELL planes in
 row-major cell order of a D^3 grid, D = 2^level; valid slots form a prefix
-of each row (ell_pack builds them so). Target slot i counts candidates j
-of the 27 neighbour cells with d2 < r2_i (count), or sums
-m_j W(sqrt(d2) / h_i) (density). Periodic dims wrap and shift the
+of each row (ell_pack and ell_pack_gather build them so). Target slot i
+counts candidates j of the 27 neighbour cells with d2 < r2_i (count), or
+sums m_j W(sqrt(d2) / h_i) (density). Periodic dims wrap and shift the
 candidate coordinate by +-L; open dims drop the ghost cells. B1/B2 exclude
 self by slot identity in the centre cell only, so coincident distinct
 particles count each other; B3 runs between two disjoint sets (target and
@@ -26,20 +26,22 @@ every operation rounded on its own (the kernels are compiled with
 --fmad=false), from the end that tests it, so counts agree bit for bit;
 density sums differ only in summation order.
 
-Kernel designs. csrc/stencil_sym.cu (B1/B2/B3): one warp per (cell, 32
-lane slots) that holds valid slots, taken from a work list the kernel
-builds on the card, each pair tested once and credited to both ends
-(staged ends by warp ballot or shuffle sum, then global atomics into
-zeroed outputs); staged chunks packed as float4 with double-buffered
-cp.async. B1/B2 walk a half stencil of one table (centre cell j > i and
-the 13 forward cells); B3 puts the lanes on the table whose busy chunks
-are fuller (cross_lanes_on_b, decided on the card) and walks all 27
-cells of the other, one launch for both sides. Counts are
-deterministic; density sums are float atomics, so their last bits vary
-from run to run. csrc/stencil.cu (B4): one-sided, a block of up to 256
-threads per (cell, chunk of target slots), one thread per target slot,
-no atomics, deterministic; launched from each end it is also the
-yardstick that chip_smoke.py times the symmetric kernels against.
+Kernel design, csrc/stencil_sym.cu (B1-B4): one warp per (cell, 32 lane
+slots) that holds valid slots, taken from a work list the kernel builds
+on the card; staged chunks packed as float4 with double-buffered
+cp.async and only warp barriers. B1/B2 walk a half stencil of one table
+(centre cell j > i and the 13 forward cells) and B3 the 27 cells of the
+other table (its lanes on the table whose busy chunks are fuller,
+cross_lanes_on_b, decided on the card, one launch for both sides): each
+pair is tested once and credited to both ends (staged ends by warp
+ballot or shuffle sum, then global atomics into zeroed outputs). B4 (the
+one-sided mode) walks all 27 cells from the lane end only, in units of
+64 slots (two a lane where a row holds more than 32): each lane owns its
+counts, no atomics. Counts are deterministic; density sums are
+float atomics, so their last bits vary from run to run. csrc/stencil.cu,
+the first draft (one thread a target slot in blocks of up to 256, a
+block barrier a staged chunk), is kept only as the yardstick that
+chip_smoke.py times B1-B4 against (`_launch`).
 stencil_sym_plain and stencil_cross_sym_plain mirror the symmetric
 decompositions in PyTorch for the tests.
 
@@ -87,6 +89,8 @@ def _bind_sym(lib: ctypes.CDLL) -> None:
     lib.cstone_stencil_cross.argtypes = [i, p, p, p, p, p, p, i, p, p, p, p, p, p, i,
                                          p, i, i, i, i, p, p, p, p, p, p, p, p]
     lib.cstone_stencil_cross.restype = i
+    lib.cstone_stencil_one_sided.argtypes = [p, p, p, p, p, i, p, i, i, i, i, p, p, p, p, p]
+    lib.cstone_stencil_one_sided.restype = i
 
 
 LIBRARY = CudaLibrary("stencil.cu", _bind)
@@ -140,12 +144,12 @@ def _check(planes, valid, lengths, periodic, level) -> Tuple[int, int]:
 
 
 def _launch(density: bool, tgt, cand, lengths, periodic, level, self_mask: bool) -> torch.Tensor:
-    """One launch of csrc/stencil.cu. tgt = (x, y, z, r2 or h, valid); cand
-    = (x, y, z, mass or None, valid). The B4 wrapper passes
-    self_mask=False. The one-sided B1/B2 route (self_mask=True) and the
-    two-leg B3 route (self_mask=False, once from each end) are what
-    csrc/stencil_sym.cu replaced, kept only as the yardsticks chip_smoke.py
-    times the symmetric kernels against."""
+    """One launch of csrc/stencil.cu, the first-draft kernel that
+    csrc/stencil_sym.cu replaced, kept only as the yardstick chip_smoke.py
+    times the kernels of B1-B4 against. tgt = (x, y, z, r2 or h, valid);
+    cand = (x, y, z, mass or None, valid). The one-sided B1/B2 route
+    (self_mask=True), the two-leg B3 route (self_mask=False, once from
+    each end) and the old B4 route (self_mask=False on one table)."""
     tx, ty, tz, tw, tvalid = tgt
     cx, cy, cz, cw, cvalid = cand
     dev = tx.device
@@ -185,6 +189,22 @@ def _launch_sym(density: bool, px, py, pz, w, mass, valid, lengths, periodic,
         ptr(lengths), int(periodic[0]), int(periodic[1]), int(periodic[2]), int(level),
         ptr(row_counts), ptr(units), ptr(stats), ptr(out), stream_of(px))
     check_launch(err, "stencil_sym")
+    return out
+
+
+def _launch_one_sided(px, py, pz, r2, valid, lengths, periodic, level) -> torch.Tensor:
+    """One launch of the one-sided mode of csrc/stencil_sym.cu (B4) into a
+    zeroed output: counts with the self pair included."""
+    dev = px.device
+    lib = SYM_LIBRARY.load()
+    lengths = lengths.to(device=dev, dtype=torch.float32).contiguous()
+    out = torch.zeros(px.shape, dtype=torch.int32, device=dev)
+    row_counts, units, stats = _scratch(1, px.shape[0], px.shape[1], dev)
+    err = lib.cstone_stencil_one_sided(
+        ptr(px), ptr(py), ptr(pz), ptr(r2), ptr(valid), px.shape[1], ptr(lengths),
+        int(periodic[0]), int(periodic[1]), int(periodic[2]), int(level),
+        ptr(row_counts), ptr(units), ptr(stats), ptr(out), stream_of(px))
+    check_launch(err, "stencil_one_sided")
     return out
 
 
@@ -290,8 +310,7 @@ def stencil_counts_asym(px, py, pz, r2, valid, lengths, periodic, level) -> torc
     _check((px, py, pz, r2), valid, lengths, periodic, level)
     if px.device.type == "cpu":
         return stencil_counts_asym_plain(px, py, pz, r2, valid, lengths, periodic, level)
-    out = _launch(False, (px, py, pz, r2, valid), (px, py, pz, None, valid),
-                  lengths, periodic, level, self_mask=False)
+    out = _launch_one_sided(px, py, pz, r2, valid, lengths, periodic, level)
     out = out - (valid & (r2 > 0)).to(torch.int32)
     _LAUNCHES.launched("stencil_counts_asym", (px, py, pz, r2, valid, lengths, periodic, level), out)
     return out

@@ -29,10 +29,36 @@ FIXED = 2
 @dataclass(frozen=True)
 class Box:
     """limits: (6,) float tensor [xmin, xmax, ymin, ymax, zmin, zmax];
-    boundaries: 3 ints in {OPEN, PERIODIC, FIXED}."""
+    boundaries: 3 ints in {OPEN, PERIODIC, FIXED}. Two boxes are equal
+    when their limits and boundaries are; the hash reads the boundaries
+    only (box.py:125-131 of the JAX package)."""
 
     limits: torch.Tensor
     boundaries: Tuple[int, int, int] = field(default=(OPEN, OPEN, OPEN))
+
+    @property
+    def xmin(self) -> torch.Tensor:
+        return self.limits[0]
+
+    @property
+    def xmax(self) -> torch.Tensor:
+        return self.limits[1]
+
+    @property
+    def ymin(self) -> torch.Tensor:
+        return self.limits[2]
+
+    @property
+    def ymax(self) -> torch.Tensor:
+        return self.limits[3]
+
+    @property
+    def zmin(self) -> torch.Tensor:
+        return self.limits[4]
+
+    @property
+    def zmax(self) -> torch.Tensor:
+        return self.limits[5]
 
     @property
     def mins(self) -> torch.Tensor:
@@ -47,9 +73,41 @@ class Box:
         return self.maxs - self.mins
 
     @property
+    def ilengths(self) -> torch.Tensor:
+        return 1.0 / self.lengths
+
+    @property
+    def lx(self) -> torch.Tensor:
+        return self.limits[1] - self.limits[0]
+
+    @property
+    def ly(self) -> torch.Tensor:
+        return self.limits[3] - self.limits[2]
+
+    @property
+    def lz(self) -> torch.Tensor:
+        return self.limits[5] - self.limits[4]
+
+    @property
+    def min_extent(self) -> torch.Tensor:
+        return torch.min(self.lengths)
+
+    @property
+    def max_extent(self) -> torch.Tensor:
+        return torch.max(self.lengths)
+
+    @property
     def periodic_mask(self) -> np.ndarray:
         """(3,) bool mask of periodic dimensions."""
         return np.array([b == PERIODIC for b in self.boundaries])
+
+    def __eq__(self, other):
+        if not isinstance(other, Box):
+            return NotImplemented
+        return torch.equal(self.limits, other.limits) and self.boundaries == other.boundaries
+
+    def __hash__(self):
+        return hash(self.boundaries)
 
 
 def make_box(
@@ -79,6 +137,18 @@ class IBox:
     ymax: torch.Tensor
     zmin: torch.Tensor
     zmax: torch.Tensor
+
+    @staticmethod
+    def of(xmin, xmax, ymin=None, ymax=None, zmin=None, zmax=None) -> "IBox":
+        """Cubic if only (xmin, xmax) given; each bound an int64 tensor."""
+        if ymin is None:
+            ymin, ymax, zmin, zmax = xmin, xmax, xmin, xmax
+        return IBox(*(torch.as_tensor(v, dtype=torch.int64) for v in (xmin, xmax, ymin, ymax, zmin, zmax)))
+
+    @property
+    def min_extent(self) -> torch.Tensor:
+        return torch.minimum(torch.minimum(self.xmax - self.xmin, self.ymax - self.ymin),
+                             self.zmax - self.zmin)
 
 
 # ----------------------------------------------------------------------------

@@ -18,10 +18,11 @@ from ..ops.keys64 import srl
 __all__ = ["expand_bits", "compact_bits", "imorton", "decode_morton"]
 
 
-def expand_bits(v: torch.Tensor, bits: int) -> torch.Tensor:
-    """Insert 2 zero bits after each of the low `bits` (<= 21) bits of v
-    (morton.hpp:50-87). int64."""
-    x = v.to(torch.int64) & ((1 << bits) - 1)
+def expand_bits(v: torch.Tensor, key_dtype) -> torch.Tensor:
+    """Insert 2 zero bits after each of the low 10 (32-bit keys) or 21
+    (64-bit keys) bits of v (morton.hpp:50-87). int64 holding the bits of
+    the JAX version's uint32/uint64 result."""
+    x = v.to(torch.int64) & ((1 << max_tree_level(key_dtype)) - 1)
     x = (x | (x << 32)) & 0x001F00000000FFFF
     x = (x | (x << 16)) & 0x001F0000FF0000FF
     x = (x | (x << 8)) & 0x100F00F00F00F00F
@@ -32,8 +33,7 @@ def expand_bits(v: torch.Tensor, bits: int) -> torch.Tensor:
 
 def imorton(ix, iy, iz, key_dtype) -> torch.Tensor:
     """Morton key from integer grid coordinates in [0, 2^maxLevel) (morton.hpp:111-125)."""
-    lmax = max_tree_level(key_dtype)
-    key = expand_bits(ix, lmax) * 4 + expand_bits(iy, lmax) * 2 + expand_bits(iz, lmax)
+    key = expand_bits(ix, key_dtype) * 4 + expand_bits(iy, key_dtype) * 2 + expand_bits(iz, key_dtype)
     return key.to(torch_key_dtype(key_dtype))
 
 

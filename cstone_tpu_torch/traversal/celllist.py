@@ -41,6 +41,7 @@ __all__ = [
     "choose_cell_level",
     "rowmajor_cell_perm",
     "ell_pack",
+    "ell_pack_gather",
     "stencil_neighbor_counts",
     "cell_list_neighbor_counts",
     "cell_list_sph_density",
@@ -128,10 +129,27 @@ def rowmajor_cell_perm(level: int, curve: str = HILBERT, device=None):
     return torch.from_numpy(perm).to(device), torch.from_numpy(inv).to(device)
 
 
-def ell_pack(keys_sorted: torch.Tensor, perm: torch.Tensor, arrays, cap: int, level: int,
-             n_valid=None, cell_override=None):
+def ell_pack(offsets: torch.Tensor, perm: torch.Tensor, arrays, cap: int):
     """Pack per-cell particle runs into (n_cells, cap) ELL rows in row-major
-    cell order (the contract of the JAX ell_pack_gather).
+    cell order from a cell table: `offsets` (n_cells + 1,) from
+    cover.build_cell_table (SFC cell order), `perm` row-major -> SFC cell.
+    Returns (packed arrays, valid, overflow: 0-d bool, True when a cell
+    holds more than cap particles); an empty slot holds the fields of
+    particle 0, as in the JAX version."""
+    starts = offsets[perm]
+    counts = offsets[perm + 1] - starts
+    j = torch.arange(cap, device=offsets.device)
+    valid = j[None, :] < counts[:, None]
+    idx = torch.where(valid, starts[:, None] + j[None, :], 0)
+    return tuple(a[idx] for a in arrays), valid, counts.max() > cap
+
+
+def ell_pack_gather(keys_sorted: torch.Tensor, perm: torch.Tensor, arrays, cap: int, level: int,
+                    n_valid=None, blk: int = 64, cell_override=None):
+    """Pack per-cell particle runs into (n_cells, cap) ELL rows in row-major
+    cell order, the cells taken from the keys (the contract of the JAX
+    ell_pack_gather). `blk` is the JAX version's gather block on the TPU;
+    the port gathers each slot directly and does not read it.
 
     `cell_override` (n,) replaces the cells derived from the keys: an
     ascending array in which -1 marks particles before the packed set and
@@ -141,6 +159,7 @@ def ell_pack(keys_sorted: torch.Tensor, perm: torch.Tensor, arrays, cap: int, le
     pidx (sorted particle index per slot, INT32_MAX in empty slots),
     overflow: 0-d bool, True when a cell holds more than cap particles).
     """
+    del blk
     n = keys_sorted.shape[0]
     dev = keys_sorted.device
     n_cells = 1 << (3 * level)
@@ -211,7 +230,7 @@ def cell_list_neighbor_counts(
     if impl not in _COUNT_IMPLS:
         raise ValueError(f"impl must be one of {sorted(_COUNT_IMPLS)}, got {impl!r}")
     perm, _ = rowmajor_cell_perm(int(level), curve, device=xs.device)
-    (px, py, pz, ph), valid, pidx, overflow = ell_pack(
+    (px, py, pz, ph), valid, pidx, overflow = ell_pack_gather(
         keys_sorted, perm, (xs, ys, zs, hs), cap, int(level), n_valid=n_valid)
     r2 = torch.where(valid, (2.0 * ph) * (2.0 * ph), -1.0)
     counts_ell = _COUNT_IMPLS[impl](px, py, pz, r2, valid, box.lengths, _periodic_flags(box),
@@ -236,8 +255,8 @@ def cell_list_sph_density(
     perm, _ = rowmajor_cell_perm(int(level), curve, device=xs.device)
     per_particle_m = isinstance(mass, torch.Tensor) and mass.ndim == 1
     fields = (xs, ys, zs, hs) + ((mass.to(torch.float32),) if per_particle_m else ())
-    packed, valid, pidx, overflow = ell_pack(keys_sorted, perm, fields, cap, int(level),
-                                             n_valid=n_valid)
+    packed, valid, pidx, overflow = ell_pack_gather(keys_sorted, perm, fields, cap, int(level),
+                                                    n_valid=n_valid)
     px, py, pz, ph = packed[:4]
     pm = torch.where(valid, packed[4], 0.0) if per_particle_m else None
     wsum = stencil_density(px, py, pz, ph, valid, box.lengths, _periodic_flags(box), int(level),

@@ -35,7 +35,7 @@ from ..ops.stencil import stencil_counts, stencil_cross
 from ..sfc.box import Box
 from ..sfc.encode import HILBERT
 from ..sfc.keys import max_tree_level
-from .celllist import ell_pack, rowmajor_cell_perm
+from .celllist import ell_pack_gather, rowmajor_cell_perm
 
 __all__ = [
     "choose_tier_levels",
@@ -142,7 +142,7 @@ def _pack_tier(keys_s, tier_s, fields, t: int, level: int, cap: int, curve: str)
     cell = torch.clamp(srl(keys_s, 3 * (lmax - level)).to(torch.int64), max=n_cells)
     cell = torch.where(tier_s < t, -1, torch.where(tier_s > t, n_cells, cell))
     perm, _ = rowmajor_cell_perm(level, curve, device=keys_s.device)
-    packed, valid, pidx, ovf = ell_pack(keys_s, perm, fields, cap, level, cell_override=cell)
+    packed, valid, pidx, ovf = ell_pack_gather(keys_s, perm, fields, cap, level, cell_override=cell)
     r2 = torch.where(valid, (2.0 * packed[3]) * (2.0 * packed[3]), -1.0)
     return (packed[0], packed[1], packed[2], r2, valid), pidx, ovf
 

@@ -69,6 +69,10 @@ class LinkedOctree:
     def n_nodes(self) -> torch.Tensor:
         return self.n_leaf + self.n_internal
 
+    @property
+    def capacity(self) -> int:
+        return self.prefixes.shape[0]
+
     def leaf_order(self) -> torch.Tensor:
         """Sorted node index of each cornerstone leaf (octree.hpp:385-389)."""
         cap_leaf = self.leaves.shape[0] - 1

@@ -9,14 +9,17 @@ the tiered cell list (traversal/tiered.py). `wrap_threshold_ell` and
 `wrap_threshold_cross` build the stencil inputs on which a symmetric pass
 that reused one end's d2 across a periodic wrap would miscount;
 `mixed_image_runs` the run-streaming counts input whose tiles need every
-kind of minimum image. Host-side numpy, set-up code."""
+kind of minimum image; `cell_rows` particles whose cells hold rows of
+set lengths (the one-sided stencil's chunk edges) and `dense_groups` the
+dense group x candidate counts input with every kind of edge. Host-side
+numpy, set-up code."""
 
 from __future__ import annotations
 
 import numpy as np
 
 __all__ = ["gaussian_coords", "plummer_coords", "adaptive_h", "grid_density", "wrap_threshold_ell",
-           "wrap_threshold_cross", "mixed_image_runs"]
+           "wrap_threshold_cross", "mixed_image_runs", "cell_rows", "dense_groups"]
 
 
 def gaussian_coords(n: int, limits, seed: int = 42, dtype=np.float32) -> np.ndarray:
@@ -199,3 +202,63 @@ def mixed_image_runs(group_size: int, n_groups: int, periodic: bool = True, seed
     box_params = np.array([1, 1, 1, 1, 1, 1] + [float(periodic)] * 3, np.float32)
     return (flat.reshape(n_groups, G, 3), r2, run_start, run_len,
             flat[:, 0].copy(), flat[:, 1].copy(), flat[:, 2].copy(), box_params)
+
+
+def cell_rows(level: int, row_lengths=(0, 1, 32, 33, 64), seed: int = 0):
+    """Particles in the unit box whose cells at `level` hold one of
+    `row_lengths` particles each (drawn per cell), uniform inside the cell (off its faces),
+    with h uniform in [0.25, 0.5] cell sides (so 2h fits a cell side): ELL
+    rows that end before, at and just past a 32-slot chunk edge, and empty
+    ones, for the stencil kernels.
+
+    Returns (pos (n, 3), h (n,)), float32, in no particular order.
+    """
+    rng = np.random.RandomState(seed)
+    D = 1 << level
+    per_cell = np.asarray(row_lengths)[rng.randint(len(row_lengths), size=D ** 3)]
+    cell = np.repeat(np.arange(D ** 3), per_cell)
+    ijk = np.stack([cell // (D * D), (cell // D) % D, cell % D], axis=-1)
+    # kept off the cell faces, so float rounding moves no particle to the next cell
+    pos = ((ijk + rng.uniform(0.001, 0.999, size=ijk.shape)) / D).astype(np.float32)
+    h = (rng.uniform(0.25, 0.5, size=cell.shape[0]) / D).astype(np.float32)
+    return pos, h
+
+
+def dense_groups(group_size: int, n_groups: int = 8, n_cand: int = 300, seed: int = 0):
+    """Dense group x candidate counts input (the arguments of
+    pairwise_count, as numpy) with every edge a tiled kernel can meet.
+    Targets of group g are particles g*G + t clustered around a centre;
+    candidates lie around the same centre with random particle indices.
+    Each row's valid slots are a prefix of random length with a hole of -1
+    slots inside it; group 1 has no valid candidate; at slots 0, 255, 256,
+    511, 512 and C - 1 (the edges of 256-candidate tiles) and at four
+    random slots a valid candidate is one of the group's own targets, at
+    its own coordinates (d2 = 0, so only the index test excludes it); about
+    a tenth of the targets have r2 = -1. Empty slots hold index -1 and the
+    coordinate FLT_MAX / 2 (find_neighbors' poison). n_cand need not be a
+    multiple of any tile.
+
+    Returns (targets (n_groups, G, 3), r2 (n_groups, G), cand (n_groups,
+    C, 3) float32, cidx (n_groups, C) int32).
+    """
+    rng = np.random.RandomState(seed)
+    G, C = group_size, n_cand
+    centres = rng.uniform(0.1, 0.9, size=(n_groups, 1, 3))
+    targets = (centres + rng.uniform(-0.05, 0.05, size=(n_groups, G, 3))).astype(np.float32)
+    r2 = rng.uniform(0.0, 0.01, size=(n_groups, G)).astype(np.float32)
+    r2[rng.uniform(size=r2.shape) < 0.1] = -1.0
+    cand = (centres + rng.uniform(-0.1, 0.1, size=(n_groups, C, 3))).astype(np.float32)
+    cidx = rng.randint(0, n_groups * G, size=(n_groups, C)).astype(np.int32)
+    k = np.arange(C)
+    valid = k[None, :] < rng.randint(C // 2, C + 1, size=(n_groups, 1))
+    hole = rng.randint(0, max(1, C // 2), size=(n_groups, 1))
+    valid &= ~((k[None, :] >= hole) & (k[None, :] < hole + max(1, C // 10)))
+    valid[1 % n_groups] = False
+    for g in range(n_groups):
+        for s in [e for e in (0, 255, 256, 511, 512, C - 1) if 0 <= e < C] + list(rng.randint(0, C, 4)):
+            if valid[g, s]:
+                t = rng.randint(G)
+                cand[g, s], cidx[g, s] = targets[g, t], g * G + t
+    cand[~valid] = np.float32(np.finfo(np.float32).max / np.float32(2.0))
+    cidx[~valid] = -1
+    return targets, r2, cand, cidx

@@ -106,7 +106,7 @@ def test_pack_and_plain_stencil_match_jax(n_valid):
         jnp.asarray(keys), jperm, tuple(jnp.asarray(a) for a in (x, y, z, h)), cap, level,
         n_valid=n_valid)
     k, *cols = _port(arrs)
-    tpacked, tvalid, tpidx, tovf = tcl.ell_pack(k, tperm, tuple(cols), cap, level, n_valid=n_valid)
+    tpacked, tvalid, tpidx, tovf = tcl.ell_pack_gather(k, tperm, tuple(cols), cap, level, n_valid=n_valid)
     assert bool(jovf) == bool(tovf) is False
     np.testing.assert_array_equal(tvalid.numpy(), np.asarray(jvalid))
     np.testing.assert_array_equal(tpidx.numpy(), np.asarray(jpidx))
@@ -152,7 +152,7 @@ def test_kernel_wrappers_take_plain_path_on_cpu(periodic):
     cap = _cap(arrs[4], level, 8)
     k, *cols = _port(arrs)
     perm, _ = tcl.rowmajor_cell_perm(level, device="cpu")
-    (px, py, pz, ph), valid, _, _ = tcl.ell_pack(k, perm, tuple(cols), cap, level)
+    (px, py, pz, ph), valid, _, _ = tcl.ell_pack_gather(k, perm, tuple(cols), cap, level)
     r2 = torch.where(valid, (2.0 * ph) * (2.0 * ph), -1.0)
     flags = (periodic,) * 3
     plain = tcl.stencil_neighbor_counts(px, py, pz, r2, valid, tbox, level)
@@ -176,7 +176,7 @@ def test_asym_wrapper_subtracts_only_counted_self_pairs():
     level = 3
     k, *cols = _port(arrs)
     perm, _ = tcl.rowmajor_cell_perm(level, device="cpu")
-    (px, py, pz, ph), valid, _, _ = tcl.ell_pack(k, perm, tuple(cols), _cap(arrs[4], level, 8), level)
+    (px, py, pz, ph), valid, _, _ = tcl.ell_pack_gather(k, perm, tuple(cols), _cap(arrs[4], level, 8), level)
     r2 = torch.where(valid, (2.0 * ph) * (2.0 * ph), -1.0)
     r2[valid.nonzero()[:5].unbind(1)] = 0.0
     flags = (True,) * 3
@@ -202,7 +202,7 @@ def test_cross_plain_matches_jax_cross_kernel(periodic, op):
         cap = _cap(sub[4], level, 64) + 64 * int(not sel[0] == in_b[0])
         k, *cols = _port(sub)
         perm, _ = tcl.rowmajor_cell_perm(level, device="cpu")
-        (px, py, pz, ph), valid, _, _ = tcl.ell_pack(k, perm, tuple(cols), cap, level)
+        (px, py, pz, ph), valid, _, _ = tcl.ell_pack_gather(k, perm, tuple(cols), cap, level)
         w = torch.where(valid, (2.0 * ph) * (2.0 * ph), -1.0) if op == "count" else ph
         ells.append((px, py, pz, w, valid))
     assert ells[0][0].shape[1] != ells[1][0].shape[1], "caps must differ"
@@ -232,7 +232,7 @@ def test_plain_stencil_cell_runs_give_the_same_result(op):
     k, *cols = _port(arrs)
     m = torch.from_numpy(np.random.RandomState(2).uniform(0.5, 1.5, 1500).astype(np.float32))
     perm, _ = tcl.rowmajor_cell_perm(level, device="cpu")
-    (px, py, pz, ph, pm), valid, _, _ = tcl.ell_pack(k, perm, tuple(cols) + (m,),
+    (px, py, pz, ph, pm), valid, _, _ = tcl.ell_pack_gather(k, perm, tuple(cols) + (m,),
                                                      _cap(arrs[4], level, 8), level)
     density = op == "density"
     w = ph if density else torch.where(valid, (2.0 * ph) * (2.0 * ph), -1.0)

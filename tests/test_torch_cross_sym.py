@@ -38,7 +38,7 @@ def _cross_tables(n, level, periodic, op, seed=3):
     for sel, extra in ((~in_b, 8), (in_b, 0)):
         occ = int(torch.bincount(srl(keys[sel], 3 * (21 - level))).max())
         cap = 8 * -(-occ // 8) + extra
-        (px, py, pz, ph, pm), valid, _, ovf = celllist.ell_pack(
+        (px, py, pz, ph, pm), valid, _, ovf = celllist.ell_pack_gather(
             keys[sel], perm, tuple(c[sel] for c in cols), cap, level)
         assert not bool(ovf)
         w = torch.where(valid, (2.0 * ph) * (2.0 * ph), -1.0) if op == "count" else ph

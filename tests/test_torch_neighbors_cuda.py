@@ -4,7 +4,11 @@ versions, on the card: B5 (csrc/neighbors_v2.cu, run streaming, the
 pre-gathered candidates, the "v1" route), on the arguments find_neighbors
 launches them with after Domain.sync for 16K uniform and Gaussian particles with the
 group settings of test_neighbors.py; B5 also on tiles that need no
-image, one hoisted shift or the per-pair image (mixed_image_runs). Skips without an NVIDIA GPU and nvcc; chip_smoke.py
+image, one hoisted shift or the per-pair image (mixed_image_runs); B6
+also on groups of 1, 33, 256 and 1024 targets over candidate counts that
+are no multiple of its tile, with empty groups, holes of -1 slots, a
+target's own index at tile edges and targets with r2 < 0
+(dense_groups). Skips without an NVIDIA GPU and nvcc; chip_smoke.py
 phase 3 runs the same checks. Tolerance: counts bit-equal."""
 
 import numpy as np
@@ -16,7 +20,7 @@ from cstone_tpu_torch.ops import neighbors_v1, neighbors_v2
 from cstone_tpu_torch.ops.cuda_lib import nvcc_path, record_launches
 from cstone_tpu_torch.sfc import make_box
 from cstone_tpu_torch.traversal import neighbors
-from cstone_tpu_torch.utils.workloads import gaussian_coords, mixed_image_runs
+from cstone_tpu_torch.utils.workloads import dense_groups, gaussian_coords, mixed_image_runs
 
 pytestmark = pytest.mark.cuda
 
@@ -89,4 +93,15 @@ def test_runs_kernel_mixed_images(cuda_device, G, n_groups, periodic):
     want = neighbors_v2.pairwise_count_runs_plain(*args)
     torch.cuda.synchronize()
     assert int(want.sum()) > 0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("G", [1, 33, 256, 1024])
+@pytest.mark.parametrize("C", [300, 4133])
+def test_dense_kernel_on_edge_groups(cuda_device, G, C):
+    args = tuple(torch.from_numpy(a).to(cuda_device) for a in dense_groups(G, 8, C, seed=G + C))
+    got = neighbors_v1.pairwise_count(*args)
+    want = neighbors_v1.pairwise_count_plain(*args)
+    torch.cuda.synchronize()
+    assert int(want.sum()) > 0 and int(want[1].sum()) == 0
     assert torch.equal(got, want)

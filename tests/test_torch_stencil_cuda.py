@@ -5,8 +5,10 @@ caps above 1024, across a periodic wrap whose d2 differs between the two
 ends, and launch to launch; B3 (the cross pass between two disjoint sets,
 one symmetric launch of csrc/stencil_sym.cu for both sides) with unequal
 caps, a lane-table cap above 1024 with the lanes on either argument, and
-the wrap pair split across the two tables; B4 (the one-sided route of csrc/stencil.cu, against impl="xla");
-and every B1 and B3 launch of the tiered cell list on the arguments it made
+the wrap pair split across the two tables; B4 (the one-sided mode of
+csrc/stencil_sym.cu) against impl="xla" and against its plain version on
+rows of 0/1/32/33/64 slots at levels 2-5, periodic and open, at caps above
+1024 and on the wrap pairs; and every B1 and B3 launch of the tiered cell list on the arguments it made
 them with. Skips without an NVIDIA GPU and nvcc; chip_smoke.py phase 3 runs
 the same checks. Tolerance: counts bit-equal, density sums within rtol
 1e-5 (summation order differs, and varies from launch to launch)."""
@@ -22,6 +24,7 @@ from cstone_tpu_torch.sfc import compute_sfc_keys, make_box
 from cstone_tpu_torch.traversal import celllist, tiered
 from cstone_tpu_torch.utils.workloads import (
     adaptive_h,
+    cell_rows,
     gaussian_coords,
     wrap_threshold_cross,
     wrap_threshold_ell,
@@ -58,7 +61,7 @@ def _sorted_sample(dev, n, periodic, gauss, seed, level):
 
 def _pack(keys, cols, level, cap):
     perm, _ = celllist.rowmajor_cell_perm(level, device=keys.device)
-    (px, py, pz, ph, pm), valid, _, ovf = celllist.ell_pack(keys, perm, cols, cap, level)
+    (px, py, pz, ph, pm), valid, _, ovf = celllist.ell_pack_gather(keys, perm, cols, cap, level)
     assert not bool(ovf)
     return px, py, pz, ph, torch.where(valid, pm, 0.0), valid
 
@@ -225,6 +228,52 @@ def test_asym_matches_xla(cuda_device, level, periodic):
     got = stencil.stencil_counts_asym(px, py, pz, r2, valid, box.lengths, flags, level)
     want = stencil.stencil_counts_plain(px, py, pz, r2, valid, box.lengths, flags, level)
     torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("level", [2, 3, 4, 5])
+@pytest.mark.parametrize("periodic", [False, True])
+def test_asym_on_cell_rows_matches_plain(cuda_device, level, periodic):
+    # rows of 0, 1, 32, 33 and 64 valid slots: before, at and past a chunk edge
+    pos, h = cell_rows(level, seed=level)
+    p = torch.from_numpy(pos).to(cuda_device)
+    box = make_box(0.0, 1.0, boundaries=int(periodic), device=cuda_device)
+    keys, order = usort(compute_sfc_keys(p[:, 0], p[:, 1], p[:, 2], box, np.uint64))
+    cols = tuple(c[order].contiguous() for c in (p[:, 0], p[:, 1], p[:, 2],
+                                                 torch.from_numpy(h).to(cuda_device)))
+    perm, _ = celllist.rowmajor_cell_perm(level, device=cuda_device)
+    (px, py, pz, ph), valid, _, ovf = celllist.ell_pack_gather(keys, perm, cols, 64, level)
+    assert not bool(ovf)
+    assert set(valid.sum(dim=1).tolist()) == {0, 1, 32, 33, 64}
+    flags, r2 = (periodic,) * 3, _r2(ph, valid)
+    got = stencil.stencil_counts_asym(px, py, pz, r2, valid, box.lengths, flags, level)
+    want = stencil.stencil_counts_asym_plain(px, py, pz, r2, valid, box.lengths, flags, level)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("cap,n", [(1088, 16_500), (2496, 35_000)])
+@pytest.mark.parametrize("periodic", [False, True])
+def test_asym_large_cap_matches_plain(cuda_device, cap, n, periodic):
+    px, py, pz, ph, _, valid, box = _ell(cuda_device, 2, periodic, True, seed=7, cap=cap, n=n)
+    assert int(valid.sum(dim=1).max()) > 1024
+    flags, r2 = (periodic,) * 3, _r2(ph, valid)
+    got = stencil.stencil_counts_asym(px, py, pz, r2, valid, box.lengths, flags, 2)
+    want = stencil.stencil_counts_asym_plain(px, py, pz, r2, valid, box.lengths, flags, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_asym_wrap_pair_matches_plain(cuda_device, axis):
+    # the staged slot is shifted by o L, as the plain version shifts it
+    planes, valid, level, _, _ = wrap_threshold_ell(axis)
+    px, py, pz, r2 = torch.from_numpy(planes).to(cuda_device)
+    valid, L = torch.from_numpy(valid).to(cuda_device), torch.ones(3, device=cuda_device)
+    got = stencil.stencil_counts_asym(px, py, pz, r2, valid, L, (True,) * 3, level)
+    want = stencil.stencil_counts_asym_plain(px, py, pz, r2, valid, L, (True,) * 3, level)
+    torch.cuda.synchronize()
+    assert int(want.sum()) == 1
     assert torch.equal(got, want)
 
 

@@ -48,7 +48,7 @@ def _pack(arrs, level):
     cap = 8 * -(-int(occ.max()) // 8)
     perm, _ = tcl.rowmajor_cell_perm(level, device="cpu")
     cols = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in (x, y, z, h, m))
-    (px, py, pz, ph, pm), valid, pidx, ovf = tcl.ell_pack(from_numpy(keys), perm, cols, cap, level)
+    (px, py, pz, ph, pm), valid, pidx, ovf = tcl.ell_pack_gather(from_numpy(keys), perm, cols, cap, level)
     assert not bool(ovf)
     r2 = torch.where(valid, (2.0 * ph) * (2.0 * ph), -1.0)
     return px, py, pz, ph, r2, torch.where(valid, pm, 0.0), valid, pidx

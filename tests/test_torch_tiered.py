@@ -158,7 +158,7 @@ def test_cell_override_pack_matches_jax(tier):
     jp, jv, jpi, jo = jcl.ell_pack_gather(jnp.asarray(ks), jperm, tuple(jnp.asarray(a) for a in cols),
                                           cap, level, cell_override=jnp.asarray(cell))
     tperm, _ = tcl.rowmajor_cell_perm(level, device="cpu")
-    tp, tv, tpi, to = tcl.ell_pack(from_numpy(ks), tperm, tuple(torch.from_numpy(a) for a in cols),
+    tp, tv, tpi, to = tcl.ell_pack_gather(from_numpy(ks), tperm, tuple(torch.from_numpy(a) for a in cols),
                                    cap, level, cell_override=torch.from_numpy(cell))
     assert bool(jo) == bool(to) is False
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
