@@ -126,7 +126,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      card (parallel.dist.spawn_ranks over gloo, since nccl refuses two
      ranks on one device; every collective's CUDA operand goes through
      host memory), the kernels phase 2 built loaded, never built, in each.
-     Each process runs (a) and then (b). (a) the dry run of
+     Each process runs (a) and then (b), (b) through multichip.rank_steps,
+     the rank body of the steps mode that runs one card a rank over NCCL. (a) the dry run of
      cstone_tpu_torch.multichip (dryrun_multichip's rank_step): 256
      particles a rank, the dense then the ragged protocol, the neighbour
      sum through B5 equal to brute force, B5 launched once in every rank
@@ -190,8 +191,9 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      plain. Prints per sync W, win_need, each rank's ppermute and
      all_to_all rounds and bytes beside path F's, the sync wall beside
      path F's, and each rank's ms in find_peers_mac. (b) the converged
-     W's cold step on LET_RANKS rank processes over gloo (spawn_ranks),
-     equal to (a)'s, B1/B2 once in each, held to plain there.
+     W's cold step on LET_RANKS rank processes over gloo (spawn_ranks,
+     each running multichip.rank_steps), equal to (a)'s, B1/B2 once in
+     each, held to plain there.
 Each path's launch counts are set to 0 just before it is driven and read
 just after (paths E and F each over their 4 steps; path G in each rank
 process, summed; path H over its two routes; path J over (a), plus (b)'s
@@ -1588,158 +1590,36 @@ class RankTimer:
         setattr(self.module, self.name, self.real)
 
 
-class RankTally:
-    """Counts one rank's all_to_all, ragged_all_to_all and ppermute rounds
-    and the bytes it sends in them, by wrapping the methods of its own comm
-    (a thread's RankComm or a process's DistComm alike): an all_to_all
-    sends its (n_ranks, ...) buffer, its own row included, a ragged round
-    the rows of its chunks, summed on the card without a host read, a
-    ppermute round its tensor where a pair names the rank as a source. A
-    DistComm under gloo also counts its host staging (staged_bytes)."""
-
-    def __init__(self, comm):
-        self.comm = comm
-        a2a, ragged, ppermute = comm.all_to_all, comm.ragged_all_to_all, comm.ppermute
-        self.reset()
-
-        def all_to_all(t):
-            self.rounds += 1
-            self.nbytes += t.numel() * t.element_size()
-            return a2a(t)
-
-        def ragged_all_to_all(operand, output, input_offsets, send_sizes, output_offsets, recv_sizes):
-            self.ragged_rounds += 1
-            row = operand[0].numel() * operand.element_size()
-            self.ragged_bytes = self.ragged_bytes + send_sizes.clamp(min=0).sum() * row
-            return ragged(operand, output, input_offsets, send_sizes, output_offsets, recv_sizes)
-
-        def permute(t, pairs):
-            self.ppermute_rounds += 1
-            if any(src == comm.rank for src, _ in pairs):
-                self.ppermute_bytes += t.numel() * t.element_size()
-            return ppermute(t, pairs)
-
-        comm.all_to_all, comm.ragged_all_to_all, comm.ppermute = all_to_all, ragged_all_to_all, permute
-        comm.tally = self
-
-    @classmethod
-    def of(cls, comm) -> "RankTally":
-        """The comm's tally, attached at the first call."""
-        return getattr(comm, "tally", None) or cls(comm)
-
-    def reset(self):
-        self.rounds = self.nbytes = self.ragged_rounds = self.ragged_bytes = 0
-        self.ppermute_rounds = self.ppermute_bytes = 0
-        self.staged0 = getattr(self.comm, "staged_bytes", 0)
-
-    def read(self) -> dict:
-        return {"all_to_all": self.rounds, "all_to_all_bytes": self.nbytes, "ragged": self.ragged_rounds,
-                "ragged_bytes": int(self.ragged_bytes), "ppermute": self.ppermute_rounds,
-                "ppermute_bytes": self.ppermute_bytes,
-                "staged_bytes": getattr(self.comm, "staged_bytes", 0) - self.staged0}
-
-
 def ranks_setup(dev):
     """Phase 4's 1M positions, drift and h on dev, with mass 1/N, the
-    particle ids and the periodic unit box: the inputs of paths E-G."""
-    import torch
+    particle ids and the periodic unit box: the inputs of paths E-G
+    (multichip.uniform_setup draws phase 4's sample)."""
+    from cstone_tpu_torch import multichip
 
-    from cstone_tpu_torch.sfc import PERIODIC, make_box
-
-    xyz, drift, h = uniform_setup(dev)
-    return {"xyz": xyz, "drift": drift, "h": h, "m": torch.full((N,), 1.0 / N, dtype=torch.float32, device=dev),
-            "ids": torch.arange(N, device=dev), "box": make_box(0.0, 1.0, boundaries=PERIODIC, device=dev)}
-
-
-def rank_input(setup, r, cap):
-    """Rank r of LET_RANKS starts from the strided slice r::LET_RANKS of
-    every field, padded to cap: the exchange moves nearly every
-    particle."""
-    import torch
-
-    def pad(a, fill):
-        out = torch.full((cap,), fill, dtype=a.dtype, device=a.device)
-        s = a[r::LET_RANKS]
-        out[:s.numel()] = s
-        return out
-
-    ids = setup["ids"]
-    return {"xyz": tuple(pad(c, 0.0) for c in setup["xyz"]), "h": pad(setup["h"], 0.0), "m": pad(setup["m"], 0.0),
-            "ids": pad(ids, -1), "n": torch.tensor(ids[r::LET_RANKS].numel(), device=ids.device)}
-
-
-def drift_input(inp, drift, sgn):
-    """A rank's next input: its particles moved by the drift of their ids."""
-    return dict(inp, xyz=tuple((c + sgn * drift[inp["ids"].clamp(min=0), i]) % 1.0
-                               for i, c in enumerate(inp["xyz"])))
+    return multichip.uniform_setup(N, dev, SEED)
 
 
 def make_domain(comm, caps, mode, protocol, dev, window=0):
-    """A rank's Domain; the p2p capacities 0 take the Domain's defaults,
-    and "halo" is both the request and the particle capacity; `window`
-    is the dense protocol's peer window (0: none)."""
-    from cstone_tpu_torch.domain import Domain
+    from cstone_tpu_torch import multichip
 
-    return Domain(bucket_size=BUCKET, tree_capacity=caps["tree"], focus_capacity=caps["focus"], theta=LET_THETA,
-                  exchange_mode=mode, protocol=protocol, comm=comm, device=dev, move_cap=caps["move"],
-                  treelet_cap=caps["treelet"], halo_req_cap=caps["halo"], halo_cap=caps["halo"], peer_window=window)
-
-
-def rank_sync(comm, domain, state, inp):
-    """One rank's sync between two barriers: (state, res, (start, end))
-    on the host clock, the rank's stream drained."""
-    import torch
-
-    comm.all_reduce_flag(True)  # start together
-    t0 = time.perf_counter()
-    state, res = domain.sync(state, *inp["xyz"], inp["h"], properties=(inp["m"],), n_local=inp["n"])
-    torch.cuda.current_stream().synchronize()
-    return state, res, (t0, time.perf_counter())
+    return multichip.make_domain(comm, caps, mode, protocol, dev, window, BUCKET, LET_THETA)
 
 
 def rank_after(comm, domain, state, res, inp):
-    """B1 and B2 on the rank's buffer, the ids of its slots (p2p: the
-    owned ones, halo slots 0), the ids exchange_halos puts into the halo
-    slots, and the next step's input (the owned particles, by
-    compact_owned)."""
-    import torch
+    """multichip.rank_after at phase 4's cell level and cap."""
+    from cstone_tpu_torch import multichip
 
-    from cstone_tpu_torch.traversal import cell_list_neighbor_counts, cell_list_sph_density
-
-    rid = domain.reapply_sync(res, inp["ids"])
-    counts, c_ovf = cell_list_neighbor_counts(res.keys, res.x, res.y, res.z, res.h, state.box, LEVEL, CAP,
-                                              n_valid=res.n_with_halos, impl="pallas")
-    rho, d_ovf = cell_list_sph_density(res.keys, res.x, res.y, res.z, res.h, state.box, LEVEL, CAP,
-                                       mass=res.properties[0], n_valid=res.n_with_halos)
-    j = torch.arange(rid.shape[0], device=rid.device)
-    owned = (j >= res.start_index) & (j < res.end_index)
-    halo_ids = domain.exchange_halos(res, torch.where(owned, rid, -1))
-    co = domain.compact_owned
-    nxt = {"xyz": tuple(co(res, c) for c in (res.x, res.y, res.z)), "h": co(res, res.h),
-           "m": co(res, res.properties[0]), "ids": co(res, rid), "n": res.end_index - res.start_index}
-    return {"rid": rid, "counts": counts, "rho": rho, "halo_ids": halo_ids,
-            "cell_ovf": bool(c_ovf | d_ovf), "next": nxt}
+    return multichip.rank_after(comm, domain, state, res, inp, LEVEL, CAP)
 
 
 def cold_step(comm, setup, caps0, mode, protocol):
-    """The cold step: the rank runs the capacity retry itself; every rank
-    reports the largest overflow of all ranks and so takes the same retry.
-    Returns (state, res, span, input, domain, capacities, the comm's
-    RankTally, reset before the step: the step's rounds and bytes)."""
-    tally = RankTally.of(comm)
-    tally.reset()
+    """multichip.cold_step with phase 4's bucket and theta: (state, res,
+    span, input, domain, capacities, the comm's RankTally, reset before
+    the step: the step's rounds and bytes)."""
+    from cstone_tpu_torch import multichip
 
-    def run(caps):
-        domain = make_domain(comm, caps, mode, protocol, setup["ids"].device)  # kept across steps
-        state = domain.init_state(box=setup["box"], boundaries=(1, 1, 1))
-        inp = rank_input(setup, comm.rank, caps["local"])
-        state, res, span = rank_sync(comm, domain, state, inp)
-        return state, span, inp, domain, res  # the SyncResult last, for sync_with_retry
-
-    from cstone_tpu_torch.domain import sync_with_retry
-
-    (state, span, inp, domain, res), caps = sync_with_retry(run, caps0)
-    return state, res, span, inp, domain, caps, tally
+    c = multichip.cold_step(comm, setup, caps0, mode, protocol, 0, BUCKET, LET_THETA)
+    return c.state, c.res, c.span, c.inp, c.domain, c.caps, c.tally
 
 
 def first_caps(tree_cap):
@@ -1772,6 +1652,7 @@ def ranks_phase(dev, card, reference, tree_cap, mode, path_e=None):
     sync ms, all_to_all rounds and buffer bytes, and the peak memory)."""
     import torch
 
+    from cstone_tpu_torch import multichip
     from cstone_tpu_torch.ops.cuda_lib import record_launches
     from cstone_tpu_torch.parallel import run_ranks
     from cstone_tpu_torch.traversal import macs
@@ -1806,12 +1687,12 @@ def ranks_phase(dev, card, reference, tree_cap, mode, path_e=None):
     for step in range(1 + POOL_DRIFT_STEPS):
         what = f"path {name}, " + ("cold step" if step == 0 else f"drift step {step}")
         if step > 0:
-            inputs = [drift_input(inp, setup["drift"], sgn) for inp in inputs]
+            inputs = [multichip.drift_input(inp, setup["drift"], sgn) for inp in inputs]
             sgn = -sgn
             for t in tallies:
                 t.reset()
             with RankTimer(macs, "mark_macs") as marking:
-                outs = run_ranks(R, rank_sync, domains, states, inputs)
+                outs = run_ranks(R, multichip.rank_sync, domains, states, inputs)
             states, results, spans = ([o[i] for o in outs] for i in range(3))
         stats = [t.read() for t in tallies]  # the sync's, before exchange_halos' round
         last = step == POOL_DRIFT_STEPS
@@ -1881,9 +1762,8 @@ def path_g_rank(comm, tree_cap):
     dense protocol, then with the ragged one; B1 and B2 on the rank's
     buffer after each sync. Every B5 launch of (a) and the last step's
     launches of (b) are held to their plain versions here, (b)'s after
-    the peak memory is read."""
-    import torch
-
+    the peak memory is read. (b) is multichip.rank_steps, the per-rank
+    body of the multi-card steps mode."""
     from cstone_tpu_torch import multichip
     from cstone_tpu_torch.ops import neighbors_v1, neighbors_v2, stencil
     from cstone_tpu_torch.ops.cuda_lib import record_launches
@@ -1900,30 +1780,13 @@ def path_g_rank(comm, tree_cap):
     hold_to_plain(err, calls, f"path-G (a) inputs, rank {comm.rank}")
     out["dry_err"], out["dry_launched"] = err.max, sorted(c[0] for c in calls)
     out["dry_shapes"] = [tuple(args[0].shape[:2]) + tuple(args[2].shape[1:]) for _, args, _ in calls]
-    dev = comm.device
-    setup = ranks_setup(dev)
+    setup = ranks_setup(comm.device)
     for protocol in ("dense", "ragged"):
-        torch.cuda.reset_peak_memory_stats(dev)
         reset_all_launches()
-        state, res, span, inp, domain, caps, tally = cold_step(comm, setup, first_caps(tree_cap), "p2p", protocol)
-        steps, sgn = [], 1.0
-        for step in range(1 + POOL_DRIFT_STEPS):
-            if step > 0:
-                inp = drift_input(inp, setup["drift"], sgn)
-                sgn = -sgn
-                tally.reset()
-                state, res, span = rank_sync(comm, domain, state, inp)
-            stats = tally.read()
-            with record_launches() as calls:
-                after = rank_after(comm, domain, state, res, inp)
-            steps.append(rank_record(state, res, after, span, stats))
-            inp = after["next"]
-        launches = all_launches()
-        peak = torch.cuda.max_memory_allocated(dev)
-        err = Errors()
-        hold_to_plain(err, calls, f"path-G inputs, rank {comm.rank}")  # the last step's launches
-        out[protocol] = {"caps": caps, "steps": steps, "launches": launches, "err": err.max,
-                         "last_launched": sorted(c[0] for c in calls), "peak": peak}
+        run = multichip.rank_steps(comm, setup, "p2p", protocol, 0, POOL_DRIFT_STEPS, LEVEL, CAP,
+                                   first_caps(tree_cap), on_step=rank_record, bucket=BUCKET, theta=LET_THETA)
+        out[protocol] = {"caps": run["caps"], "steps": run["extra"], "launches": all_launches(),
+                         "err": run["plain_err"], "last_launched": run["last_launched"], "peak": run["peak"]}
     return out
 
 
@@ -2386,34 +2249,13 @@ WINDOW_TRIES = 4
 
 
 def window_cold_step(comm, setup, caps, window):
-    """Path J's cold step on one rank: a p2p Domain, dense protocol, over a
-    peer window of `window` ranks, at path F's inputs and capacities, one
-    sync. Returns (state, res, span, input, domain, the comm's RankTally,
-    reset before the sync)."""
-    tally = RankTally.of(comm)
-    tally.reset()
-    domain = make_domain(comm, caps, "p2p", "dense", setup["ids"].device, window)
-    state = domain.init_state(box=setup["box"], boundaries=(1, 1, 1))
-    inp = rank_input(setup, comm.rank, caps["local"])
-    state, res, span = rank_sync(comm, domain, state, inp)
-    return state, res, span, inp, domain, tally
+    """Path J's cold step on one rank (multichip.cold_try): a p2p Domain,
+    dense protocol, over a peer window of `window` ranks, at path F's
+    inputs and capacities, one sync. Returns (state, res, span, input,
+    domain, the comm's RankTally, reset before the sync)."""
+    from cstone_tpu_torch import multichip
 
-
-def window_need_of(domain, state, res) -> int:
-    """What overflow_detail[6] must say for one rank: the largest rank
-    offset of its halo leaves' owners and of its MAC peers (diagnostics'
-    mac_peer_max_offset), where that exceeds the window; else 0."""
-    import torch
-
-    from cstone_tpu_torch.ops.primitives import searchsorted
-
-    n_leaf = int(res.tree.n_leaf)
-    owner = torch.clamp(searchsorted(state.assignment.boundaries, res.tree.leaves[:n_leaf], side="right") - 1,
-                        0, domain.n_ranks - 1)
-    halo = res.halo_flags[:n_leaf].bool()
-    off = int((owner[halo] - domain.rank).abs().max()) if bool(halo.any()) else 0
-    need = max(off, domain.diagnostics(state, res)["mac_peer_max_offset"])
-    return need if need > domain.peer_window else 0
+    return multichip.cold_try(comm, setup, caps, "p2p", "dense", window, BUCKET, LET_THETA)
 
 
 def window_lines(what, window, results, spans, stats, peers_ms, path_f, step, card) -> None:
@@ -2436,27 +2278,27 @@ def window_lines(what, window, results, spans, stats, peers_ms, path_f, step, ca
 
 def path_j_rank(comm, tree_cap, window):
     """One rank process of path J (b) (run by parallel.dist.spawn_ranks):
-    the cold step at the window path J (a) converged to, then B1 and B2 on
-    the rank's buffer, each launch held to its plain version here."""
+    multichip.rank_steps in the dense p2p mode at the window path J (a)
+    converged to, its cold step alone: B1 and B2 on the rank's buffer,
+    each launch held to its plain version there."""
+    from cstone_tpu_torch import multichip
     from cstone_tpu_torch.ops import neighbors_v1, neighbors_v2, stencil
-    from cstone_tpu_torch.ops.cuda_lib import record_launches
 
     libs = (stencil.SYM_LIBRARY, stencil.LIBRARY, neighbors_v2.LIBRARY, neighbors_v1.LIBRARY)
     for lib in libs:
         lib.load()  # the libraries phase 2 built: loaded, never built here
     setup = ranks_setup(comm.device)
+
+    def record(state, res, after, span, stats):
+        rec = res.halo_record
+        return rank_record(state, res, after, span, stats), (rec.window, rec.send_idx.shape[0])
+
     reset_all_launches()
-    state, res, span, inp, domain, tally = window_cold_step(comm, setup, first_caps(tree_cap), window)
-    stats = tally.read()
-    with record_launches() as calls:
-        after = rank_after(comm, domain, state, res, inp)
-    launches = all_launches()
-    err = Errors()
-    hold_to_plain(err, calls, f"path-J (b) inputs, rank {comm.rank}")
-    return {"built": [lib.source.name for lib in libs if lib.build_log], "rec": rank_record(state, res, after, span,
-                                                                                          stats),
-            "rows": (res.halo_record.window, res.halo_record.send_idx.shape[0]), "launches": launches,
-            "launched": sorted(c[0] for c in calls), "err": err.max}
+    run = multichip.rank_steps(comm, setup, "p2p", "dense", window, 0, LEVEL, CAP, first_caps(tree_cap),
+                               on_step=record, bucket=BUCKET, theta=LET_THETA)
+    (rec, rows), = run["extra"]
+    return {"built": [lib.source.name for lib in libs if lib.build_log], "rec": rec, "rows": rows,
+            "launches": all_launches(), "launched": run["last_launched"], "err": run["plain_err"]}
 
 
 def window_phase(dev, card, reference, tree_cap, path_f):
@@ -2470,6 +2312,7 @@ def window_phase(dev, card, reference, tree_cap, path_f):
     (launches of (a) and (b), Errors)."""
     import torch
 
+    from cstone_tpu_torch import multichip
     from cstone_tpu_torch.domain import domain as domain_module
     from cstone_tpu_torch.ops.cuda_lib import record_launches
     from cstone_tpu_torch.parallel import run_ranks
@@ -2494,7 +2337,7 @@ def window_phase(dev, card, reference, tree_cap, path_f):
             check(rec.window == window and rec.send_idx.shape[0] == 2 * window + 1,
                   f"path J, W={window}, rank {r}: a halo record of window {rec.window}, {rec.send_idx.shape[0]} rows")
             check(torch.equal(res.overflow_detail, results[0].overflow_detail), "the ranks report different overflows")
-        want = max(window_need_of(d, st, res) for d, st, res in zip(domains, states, results))
+        want = max(multichip.window_need(d, st, res) for d, st, res in zip(domains, states, results))
         check(detail[6] == want, f"path J, W={window}: overflow_detail[6] is {detail[6]}, the halo owners and "
               f"MAC peers need {want}")
         window_lines(f"path J, cold step, try {len(tries)}", window, results, spans, [t.read() for t in tallies],
@@ -2515,12 +2358,12 @@ def window_phase(dev, card, reference, tree_cap, path_f):
     for step in range(1 + POOL_DRIFT_STEPS):
         what = f"path J, W={window}, " + ("cold step" if step == 0 else f"drift step {step}")
         if step > 0:
-            inputs = [drift_input(inp, setup["drift"], sgn) for inp in inputs]
+            inputs = [multichip.drift_input(inp, setup["drift"], sgn) for inp in inputs]
             sgn = -sgn
             for t in tallies:
                 t.reset()
             with RankTimer(domain_module, "find_peers_mac") as peers:
-                outs = run_ranks(R, rank_sync, domains, states, inputs)
+                outs = run_ranks(R, multichip.rank_sync, domains, states, inputs)
             states, results, spans = ([o[i] for o in outs] for i in range(3))
             window_lines(what, window, results, spans, [t.read() for t in tallies], peers.ms, path_f, step, card)
         with record_launches() as calls:

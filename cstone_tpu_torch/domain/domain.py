@@ -422,7 +422,10 @@ class Domain:
             lif = torch.arange(cap_leaf, device=dev)
             leaf_counts = torch.where(lif < linked.n_leaf, node_counts_f[linked.leaf_order()], 0)
 
-        first_leaf, last_leaf = searchsorted(linked.leaves, assignment.boundaries[self.rank:self.rank + 2])
+        # a focus tree that overflowed may end short of the assignment: its
+        # range clamps to the leaves array, as JAX's indexing clamps
+        first_leaf, last_leaf = torch.clamp(
+            searchsorted(linked.leaves, assignment.boundaries[self.rank:self.rank + 2]), max=cap_leaf)
         mine = (lif >= first_leaf) & (lif < last_leaf)
         j = torch.arange(cap, device=dev)
 
@@ -534,7 +537,9 @@ class Domain:
         lif = torch.arange(cap_leaf, device=dev)
         # leaf counts come from the converge loop's final count pass
         leaf_counts = torch.where(lif < linked.n_leaf, node_counts_f[linked.leaf_order()], 0)
-        first_leaf, last_leaf = searchsorted(linked.leaves, assignment.boundaries[self.rank:self.rank + 2])
+        # clamped as in the p2p branch
+        first_leaf, last_leaf = torch.clamp(
+            searchsorted(linked.leaves, assignment.boundaries[self.rank:self.rank + 2]), max=cap_leaf)
 
         # ---- 7. halos: per-leaf radii 2 * ext * max(h) over the own leaves'
         # particles (halos.hpp:116-189); an empty leaf's max is -inf -> 0
@@ -710,7 +715,10 @@ class Domain:
         i0 = torch.clamp(searchsorted(tree.keys, a, side="right") - 1, min=0)
         i0 = torch.minimum(i0, n_nodes)
         i1 = torch.minimum(torch.maximum(searchsorted(tree.keys, b, side="left"), i0), n_nodes)
-        return (csum[i1] - csum[i0]) & 0xFFFFFFFF
+        # an overflowed tree (n_nodes > capacity) reads csum's last entry,
+        # as JAX's gathers clamp: a sync that overflows must not crash
+        last = csum.shape[0] - 1
+        return (csum[torch.clamp(i1, max=last)] - csum[torch.clamp(i0, max=last)]) & 0xFFFFFFFF
 
     def _window_need(self, dest_leaf, halo_req, assignment, linked, box, itm):
         """overflow_detail[6]: the largest rank offset the windowed protocols

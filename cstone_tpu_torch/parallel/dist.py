@@ -272,6 +272,8 @@ def spawn_ranks(n_ranks: int, fn: Callable, *per_rank_args: Sequence, backend: s
             raise ValueError(f"nccl needs one card a rank: {n_ranks} ranks, {cards} cards")
         devices = [f"cuda:{r}" for r in range(n_ranks)]
     else:
+        if dev.type == "cuda" and dev.index is None:  # the parent's current card, named for the children
+            dev = torch.device("cuda", torch.cuda.current_device())
         devices = [str(dev)] * n_ranks
 
     ctx = torch.multiprocessing.get_context("spawn")
@@ -318,22 +320,31 @@ def spawn_ranks(n_ranks: int, fn: Callable, *per_rank_args: Sequence, backend: s
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def comm_from_env(backend: str, device=None) -> DistComm:
+def comm_from_env(backend: str, device=None, timeout: Optional[float] = None) -> DistComm:
     """The DistComm of a process torchrun started: rank RANK of WORLD_SIZE,
     device cuda:LOCAL_RANK unless `device` names another (gloo only: nccl
     takes the rank's card). Initialises the default process group from
     torchrun's environment (MASTER_ADDR, MASTER_PORT) unless it is
-    already initialised."""
+    already initialised; `timeout`: seconds a collective may wait (the
+    process group's timeout, which NCCL's watchdog enforces; None: torch's
+    default). Under nccl, fewer cards than the ranks on this host
+    (LOCAL_WORLD_SIZE) raise in every rank."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     rank, n_ranks = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     local = int(os.environ.get("LOCAL_RANK", rank))
     dev = torch.device("cuda", local) if device is None else torch.device(device)
+    if backend == "nccl":
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        local_ranks = int(os.environ.get("LOCAL_WORLD_SIZE", local + 1))
+        if cards < local_ranks:
+            raise ValueError(f"nccl needs one card a rank: {local_ranks} ranks on this host, {cards} cards")
     if dev.type == "cuda":
         if not torch.cuda.is_available() or torch.cuda.device_count() <= (dev.index or 0):
             raise RuntimeError(f"device {dev} is not available; pass device='cpu' with backend='gloo'")
         torch.cuda.set_device(dev)
     _quiet_deprecation()
     if not dist.is_initialized():
-        dist.init_process_group(backend, rank=rank, world_size=n_ranks)
+        kw = {} if timeout is None else {"timeout": timedelta(seconds=timeout)}
+        dist.init_process_group(backend, rank=rank, world_size=n_ranks, **kw)
     return DistComm(rank, n_ranks, backend, dev)

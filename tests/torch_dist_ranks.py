@@ -173,3 +173,25 @@ def domain_steps(comm, cols, ids, periodic, modes=MODES):
             h, m = co(res, res.h), co(res, res.properties[0])
             pid = torch.where(live, co(res, rids), -1)
     return out
+
+
+def steps_modes(comm, n, steps, modes, reference=None):
+    """multichip.rank_steps in each of `modes` over bench.py's uniform
+    sample of n particles on the CPU, every step held to the one-rank
+    reference (computed here unless given): per mode the converged
+    capacities, window and tries, per step the comm's rounds and bytes,
+    and slot_record's tensors."""
+    from cstone_tpu_torch import multichip
+
+    cfg = multichip.steps_config(n, comm.n_ranks, steps, modes, sim_steps=0, timed_steps=0)
+    setup = multichip.uniform_setup(n, "cpu")
+    if reference is None:
+        reference, _ = multichip.reference_steps(setup, steps, cfg["level"], cfg["cell_cap"], cfg["caps"]["tree"])
+    out = {}
+    for name in modes:
+        mode, protocol, window = multichip.STEP_MODES[name]
+        run = multichip.rank_steps(comm, setup, mode, protocol, window, steps, cfg["level"], cfg["cell_cap"],
+                                   cfg["caps"], reference)
+        out[name] = {"caps": run["caps"], "window": run["window"], "tries": run["tries"],
+                     "comm": [s["comm"] for s in run["steps"]], "records": run["records"]}
+    return out
