@@ -194,6 +194,46 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      W's cold step on LET_RANKS rank processes over gloo (spawn_ranks,
      each running multichip.rank_steps), equal to (a)'s, B1/B2 once in
      each, held to plain there.
+ 15. path L, the octree build of bench.py's tree mode (bench.py:423-517,
+     the reference's test/performance/octree.cpp:107-136), driven by
+     cstone_tpu_torch/octree_build.py: bench.py's Gaussian sample
+     normal(0.5, 0.15) clipped to [0, 1 - 1e-6] (seed 42) in the
+     periodic unit box, bucket 16, at 2M uint64 Hilbert
+     (octree_build_2M), 64M uint64 Hilbert (octree_build_64M), 2M uint64
+     Morton (octree.cu:70-115) and 2M uint32 Hilbert: compute_sfc_keys and
+     the unsigned sort, compute_octree from bench.py's capacity and warm
+     start (regrown once as bench.py regrows it), update_octree against
+     the drifted keys until it converges. Checks the cornerstone
+     invariants at the key width, the unique fixed point, the build and
+     the converged update bit-equal to the host C++ oracle
+     (native.compute_octree_host) of the same sorted keys, the 2M Hilbert
+     keys equal to native.hilbert_encode's. Prints the iterations, the
+     node counts, the medians and quartiles of OCTREE_REPS builds, single
+     update steps and updates to convergence (CUDA events, each ending on
+     a host read), keys/s, the peak memory and the oracle's seconds. On
+     the 2M uint64 Hilbert tree, the leaf modules no other path calls,
+     each bit-equal to the same call on the CPU: compute_spanning_tree,
+     build_binary_tree, compute_continuum_csarray, stencil_stats;
+ 16. path M, syncGrav on LET_RANKS thread ranks, driven by
+     cstone_tpu_torch/grav_ranks.py: path I (b)'s particles, strided over
+     the ranks, a cold Domain.sync(grav=True) under sync_with_retry from
+     path F's capacities and a drift step, each followed by
+     update_expansion_centers, in pool then p2p mode, and the same steps
+     at one rank. Checks overflow 0, the owned ids a partition of the
+     particles, p2p equal to pool on every rank (assignment, focus
+     leaves, layout, halo flags over the leaves, keys), the one-rank
+     centres within rtol 1e-5 of the float64 centre of mass of every
+     node; on the focus nodes in a rank's own assignment its centres and
+     MAC spheres within rtol 1e-5 of the one-rank run's; on every other
+     node its centres within 16 rounding units of the float64 centre of
+     mass (the bound the owners' float32 prefix sums put on a range sum)
+     and its MAC radii moved no more than their centres; plain float32
+     prefix sums of the same leaves under that limit and a 16-bit
+     control above it. Prints each rank's sync ms, all_to_all rounds and
+     bytes and the 8-rank wall. Then Halos (one rank),
+     exchange_focus_quantities (8 ranks), ParticleFields and a
+     checkpoint round trip of a DomainState on the card, each equal
+     to the same call on the CPU. Paths L and M launch no kernel.
 Each path's launch counts are set to 0 just before it is driven and read
 just after (paths E and F each over their 4 steps; path G in each rank
 process, summed; path H over its two routes; path J over (a), plus (b)'s
@@ -739,19 +779,6 @@ def kernel_vs_plain_phase(dev, err: Errors):
 # phase 4: the cell-list main path
 # ----------------------------------------------------------------------------
 
-def cornerstone_ok(tree, n) -> None:
-    from cstone_tpu_torch.ops.keys64 import to_numpy
-
-    nn = int(tree.n_nodes)
-    keys = to_numpy(tree.keys)[: nn + 1]
-    check(keys[0] == 0 and int(keys[-1]) == 1 << 63, "cornerstone tree must span [0, 2^63)")
-    d = np.diff(keys)
-    check(bool(((d & (d - np.uint64(1))) == 0).all() and (d > 0).all()), "leaf ranges are powers of 2")
-    lz = np.array([int(v).bit_length() - 1 for v in d])
-    check(bool((lz % 3 == 0).all()), "leaf ranges are powers of 8")
-    check(int(tree.counts[:nn].sum()) == n, "leaf counts sum to n")
-
-
 def uniform_setup(dev):
     """1M uniform particles (seed 42), the drift field and h = 0.012."""
     import torch
@@ -779,6 +806,7 @@ def main_path_phase(dev, card):
 
     from cstone_tpu_torch.domain import Domain, sync_with_retry
     from cstone_tpu_torch.models import SphState, sph_density_step
+    from cstone_tpu_torch.octree_build import cornerstone_ok
     from cstone_tpu_torch.ops import stencil
     from cstone_tpu_torch.sfc import PERIODIC, make_box
     from cstone_tpu_torch.traversal import cell_list_neighbor_counts, cell_list_sph_density, choose_cell_level
@@ -1288,28 +1316,11 @@ class CallCounter:
         setattr(self.module, self.name, self.real)
 
 
-def bucket_tree_ok(tree, bucket, what) -> None:
-    """The cornerstone fixed point at `bucket`: no leaf above it, and no
-    complete group of 8 sibling leaves that would fit into one."""
-    from cstone_tpu_torch.ops.keys64 import to_numpy
-
-    nn = int(tree.n_nodes)
-    keys = to_numpy(tree.keys)[: nn + 1]
-    counts = tree.counts[:nn].cpu().numpy()
-    check(int(counts.max()) <= bucket, f"{what}: a leaf holds {int(counts.max())} > {bucket}")
-    d = np.diff(keys)
-    i = np.arange(max(nn - 7, 0))
-    group = np.all(d[i[:, None] + np.arange(8)] == d[i][:, None], axis=1) & (keys[i] % (d[i] * np.uint64(8)) == 0)
-    cs = np.concatenate([[0], np.cumsum(counts)])
-    sums = (cs[i + 8] - cs[i])[group]
-    check(len(sums) > 0 and int(sums.min()) > bucket,
-          f"{what}: a sibling group of {int(sums.min()) if len(sums) else -1} particles was not merged")
-
-
 def focus_tree_phase(dev, card):
     """Phase 7: Domain.sync with a focus tree built by focus_converge."""
     import torch
 
+    from cstone_tpu_torch import octree_build as ob
     from cstone_tpu_torch.domain import Domain
     from cstone_tpu_torch.focus import octree_focus
     from cstone_tpu_torch.ops.cuda_lib import record_launches
@@ -1371,8 +1382,9 @@ def focus_tree_phase(dev, card):
         check(torch.equal(rc.tree.prefixes, r4.tree.prefixes)
               and torch.equal(rc.tree.child_offsets, r4.tree.child_offsets), f"{what}: linked focus tree differs")
         check(torch.equal(cc, c4), f"{what}: counts differ from the bucket-{BUCKET} Domain's")
-        bucket_tree_ok(states["C"].global_tree, GLOBAL_BUCKET, f"{what}, global tree")
-        cornerstone_ok(states["C"].global_tree, N)
+        check(ob.fixed_point_ok(states["C"].global_tree, GLOBAL_BUCKET, f"{what}, global tree") == 0,
+              f"{what}: a leaf of the global tree holds more than {GLOBAL_BUCKET}")
+        ob.cornerstone_ok(states["C"].global_tree, N)
 
     def report(label, out):
         for name in ("C", "4"):
@@ -1468,6 +1480,7 @@ def let_phase(dev, card, res, state):
     from cstone_tpu_torch.domain.decomposition import make_sfc_assignment
     from cstone_tpu_torch.focus import octree_focus
     from cstone_tpu_torch.focus.source_center import geo_mac_spheres
+    from cstone_tpu_torch.octree_build import cornerstone_ok
     from cstone_tpu_torch.ops.keys64 import to_numpy, ule
     from cstone_tpu_torch.ops.primitives import searchsorted, segment_max
     from cstone_tpu_torch.sfc.box import Box
@@ -2187,16 +2200,12 @@ def gravity_phase(dev, card):
     import torch
 
     from cstone_tpu_torch.domain import Domain, sync_with_retry
+    from cstone_tpu_torch.grav_ranks import grav_setup
     from cstone_tpu_torch.models import nbody
-    from cstone_tpu_torch.sfc import make_box
     from cstone_tpu_torch.traversal.geometry import node_geometry
 
-    rng = np.random.RandomState(SEED)
-    pos = rng.normal(0, 0.25, size=(N, 3)).clip(-0.99, 0.99).astype(np.float32)
-    m = torch.from_numpy(rng.uniform(0.5, 1.5, size=N).astype(np.float32)).to(dev)
-    xyz = tuple(torch.from_numpy(np.ascontiguousarray(pos[:, i])).to(dev) for i in range(3))
-    h = torch.full((N,), H, dtype=torch.float32, device=dev)
-    box = make_box(-1.0, 1.0, device=dev)
+    setup = grav_setup(N, dev, H, SEED)
+    xyz, m, h, box = setup["xyz"], setup["m"], setup["h"], setup["box"]
 
     def run(caps):
         domain = Domain(bucket_size=BUCKET, theta=GRAV_THETA, tree_capacity=caps["tree"], device=dev)
@@ -2415,6 +2424,298 @@ def window_phase(dev, card, reference, tree_cap, path_f):
     return launches, err
 
 
+# ----------------------------------------------------------------------------
+# phase 15: path L, the library's own octree build (bench.py's tree mode)
+# ----------------------------------------------------------------------------
+
+OCTREE_REPS = 3
+OCTREE_CONFIGS = (  # (name, keys, key width, curve): bench.py's two cells, octree.cu:70-115's Morton, 32-bit keys
+    ("octree_build_2M", 2_000_000, np.uint64, "hilbert"),
+    ("octree_build_64M", 64_000_000, np.uint64, "hilbert"),
+    ("octree.cu, Morton", 2_000_000, np.uint64, "morton"),
+    ("uint32 Hilbert", 2_000_000, np.uint32, "hilbert"),
+)
+
+
+def to_cpu(tree):
+    """A tree of tensors (utils/tree.py) with every tensor moved to the CPU."""
+    import torch
+
+    from cstone_tpu_torch.utils.tree import tree_leaves, tree_unflatten
+
+    return tree_unflatten(tree, [a.cpu() if isinstance(a, torch.Tensor) else a for a in tree_leaves(tree)])
+
+
+def same_on_cpu(what, got, want) -> None:
+    """Every tensor of `got` (computed on the card) equal to `want` (the
+    same function on the CPU copies of its inputs), bit for bit."""
+    import torch
+
+    from cstone_tpu_torch.utils.tree import tree_leaves
+
+    a, b = tree_leaves(got), tree_leaves(want)
+    check(len(a) == len(b), f"{what}: {len(a)} results on the card, {len(b)} on the CPU")
+    for i, (x, y) in enumerate(zip(a, b)):
+        if isinstance(x, torch.Tensor):
+            check(x.shape == y.shape and torch.equal(x.cpu(), y), f"{what}: result {i} differs from the CPU run's")
+        else:
+            check(x == y, f"{what}: result {i} differs from the CPU run's")
+
+
+def card_and_cpu(what, fn, *args):
+    """fn on the card's arguments and on their CPU copies, held equal; the
+    card's result and the ms of both calls."""
+    cpu_args = to_cpu(list(args))
+    got, ms = timed_ms(lambda: fn(*args))
+    t0 = time.perf_counter()
+    want = fn(*cpu_args)
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    same_on_cpu(what, got, want)
+    return got, ms, cpu_ms
+
+
+def octree_leaves_phase(dev, card, run, curve) -> dict:
+    """The leaf modules no other path runs, on path L's 2M tree, each on the
+    card against the same call on the CPU: compute_spanning_tree of an
+    8-way split of the tree by counts, build_binary_tree over its leaf
+    keys, compute_continuum_csarray of a rational concentration (the
+    same correctly rounded operations on both), stencil_stats of the keys'
+    level-5 cell table."""
+    import torch
+
+    from cstone_tpu_torch import octree_build as ob
+    from cstone_tpu_torch.ops.primitives import searchsorted
+    from cstone_tpu_torch.sfc import PERIODIC, make_box
+    from cstone_tpu_torch.sfc.keys import node_range
+    from cstone_tpu_torch.traversal.celllist import rowmajor_cell_perm, stencil_stats
+    from cstone_tpu_torch.traversal.cover import build_cell_table
+    from cstone_tpu_torch.tree import btree, continuum, csarray
+
+    tree, keys = run["tree"], run["keys"]
+    nn = int(tree.n_nodes)
+    kdt = tree.keys.dtype
+    ms = {}
+    cum = torch.cumsum(tree.counts[:nn], 0)
+    at = searchsorted(cum, torch.arange(1, 8, device=dev) * (keys.shape[0] // 8), side="right") + 1
+    split = torch.cat([tree.keys[:1], tree.keys[at], tree.keys.new_full((1,), node_range(kdt, 0))])
+    (span, n_span), ms["compute_spanning_tree"], _ = card_and_cpu(
+        "compute_spanning_tree", csarray.compute_spanning_tree, split, 8, 4096)
+    bt, ms["build_binary_tree"], _ = card_and_cpu("build_binary_tree", btree.build_binary_tree, tree.keys[:nn], nn)
+    check(int(bt.n_internal) == nn - 1, "build_binary_tree: n - 1 internal nodes")
+
+    def blob(x, y, z):
+        r2 = (x - 0.5) * (x - 0.5) + (y - 0.5) * (y - 0.5) + (z - 0.5) * (z - 0.5)
+        return 4.0e6 / (1.0 + 60.0 * r2)
+
+    def continuum_tree(box):
+        return continuum.compute_continuum_csarray(blob, box, ob.BUCKET, 262_144, np.uint64, curve=curve)
+
+    box = make_box(0.0, 1.0, boundaries=PERIODIC, device=dev)
+    ct, ms["compute_continuum_csarray"], _ = card_and_cpu("compute_continuum_csarray", continuum_tree, box)
+    perm = rowmajor_cell_perm(5, curve, device=dev)[0]
+    (pairs, occ), ms["stencil_stats"], _ = card_and_cpu(
+        "stencil_stats", lambda k, p: stencil_stats(build_cell_table(k, 5), p, 5), keys, perm)
+    print(f"path L, leaves on the 2M tree, each bit-equal to the CPU run of the same inputs: spanning tree of an "
+          f"8-way split {int(n_span)} nodes, binary radix tree {int(bt.n_internal)} internal nodes, continuum tree "
+          f"{int(ct.n_nodes)} leaves, stencil_stats at level 5: {float(pairs):.6e} pairs, densest cell {int(occ)}; "
+          f"ms on the card {json.dumps({k: round(v, 3) for k, v in ms.items()})} [{card}]", flush=True)
+    return ms
+
+
+def octree_phase(dev, card) -> dict:
+    """Phase 15, path L: octree_build.octree_build_path at OCTREE_CONFIGS on
+    the card, each held to the host oracle (octree_build.octree_checks);
+    the leaf modules on the 2M uint64 Hilbert tree (octree_leaves_phase)."""
+    import torch
+
+    from cstone_tpu_torch import octree_build as ob
+
+    out = {}
+    for name, n, kdt, curve in OCTREE_CONFIGS:
+        what = f"path L, {name}"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        run = ob.octree_build_path(dev, n, kdt, curve, reps=OCTREE_REPS)
+        peak = torch.cuda.max_memory_allocated(dev)
+        run_s = time.perf_counter() - t0
+        oracle_s, deep = ob.octree_checks(what, run, n, kdt, curve)
+        ms = run["ms"]
+        rec = {"n": n, "key_bits": 8 * np.dtype(kdt).itemsize, "curve": curve, "capacity": run["capacity"],
+               "regrown": run["regrown"], "build_iterations": run["iters"], "update_steps": len(run["steps"]),
+               "n_nodes": int(run["tree"].n_nodes), "n_nodes_update": int(run["steps"][-1][0].n_nodes),
+               "build_ms": ms["build"], "update_step_ms": ms["update_step"], "update_ms": ms["update"],
+               "keys_per_s": n / (ms["build"]["median"] * 1e-3), "peak_bytes": peak, "oracle_s": oracle_s,
+               "deepest_over_bucket": deep, "seconds": run_s}
+        fmt = lambda q: f"{q['median']:.3f} ms (quartiles {q['q1']:.3f} / {q['q3']:.3f})"  # noqa: E731
+        print(f"{what}: {n} keys, uint{rec['key_bits']} {curve}, bucket {ob.BUCKET}, capacity {run['capacity']}"
+              f"{' (regrown)' if run['regrown'] else ''}: build {run['iters']} rebalance iterations, {rec['n_nodes']} "
+              f"nodes; update to convergence {len(run['steps'])} steps, {rec['n_nodes_update']} nodes; median of "
+              f"{OCTREE_REPS}: build {fmt(ms['build'])}, {rec['keys_per_s']:.6e} keys/s; one update step "
+              f"{fmt(ms['update_step'])}; update to convergence {fmt(ms['update'])}; peak memory allocated {peak} "
+              f"bytes; bit-equal to the host oracle (its two trees {oracle_s:.3f} s); leaves at the deepest level "
+              f"above the bucket {deep}; {run_s:.3f} s for the path [{card}]", flush=True)
+        if name == "octree_build_2M":
+            rec["leaves_ms"] = octree_leaves_phase(dev, card, run, curve)
+        out[name] = rec
+        del run
+    return out
+
+
+# ----------------------------------------------------------------------------
+# phase 16: path M, syncGrav on LET_RANKS ranks
+# ----------------------------------------------------------------------------
+
+GRAV_DRIFT_STEPS = 1  # each 8-rank syncGrav step holds all 1M particles on every rank
+
+
+def grav_leaves_phase(dev, card, ref, outs) -> None:
+    """The modules no other path runs, on path M's syncs, each on the card
+    against the same call on the CPU copies of its inputs: Halos
+    (discover, compute_layout, exchange) at one rank on the one-rank cold
+    step's focus tree, the middle third of its leaves taken as the rank's
+    own; exchange_focus_quantities of the 8 p2p ranks' leaf counts;
+    ParticleFields and get_fields; save_checkpoint / load_checkpoint of
+    rank 0's DomainState on the card, back onto the card and onto the CPU."""
+    import tempfile
+
+    import torch
+
+    from cstone_tpu_torch.fields import ParticleFields, get_fields
+    from cstone_tpu_torch.focus.exchange_focus import exchange_focus_quantities
+    from cstone_tpu_torch.halos import Halos
+    from cstone_tpu_torch.ops.keys64 import key_const
+    from cstone_tpu_torch.parallel import run_ranks
+    from cstone_tpu_torch.sfc.keys import node_range
+    from cstone_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from cstone_tpu_torch.utils.tree import tree_leaves
+
+    ms = {}
+    state, res = ref["state"], ref["res"]
+    tree, n = res.tree, int(res.end_index)
+    n_leaf = int(tree.n_leaf)
+    first, last = n_leaf // 3, 2 * n_leaf // 3
+    bounds = torch.tensor([0, key_const(node_range(np.uint64, 0), np.uint64)], dtype=torch.int64, device=dev)
+
+    def halos(tree, keys, h, x, counts, bounds, box):
+        hs = Halos()
+        flags = hs.discover(tree, h, n, keys, first, last, box)
+        layout, start, end, rec = hs.compute_layout(tree, counts, flags, first, last, bounds, keys, n, n_leaf, n)
+        return flags, layout, start, end, rec, hs.exchange(x, torch.zeros_like(x), rec)
+
+    (flags, _, _, _, rec, _), ms["halos"], ms["halos_cpu"] = card_and_cpu(
+        "Halos", halos, tree, res.keys, res.h, res.x, res.leaf_counts, bounds, state.box)
+    check(int(rec.overflow) == 0 and 0 < int(flags.sum()) < n_leaf - (last - first), "Halos: overflow or no halos")
+
+    def focus_exchange(comm, leaves, values, assignment):
+        return exchange_focus_quantities(leaves, values, assignment, comm.rank, comm)
+
+    args = [[o["res"].tree.leaves for o in outs], [o["res"].leaf_counts for o in outs],
+            [o["state"].assignment for o in outs]]
+    got, ms["exchange_focus"] = timed_ms(lambda: run_ranks(len(outs), focus_exchange, *args))
+    want = run_ranks(len(outs), focus_exchange, *to_cpu(args))
+    same_on_cpu("exchange_focus_quantities", got, want)
+    check(all(bool(m[:int(o["res"].tree.n_leaf)].any()) for (_, m), o in zip(got, outs)),
+          "exchange_focus_quantities matched no leaf")
+
+    def fields(x, y, z, m):
+        d = ParticleFields(x.shape[0], device=x.device)
+        for name, v in (("x", x), ("y", y), ("z", z), ("m", m)):
+            d.add(name, v, conserved=name != "m")
+        d.acquire("ax", "ay")
+        d["ax"] = d["x"] * d["m"]
+        d.release("ay")
+        return get_fields(d, "x", "m", "ax"), d.names()
+
+    _, ms["fields"], _ = card_and_cpu("ParticleFields", fields, res.x, res.y, res.z, res.properties[0])
+
+    st = outs[0]["state"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/state.pt"
+        t0 = time.perf_counter()
+        save_checkpoint(path, st)
+        back = load_checkpoint(path, st)
+        ms["checkpoint"] = 1e3 * (time.perf_counter() - t0)
+        on_cpu = load_checkpoint(path, to_cpu(st))
+    check(all(a.device.type == "cuda" for a in tree_leaves(back) if isinstance(a, torch.Tensor)),
+          "load_checkpoint: the round trip left the card")
+    same_on_cpu("checkpoint round trip of a DomainState on the card", back, on_cpu)
+    same_on_cpu("checkpoint round trip against the state", back, to_cpu(st))
+    print(f"path M, modules on its syncs, each equal to the CPU run of the same inputs: Halos at one rank "
+          f"({int(flags.sum())} halo leaves of {n_leaf}), exchange_focus_quantities on {len(outs)} ranks, "
+          f"ParticleFields, a checkpoint round trip of rank 0's DomainState; ms "
+          f"{json.dumps({k: round(v, 3) for k, v in ms.items()})} [{card}]", flush=True)
+
+
+def grav_ranks_phase(dev, card, tree_cap) -> dict:
+    """Phase 16, path M: syncGrav + update_expansion_centers on LET_RANKS
+    thread ranks of path I (b)'s particles, pool then p2p, a cold step
+    under sync_with_retry from path F's capacities and GRAV_DRIFT_STEPS
+    drift steps (grav_ranks.grav_steps), held to the one-rank run of the
+    same steps and to the float64 oracle (grav_ranks.grav_ranks_checks);
+    the foreign leaves recomputed from plain float32 prefix sums and the
+    lower-precision control (grav_ranks.prefix_sum_readings), which the
+    outside limit must refuse; then the modules no other path runs
+    (grav_leaves_phase)."""
+    import torch
+
+    from cstone_tpu_torch import grav_ranks as gr
+    from cstone_tpu_torch.parallel import run_ranks
+
+    R = LET_RANKS
+    setup = gr.grav_setup(N, dev, H, SEED)
+    t0 = time.perf_counter()
+    ref, ref_caps = gr.grav_steps(None, setup, {"tree": tree_capacity(N)}, None, GRAV_DRIFT_STEPS, BUCKET, GRAV_THETA)
+    ref_gap = max(gr.one_rank_checks(f"path M, one rank, step {s}", r) for s, r in enumerate(ref))
+    print(f"path M: one-rank syncGrav, {N} particles, theta {GRAV_THETA}, bucket {BUCKET}: sync ms "
+          f"{json.dumps([round(1e3 * (s['span'][1] - s['span'][0]), 3) for s in ref])} (cold, then drift), "
+          f"capacities {ref_caps}, focus nodes {[int(s['res'].tree.n_nodes) for s in ref]}; centres "
+          f"{ref_gap:.3e} off the float64 oracle at most; {time.perf_counter() - t0:.3f} s [{card}]", flush=True)
+    runs = {}
+    for mode in ("pool", "p2p"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        outs = run_ranks(R, lambda comm: gr.grav_steps(comm, setup, first_caps(tree_cap), mode, GRAV_DRIFT_STEPS,
+                                                       BUCKET, GRAV_THETA))
+        run_s = time.perf_counter() - t0
+        caps = outs[0][1]
+        check(all(o[1] == caps for o in outs), f"path M, {mode}: the ranks grew different capacities")
+        steps = [[o[0][s] for o in outs] for s in range(1 + GRAV_DRIFT_STEPS)]
+        for s, per in enumerate(steps):
+            what = f"path M, {mode}, " + ("cold step" if s == 0 else f"drift step {s}")
+            cmp = gr.grav_ranks_checks(what, per, ref[s], runs["pool"][s] if mode == "p2p" else None)
+            readings = gr.prefix_sum_readings(per, ref[s])
+            f32 = max(max(x["float32"]) for x in readings)
+            control = min(max(x["control"]) for x in readings)
+            check(f32 <= gr.OUTSIDE_UNITS < control,
+                  f"{what}: plain float32 prefix sums {f32:.3e} and the {gr.CONTROL_BITS}-bit control {control:.3e} "
+                  f"rounding units off the oracle; the limit {gr.OUTSIDE_UNITS} must pass the first and refuse the "
+                  f"second")
+            wall = 1e3 * (max(o["span"][1] for o in per) - min(o["span"][0] for o in per))
+            stats = [o["stats"] for o in per]
+            print(f"{what}: {R}-rank sync wall {wall:.3f} ms; per rank sync ms "
+                  f"{json.dumps([round(1e3 * (o['span'][1] - o['span'][0]), 3) for o in per])}; all_to_all rounds "
+                  f"per rank {json.dumps([x['all_to_all'] for x in stats])}, their buffer bytes per rank "
+                  f"{json.dumps([x['all_to_all_bytes'] for x in stats])}; owned "
+                  f"{[int(o['res'].end_index) - int(o['res'].start_index) for o in per]}, halo particles "
+                  f"{[int(o['res'].n_with_halos) - int(o['res'].end_index) + int(o['res'].start_index) for o in per]}"
+                  f"; focus nodes {[c['nodes'] for c in cmp]}, shared with the one-rank tree "
+                  f"{[c['shared'] for c in cmp]}, in the rank's own range and held to rtol {gr.CENTER_RTOL}: "
+                  f"{[c['held'] for c in cmp]}, largest gap there {max(c['gap'] for c in cmp):.3e}; outside, rounding "
+                  f"units off the float64 oracle (limit {gr.OUTSIDE_UNITS}): positions "
+                  f"{json.dumps([round(c['pos'], 4) for c in cmp])}, masses "
+                  f"{json.dumps([round(c['mass'], 4) for c in cmp])}, the same leaves from plain float32 prefix sums "
+                  f"{f32:.4f}, from {gr.CONTROL_BITS}-bit prefix sums (control) {control:.4f} at least [{card}]",
+                  flush=True)
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"path M, {mode}: capacities {caps}; {run_s:.3f} s for the cold step (its retry included) and "
+              f"{GRAV_DRIFT_STEPS} drift steps with update_expansion_centers; peak memory allocated {peak} bytes"
+              + ("; every rank equal to pool at every step" if mode == "p2p" else "") + f" [{card}]", flush=True)
+        runs[mode] = steps
+    grav_leaves_phase(dev, card, ref[0], runs["p2p"][-1])
+    return runs
+
+
 def same_as_path_e(what, want, got, ref="path E") -> None:
     """A path against path E (or `ref`) at the same step: per rank the
     assignment, the focus tree's leaves, the halo flags, the layout and
@@ -2553,15 +2854,19 @@ def pairwise_bound(name, args):
 
 
 def build_all():
-    """Build the four kernel libraries in parallel, one nvcc each."""
+    """Build the four kernel libraries in parallel, one nvcc each, and the
+    host C++ oracle of path L with g++ beside them."""
+    from cstone_tpu_torch import native
     from cstone_tpu_torch.ops import neighbors_v1, neighbors_v2, stencil
 
     libs = (stencil.SYM_LIBRARY, stencil.LIBRARY, neighbors_v2.LIBRARY, neighbors_v1.LIBRARY)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(libs)) as pool:
+    with ThreadPoolExecutor(len(libs) + 1) as pool:
+        host = pool.submit(native.available)  # path L's oracle, g++ beside the nvcc builds
         list(pool.map(lambda lib: lib.load(), libs))
-    print(f"{len(libs)} kernel libraries built and loaded in {time.perf_counter() - t0:.3f} s",
-          flush=True)
+        host = host.result()
+    print(f"{len(libs)} kernel libraries built and loaded in {time.perf_counter() - t0:.3f} s; the host C++ "
+          f"oracle {'built' if host else 'did not build (g++ missing or its build failed)'}", flush=True)
     for lib in libs:  # ptxas -v: registers, shared memory, spills per kernel
         for line in lib.build_log.splitlines():
             if any(k in line for k in ("registers", "spill", "Compiling entry")) or "error" in line.lower():
@@ -2629,6 +2934,12 @@ def main():
     phase("14 path J: 8 ranks of the dense p2p protocol over a peer window, threads then processes")
     launches_j, err14 = window_phase(dev, card, reference, tree_cap, path_f)
     del path_f
+
+    phase("15 path L: the octree build of bench.py's tree mode, held to the host C++ oracle")
+    octree_phase(dev, card)
+
+    phase("16 path M: syncGrav on 8 ranks, pool and p2p, against one rank")
+    grav_ranks_phase(dev, card, tree_cap)
 
     for e in (err4, err5, err6, err7, err9, err10, err11, err12, err14):
         for k, v in e.max.items():

@@ -128,10 +128,11 @@ void encodeHilbert(const float* x, const float* y, const float* z, int64_t n,
 template<class KeyT, unsigned kLevels>
 unsigned treeLevelOf(KeyT range)
 {
-    // range is a power of 8 <= 2^(3*kLevels)
+    // range is a power of 8 <= 2^(3*kLevels); a leaf at the deepest level
+    // has range 1, and __builtin_clz of 0 is undefined
     unsigned lz;
-    if constexpr (sizeof(KeyT) == 8) { lz = range ? __builtin_clzll(range - 1) : 64; }
-    else { lz = range ? __builtin_clz(range - 1) : 32; }
+    if constexpr (sizeof(KeyT) == 8) { lz = range > 1 ? __builtin_clzll(range - 1) : 64; }
+    else { lz = range > 1 ? __builtin_clz(range - 1) : 32; }
     unsigned unused = sizeof(KeyT) == 8 ? 1 : 2;
     return (lz - unused) / 3;
 }

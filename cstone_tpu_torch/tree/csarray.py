@@ -40,6 +40,7 @@ __all__ = [
     "rebalance_decision",
     "rebalance_tree",
     "update_octree",
+    "CapacityError",
     "compute_octree",
     "update_treelet_ops",
     "compute_spanning_tree",
@@ -247,12 +248,21 @@ def _default_capacity(n_particles: int, bucket_size: int) -> int:
     return (est + 1023) // 1024 * 1024
 
 
+class CapacityError(RuntimeError):
+    """compute_octree's tree outgrew its capacity; `n_nodes` is the node
+    count where the fixed-point loop stopped."""
+
+    def __init__(self, capacity: int, n_nodes: int):
+        super().__init__(f"octree capacity {capacity} exhausted (n_nodes={n_nodes}); pass a larger capacity")
+        self.capacity, self.n_nodes = capacity, n_nodes
+
+
 def compute_octree(codes, bucket_size: int, capacity: int | None = None,
                    max_count=MAX_UINT32, n_codes=None, init_level: int | None = None) -> CsArray:
     """Fully converged cornerstone tree from sorted particle keys
     (csarray.hpp:450-465). The fixed-point loop checks convergence on the
     host once per iteration and stops early when the tree outgrows
-    `capacity`, which then raises."""
+    `capacity`, which then raises CapacityError."""
     n = int(codes.shape[0]) if n_codes is None else int(n_codes)
     if capacity is None:
         capacity = _default_capacity(n, bucket_size)
@@ -272,9 +282,7 @@ def compute_octree(codes, bucket_size: int, capacity: int | None = None,
         ops, converged = rebalance_decision(tree.keys, tree.counts, new_n, bucket_size)
         stop = converged | (new_n > capacity)
     if int(tree.n_nodes) > capacity:
-        raise RuntimeError(
-            f"octree capacity {capacity} exhausted (n_nodes={int(tree.n_nodes)}); "
-            "pass a larger capacity")
+        raise CapacityError(int(capacity), int(tree.n_nodes))
     return tree
 
 
