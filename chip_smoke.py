@@ -234,6 +234,25 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      exchange_focus_quantities (8 ranks), ParticleFields and a
      checkpoint round trip of a DomainState on the card, each equal
      to the same call on the CPU. Paths L and M launch no kernel.
+ 17. path N, cstone_tpu_torch.multichip's grav steps mode (the per-rank
+     body of `multichip --steps --grav`, which runs one rank a card over
+     NCCL on four cards) on GRAV_PROC_RANKS (4) rank processes that
+     share the one card over gloo (parallel.dist.spawn_ranks; NCCL
+     refuses two ranks on one card), so that DistComm's all_to_all,
+     ragged_all_to_all and ppermute carry gravity's range sums: path M's
+     N particles, N / 4 a rank, a cold step under sync_with_retry from
+     multichip.first_caps and GRAV_DRIFT_STEPS drift steps, each followed
+     by update_expansion_centers, in pool, dense, ragged and window
+     (grown from 1 to 3 by overflow_detail[6]) mode. Each rank process
+     first runs the one-card run of the same particles on the card, then
+     holds its own every step (grav_ranks.rank_checks): overflow 0, the
+     owned ids a partition (one all_reduce), its own nodes within rtol
+     1e-5 of the one-card run, every other node within 16 rounding units
+     of the float64 centre of mass, the p2p modes equal to pool slot for
+     slot. Prints the 4-process sync wall, per-rank sync and centres ms,
+     rounds and bytes, halo particles and the readings. Like path M it
+     launches no kernel (the JAX package's syncGrav path calls none):
+     every rank's launch counts must be 0.
 Each path's launch counts are set to 0 just before it is driven and read
 just after (paths E and F each over their 4 steps; path G in each rank
 process, summed; path H over its two routes; path J over (a), plus (b)'s
@@ -2716,6 +2735,36 @@ def grav_ranks_phase(dev, card, tree_cap) -> dict:
     return runs
 
 
+# ----------------------------------------------------------------------------
+# phase 17: path N, multichip's grav steps mode on rank processes
+# ----------------------------------------------------------------------------
+
+GRAV_PROC_RANKS = 4
+
+
+def grav_processes_phase(dev, card) -> dict:
+    """Phase 17, path N: multichip.grav_rank on GRAV_PROC_RANKS rank
+    processes sharing the card over gloo, as the module docstring says.
+    Each process prints nothing but rank 0's progress; the lines come
+    from multichip.report_grav here. Returns its summary."""
+    from cstone_tpu_torch import multichip
+    from cstone_tpu_torch.parallel.dist import spawn_ranks
+
+    R = GRAV_PROC_RANKS
+    cfg = multichip.grav_config(N, R, GRAV_DRIFT_STEPS, multichip.STEP_MODES)
+    t0 = time.perf_counter()
+    recs = spawn_ranks(R, multichip.grav_rank, [cfg] * R, backend="gloo", device=dev, timeout=600.0,
+                       deadline=900.0)
+    seconds = time.perf_counter() - t0
+    summary = multichip.report_grav(recs, cfg, "gloo", seconds, tag="path N, ")
+    launched = {k: v for rec in recs for k, v in rec["launches"].items() if v}
+    check(not launched, f"path N: the rank processes launched kernels {launched}; syncGrav calls none")
+    print(f"path N: {R} rank processes on the card over gloo, {N} particles, modes {cfg['modes']}, a cold and "
+          f"{GRAV_DRIFT_STEPS} drift step each, every rank's every step held: {seconds:.3f} s, the rank processes' "
+          f"start included; kernel launches 0 [{card}]", flush=True)
+    return summary
+
+
 def same_as_path_e(what, want, got, ref="path E") -> None:
     """A path against path E (or `ref`) at the same step: per rank the
     assignment, the focus tree's leaves, the halo flags, the layout and
@@ -2940,6 +2989,9 @@ def main():
 
     phase("16 path M: syncGrav on 8 ranks, pool and p2p, against one rank")
     grav_ranks_phase(dev, card, tree_cap)
+
+    phase("17 path N: multichip's grav steps mode on 4 rank processes over gloo, four modes, against one card")
+    grav_processes_phase(dev, card)
 
     for e in (err4, err5, err6, err7, err9, err10, err11, err12, err14):
         for k, v in e.max.items():

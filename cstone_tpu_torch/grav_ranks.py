@@ -1,6 +1,8 @@
 """syncGrav (Domain.sync(grav=True), domain.hpp:246-325) on several
-thread ranks of one process, held to the one-rank run of the same
-particles and to the float64 centre of mass of every focus node.
+ranks, threads of one process or a process each, in pool mode or p2p
+(dense, ragged, or dense over a peer window), held to the one-rank run
+of the same particles and to the float64 centre of mass of every focus
+node.
 
 The particles (`grav_setup`): n positions normal(0, 0.25) clipped to
 +-0.99 in the open box [-1, 1], masses uniform(0.5, 1.5), h = 0.012,
@@ -8,7 +10,7 @@ from RandomState(42); then a drift of uniform(-0.2, 0.2) x the mean
 spacing 2 n^(-1/3), drawn after them. `grav_steps` runs one rank's cold
 syncGrav under sync_with_retry and a number of drift steps, each followed
 by update_expansion_centers; with comm None it is the one-rank reference.
-`grav_ranks_checks` holds a step of every rank:
+The checks of a step:
 
 - overflow 0, of the sync and of the centres' range-sum service;
 - the owned particle ids a partition of the particles;
@@ -31,8 +33,12 @@ by update_expansion_centers; with comm None it is the one-rank reference.
   sums do) and rounded to CONTROL_BITS significant bits (a control that
   the limits must refuse);
 - with the pool run given, every rank of a p2p run equal slot for slot to
-  the pool run's: assignment, focus leaves, buffer size, keys, layout and
-  the halo flags over the leaves.
+  the pool run's (`slot_record`): assignment, focus leaves, buffer size,
+  keys, layout and the halo flags over the leaves.
+
+`grav_ranks_checks` holds every rank's step in one process (the thread
+ranks of run_ranks); `rank_checks` holds one rank's step in that rank
+(a rank process), the partition by one all_reduce on its comm.
 
 Gaps within rtol: positions relative to the larger of the reference's
 value and the node's side, masses and squared MAC radii relative to the
@@ -95,18 +101,27 @@ def grav_sync(comm, domain, state, inp: dict):
     return state, res, (t0, time.perf_counter())
 
 
-def grav_steps(comm, setup: dict, caps0: dict, mode, steps: int, bucket: int = BUCKET, theta: float = THETA):
+def grav_steps(comm, setup: dict, caps0: dict, mode, steps: int, bucket: int = BUCKET, theta: float = THETA,
+               protocol: str = "dense", window: int = 0):
     """One rank (comm None: the one-rank reference, all particles): a cold
     syncGrav under sync_with_retry from caps0, then `steps` drift steps
     fed by compact_owned, each sync followed by update_expansion_centers.
-    Returns (per step a dict of the state, result, centres, MAC spheres,
-    their overflow, the span, the comm's rounds and bytes and the particle
-    ids of the slots; the capacities)."""
+    `protocol` and `window` as multichip.make_domain takes them; a window
+    above 0 is the first try's, grown by sync_with_retry from
+    overflow_detail[6]. A cold try whose only overflow is the centres'
+    range-sum service (no slot of overflow_detail names it, as in the JAX
+    package, so a retry would grow nothing) raises, naming the treelet
+    capacity. Returns (per step a dict of the state, result, centres, MAC
+    spheres, their overflow, the sync's span, the centres' ms, the comm's
+    rounds and bytes in the sync ("stats") and in the centres ("c_stats")
+    and the particle ids of the slots, the cold step's also every try's
+    (window, overflow_detail) as "tries"; the capacities)."""
     from . import multichip
     from .domain import Domain, sync_with_retry
 
     dev = setup["ids"].device
     tally = None if comm is None else multichip.RankTally.of(comm)
+    tries = []
 
     def cold(caps):
         if comm is None:
@@ -114,12 +129,18 @@ def grav_steps(comm, setup: dict, caps0: dict, mode, steps: int, bucket: int = B
             inp = {k: setup[k] for k in ("xyz", "h", "m", "ids")} | {"n": setup["n"]}
         else:
             tally.reset()
-            domain = multichip.make_domain(comm, caps, mode, "dense", dev, 0, bucket, theta)
+            domain = multichip.make_domain(comm, caps, mode, protocol, dev, caps.get("window", 0), bucket, theta)
             inp = multichip.rank_input(setup, comm.rank, comm.n_ranks, caps["local"])
         state, res, span = grav_sync(comm, domain, domain.init_state(box=setup["box"]), inp)
+        detail = res.overflow_detail.tolist()
+        tries.append((domain.peer_window, detail))
+        if int(res.overflow) and not any(detail):  # the same on every rank: both are the largest of all ranks
+            raise RuntimeError(f"syncGrav: the centres' range-sum service needs {int(res.overflow)} foreign leaves "
+                               f"{'in all' if protocol == 'ragged' else 'from one owner'}, above its treelet "
+                               f"capacity {domain._p2p_caps(caps['local'])[1]}: give caps['treelet'] more")
         return domain, inp, state, span, res
 
-    (domain, inp, state, span, res), caps = sync_with_retry(cold, caps0)
+    (domain, inp, state, span, res), caps = sync_with_retry(cold, dict(caps0, window=window) if window else caps0)
     out, sgn = [], 1.0
     for step in range(1 + steps):
         if step:
@@ -127,10 +148,16 @@ def grav_steps(comm, setup: dict, caps0: dict, mode, steps: int, bucket: int = B
                 tally.reset()
             state, res, span = grav_sync(comm, domain, state, inp)
         stats = None if tally is None else tally.read()
+        if tally is not None:
+            tally.reset()
+        t0 = time.perf_counter()
         centers, spheres, _, c_ovf = domain.update_expansion_centers(state, res, res.properties[0])
+        c_ovf = int(c_ovf)  # a host read: the centres' work is done
+        c_ms = 1e3 * (time.perf_counter() - t0)
+        c_stats = None if tally is None else tally.read()
         rid = domain.reapply_sync(res, inp["ids"])
-        out.append({"state": state, "res": res, "centers": centers, "spheres": spheres, "c_ovf": int(c_ovf),
-                    "span": span, "stats": stats, "rid": rid})
+        out.append({"state": state, "res": res, "centers": centers, "spheres": spheres, "c_ovf": c_ovf,
+                    "span": span, "centers_ms": c_ms, "stats": stats, "c_stats": c_stats, "rid": rid})
         if step == steps:
             break
         co = domain.compact_owned
@@ -138,6 +165,7 @@ def grav_steps(comm, setup: dict, caps0: dict, mode, steps: int, bucket: int = B
                "m": co(res, res.properties[0]), "ids": co(res, rid), "n": res.end_index - res.start_index}
         inp = grav_drift(nxt, setup["drift"], sgn)
         sgn = -sgn
+    out[0]["tries"] = tries
     return out, caps
 
 
@@ -358,30 +386,81 @@ def prefix_sum_readings(outs: list, ref: dict, sums: dict | None = None) -> list
     return out
 
 
-def grav_ranks_checks(what, outs, ref, pool_outs=None) -> list:
-    """A step of every rank held as the module docstring says. Returns the
-    per-rank centre readings (centers_vs_one_rank)."""
+def slot_record(got: dict) -> dict:
+    """What a p2p step is held to of the pool step of the same rank and
+    step: the assignment, the focus leaves, the buffer size, the layout
+    and the halo flags over the leaves (two modes' cold steps may grow the
+    focus capacity apart, and the arrays' lengths with it) and the keys
+    of the filled slots."""
+    res = got["res"]
+    nl, nwh = int(res.tree.n_leaf), int(res.n_with_halos)
+    return {"boundaries": got["state"].assignment.boundaries, "n_leaf": nl, "n_with_halos": nwh,
+            "leaves": res.tree.leaves[:nl + 1], "layout": res.layout[:nl + 1], "halo_flags": res.halo_flags[:nl],
+            "keys": res.keys[:nwh]}
+
+
+def same_as_pool(what, rank: int, pool: dict, got: dict) -> None:
+    """A p2p step (a grav_steps record) slot for slot against the pool
+    run's slot_record of the same rank and step; raises naming the fields
+    that differ."""
+    mine = slot_record(got)
+    bad = [k for k, v in pool.items()
+           if not (torch.equal(v, mine[k]) if isinstance(v, torch.Tensor) else v == mine[k])]
+    _check(not bad, f"{what}, rank {rank}: p2p differs from pool in "
+                    + ", ".join(f"{k} ({pool[k].shape[0]} / {mine[k].shape[0]} entries)"
+                                if isinstance(pool[k], torch.Tensor) else f"{k} ({pool[k]} / {mine[k]})" for k in bad))
+
+
+def _overflow_ok(what, rank: int, got: dict) -> None:
+    res = got["res"]
+    _check(int(res.overflow) == 0 and got["c_ovf"] == 0,
+           f"{what}, rank {rank}: overflow {res.overflow_detail.tolist()}, centres {got['c_ovf']}")
+
+
+def _owned_ids(got: dict) -> torch.Tensor:
+    res = got["res"]
+    return got["rid"][int(res.start_index):int(res.end_index)]
+
+
+def rank_checks(what, comm, got: dict, ref: dict, sums: dict | None = None, pool: dict | None = None) -> dict:
+    """One rank's step (a grav_steps record) held by the rank itself, as
+    the module docstring says, against the one-rank run's step `ref`
+    (`sums`: step_sums(ref), computed here if None) and, with `pool`
+    (the pool run's slot_record of the same rank and step), slot for slot
+    against the pool run. Every rank of `comm` runs it: the partition is
+    held collectively, by one all_reduce of every particle id's owner
+    count (and of the owned slots holding no id), before any local check
+    may raise. Returns centers_vs_one_rank's readings."""
     n = ref["rid"].shape[0]
-    owned = []
+    own = _owned_ids(got)
+    ok = (own >= 0) & (own < n)
+    count = torch.zeros(n + 1, dtype=torch.int64, device=own.device)
+    count.index_add_(0, torch.where(ok, own, n), torch.ones_like(own))
+    count = comm.all_reduce(count, "sum")
+    bad = int((count[:n] != 1).sum())
+    _check(bad == 0 and int(count[n]) == 0,
+           f"{what}: the owned ranges are not a partition of the {n} particles ({bad} ids owned other than once, "
+           f"{int(count[n])} owned slots without an id)")
+    _overflow_ok(what, comm.rank, got)
+    out = centers_vs_one_rank(what, comm.rank, got, ref, sums)
+    if pool is not None:
+        same_as_pool(what, comm.rank, pool, got)
+    return out
+
+
+def grav_ranks_checks(what, outs, ref, pool_outs=None) -> list:
+    """A step of every rank, all held in one process, as the module
+    docstring says. Returns the per-rank centre readings
+    (centers_vs_one_rank)."""
+    n = ref["rid"].shape[0]
     for r, o in enumerate(outs):
-        res = o["res"]
-        _check(int(res.overflow) == 0 and o["c_ovf"] == 0,
-               f"{what}, rank {r}: overflow {res.overflow_detail.tolist()}, centres {o['c_ovf']}")
-        owned.append(o["rid"][int(res.start_index):int(res.end_index)])
-    ids = torch.cat(owned)
+        _overflow_ok(what, r, o)
+    ids = torch.cat([_owned_ids(o) for o in outs])
     _check(ids.numel() == n and torch.equal(torch.sort(ids).values, torch.arange(n, device=ids.device)),
            f"{what}: the owned ranges are not a partition of the {n} particles")
     sums = step_sums(ref)
     cmp = [centers_vs_one_rank(what, r, o, ref, sums) for r, o in enumerate(outs)]
     if pool_outs is not None:
         for r, (p, o) in enumerate(zip(pool_outs, outs)):
-            a, b = p["res"], o["res"]
-            nl, nwh = int(a.tree.n_leaf), int(a.n_with_halos)
-            same = (torch.equal(p["state"].assignment.boundaries, o["state"].assignment.boundaries)
-                    and nl == int(b.tree.n_leaf) and nwh == int(b.n_with_halos)
-                    and torch.equal(a.tree.leaves[:nl + 1], b.tree.leaves[:nl + 1])
-                    and torch.equal(a.layout, b.layout) and torch.equal(a.halo_flags[:nl], b.halo_flags[:nl])
-                    and torch.equal(a.keys[:nwh], b.keys[:nwh]))
-            _check(same, f"{what}, rank {r}: p2p differs from pool (assignment, focus leaves, layout, halo flags "
-                         f"over the leaves or keys)")
+            same_as_pool(what, r, slot_record(p), o)
     return cmp

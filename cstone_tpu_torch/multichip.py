@@ -64,6 +64,30 @@ slot; every B1/B2 launch of the last step equal to its plain version.
 Then (`--sim-steps`, default 2) the simulation loop (models/simulation)
 on the same particles, held to its one-rank run. Rank 0 (or the parent)
 prints one line a mode and step and, last, one JSON line.
+
+The grav steps mode (`--steps S --grav`): syncGrav, the counterpart of
+the JAX package's Domain.sync(grav=True) + update_expansion_centers
+under shard_map (domain.hpp:246-325), in the same four modes.
+
+    torchrun --standalone --nproc-per-node 4 -m cstone_tpu_torch.multichip \
+        --backend nccl --steps 2 --grav --n-total 4000000
+    python -m cstone_tpu_torch.multichip --ranks 4 --backend gloo --device cpu \
+        --steps 1 --grav --n-total 8000
+
+The particles of grav_ranks.grav_setup (normal(0, 0.25) clipped to
++-0.99 in the open box [-1, 1], masses uniform(0.5, 1.5), h 0.012, theta
+0.4, bucket 64, seed 42), rank r starting from the strided slice r::R at
+first_caps. Every rank first runs the one-card run of the same particles
+and steps on its own device (`grav_reference_steps`), then each mode
+(`grav_rank_steps`, pool first): a cold step under sync_with_retry (the
+window grown from 1 to R - 1 by overflow_detail[6] in window mode), S
+drift steps, each sync followed by update_expansion_centers. Every rank
+holds its own steps (grav_ranks.rank_checks), raising otherwise: overflow
+0, the owned ids a partition (one all_reduce), its own nodes' centres
+and MAC spheres within rtol 1e-5 of the one-card run, every other node's
+centre within 16 rounding units of the float64 centre of mass, the p2p
+modes equal to pool slot for slot. No simulation loop follows; syncGrav
+launches no kernel.
 """
 
 from __future__ import annotations
@@ -73,7 +97,9 @@ import contextlib
 import json
 import math
 import os
+import sys
 import time
+import traceback
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -81,7 +107,8 @@ import numpy as np
 import torch
 
 __all__ = ["dryrun_multichip", "rank_step", "particles", "brute_force_pairs", "PROTOCOLS", "STEP_MODES",
-           "RankTally", "uniform_setup", "rank_steps", "run_modes", "reference_steps", "steps_rank"]
+           "RankTally", "uniform_setup", "rank_steps", "run_modes", "reference_steps", "steps_rank",
+           "grav_config", "grav_reference_steps", "grav_rank_steps", "grav_rank", "report_grav"]
 
 PROTOCOLS = ("dense", "ragged")
 N_PER = 256
@@ -1111,48 +1138,258 @@ def report_sim(sims: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the steps mode under gravity (--grav)
+# ---------------------------------------------------------------------------
+
+
+def grav_config(n: int, n_ranks: int, steps: int, modes, keep_records: bool = False) -> dict:
+    """Everything the ranks of the grav steps mode share: the sizes of
+    grav_ranks (its particles, h, theta, bucket), the cold step's first
+    capacities (first_caps), the one-card run's tree capacity, the modes
+    with pool first (the p2p modes are held to it) and whether each rank
+    returns its records beside its numbers."""
+    from . import grav_ranks as gr
+
+    for m in modes:
+        if m not in STEP_MODES:
+            raise ValueError(f"unknown mode {m!r}; the modes are {sorted(STEP_MODES)}")
+    return {"grav": True, "n": n, "ranks": n_ranks, "steps": steps,
+            "modes": sorted(modes, key=lambda m: m != "pool"), "h": gr.H, "theta": gr.THETA,
+            "bucket": gr.BUCKET, "caps": first_caps(n, n_ranks, gr.BUCKET), "tree": tree_capacity(n, gr.BUCKET),
+            "keep_records": keep_records}
+
+
+def grav_reference_steps(setup: dict, steps: int, tree_cap: int):
+    """The one-card run of the same particles and steps (grav_steps with no
+    comm: Domain(comm=None), sync_with_retry on the tree capacity) on
+    setup's device, its centres held at every step to the float64 oracle
+    (one_rank_checks). Returns (its steps, their step_sums, its numbers:
+    sync and centres ms a step, capacities, largest gap to the oracle,
+    seconds)."""
+    from . import grav_ranks as gr
+
+    t0 = time.perf_counter()
+    ref, caps = gr.grav_steps(None, setup, {"tree": tree_cap}, None, steps)
+    gap = max(gr.one_rank_checks(f"the one-card run, step {s}", r) for s, r in enumerate(ref))
+    sums = [gr.step_sums(r) for r in ref]
+    return ref, sums, {"sync_ms": [1e3 * (r["span"][1] - r["span"][0]) for r in ref],
+                       "centers_ms": [r["centers_ms"] for r in ref], "caps": caps, "oracle_gap": gap,
+                       "seconds": time.perf_counter() - t0}
+
+
+def grav_rank_steps(comm, setup: dict, name: str, cfg: dict, ref: list, sums: list, pool: Optional[list] = None):
+    """One rank's syncGrav steps in mode `name` of STEP_MODES, run by every
+    rank: grav_steps from cfg's first capacities (a cold step under
+    sync_with_retry, a window grown from 1 in window mode; then
+    cfg["steps"] drift steps, each sync followed by
+    update_expansion_centers), every step held by grav_ranks.rank_checks
+    against the one-card run (`ref`, `sums`) and, with `pool` (the pool
+    mode's slot records), against the pool mode. In window mode the cold
+    tries must have grown the window to R - 1 from overflow_detail[6].
+    Raises on a failure. Returns (the numbers, the slot records, the
+    steps)."""
+    from . import grav_ranks as gr
+
+    mode, protocol, window = STEP_MODES[name]
+    R = comm.n_ranks
+    outs, caps = gr.grav_steps(comm, setup, cfg["caps"], mode, cfg["steps"], protocol=protocol, window=window)
+    tries = outs[0]["tries"]
+    if window:
+        reported = [d[6] for _, d in tries]
+        if tries[-1][0] != R - 1 or (window < R - 1 and max(reported) != R - 1):
+            raise RuntimeError(f"{name}, rank {comm.rank}: the window grew {[w for w, _ in tries]} on "
+                               f"overflow_detail[6] {reported}, not to R - 1 = {R - 1}")
+    numbers = []
+    for step, got in enumerate(outs):
+        what = f"{name}, " + ("cold step" if step == 0 else f"drift step {step}")
+        staged = got["stats"]["staged_bytes"] + got["c_stats"]["staged_bytes"]
+        if getattr(comm, "backend", None) == "nccl" and staged:
+            raise RuntimeError(f"{what}, rank {comm.rank}: {staged} bytes staged through host memory under nccl")
+        cmp = gr.rank_checks(what, comm, got, ref[step], sums[step], None if pool is None else pool[step])
+        res = got["res"]
+        owned = int(res.end_index) - int(res.start_index)
+        numbers.append({"span": got["span"], "sync_ms": 1e3 * (got["span"][1] - got["span"][0]),
+                        "centers_ms": got["centers_ms"], "comm": got["stats"], "centers_comm": got["c_stats"],
+                        "owned": owned, "halos": int(res.n_with_halos) - owned,
+                        "overflow_detail": res.overflow_detail.tolist(), **cmp})
+    return {"caps": caps, "window": tries[-1][0], "tries": tries, "steps": numbers}, \
+        [gr.slot_record(o) for o in outs], outs
+
+
+def _to_cpu(rec: dict) -> dict:
+    return {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in rec.items()}
+
+
+def grav_rank(comm, cfg: dict) -> dict:
+    """One rank of the grav steps mode (every rank runs it; spawned rank
+    processes import it from here): the one-card run on the rank's own
+    device, so that no rank waits on another's, then every mode of cfg in
+    turn (grav_rank_steps), the p2p modes held to pool. Returns the rank's
+    numbers and the kernel launches counted in the run (none: syncGrav
+    calls no kernel); with cfg["keep_records"] also per mode and step the
+    slot record, the centres and MAC spheres of the focus nodes and the
+    slots' particle ids, on the CPU. A thread rank of run_ranks, whose
+    comm names no device, runs on the CPU."""
+    from . import grav_ranks as gr
+
+    dev = getattr(comm, "device", torch.device("cpu"))
+    cuda = dev.type == "cuda"
+    before = _kernel_launches()
+    setup = gr.grav_setup(cfg["n"], dev)
+    ref, sums, ref_numbers = grav_reference_steps(setup, cfg["steps"], cfg["tree"])
+    if comm.rank == 0:
+        print(f"rank 0: the one-card run took {ref_numbers['seconds']:.3f} s", flush=True)
+    out = {"rank": comm.rank, "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
+           "reference": ref_numbers, "modes": {}, "records": {}}
+    pool = None
+    for name in cfg["modes"]:
+        t0 = time.perf_counter()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        numbers, records, outs = grav_rank_steps(comm, setup, name, cfg, ref, sums, pool)
+        numbers["peak"] = torch.cuda.max_memory_allocated(dev) if cuda else None
+        numbers["seconds"] = time.perf_counter() - t0
+        out["modes"][name] = numbers
+        if name == "pool":
+            pool = records
+        if cfg["keep_records"]:
+            out["records"][name] = [
+                dict(_to_cpu(rec), centers=o["centers"][:int(o["res"].tree.n_nodes)].cpu(),
+                     spheres=o["spheres"][:int(o["res"].tree.n_nodes)].cpu(), rid=o["rid"].cpu())
+                for rec, o in zip(records, outs)]
+        del outs
+        if comm.rank == 0:
+            print(f"rank 0: mode {name} held to the one-card run" + ("" if pool is None or name == "pool" else
+                                                                     " and to pool")
+                  + f" in {numbers['seconds']:.3f} s", flush=True)
+    now = _kernel_launches()
+    out["launches"] = {k: now[k] - before.get(k, 0) for k in now}
+    return out
+
+
+def report_grav(recs: list, cfg: dict, backend: str, seconds: float, tag: str = "") -> dict:
+    """Print the grav steps mode's lines (each led by `tag`) from every
+    rank's grav_rank record; returns the summary that the last line
+    prints as JSON."""
+    from . import grav_ranks as gr
+
+    R = len(recs)
+    summary = {"mode": "grav steps", "ranks": R, "backend": backend, "devices": [r["device"] for r in recs],
+               **{k: cfg[k] for k in ("n", "steps", "h", "theta", "bucket", "caps", "tree")}, "modes": {}}
+    ref = recs[0]["reference"]
+    print(f"{tag}one-card syncGrav, {cfg['n']} particles on each rank's {recs[0]['device']}: sync ms (cold, then "
+          f"drift) {_fmt(ref['sync_ms'])}, centres ms {_fmt(ref['centers_ms'])}, capacities {ref['caps']}, "
+          f"centres {max(r['reference']['oracle_gap'] for r in recs):.3e} off the float64 oracle at most", flush=True)
+    summary["reference"] = {"sync_ms": [r["reference"]["sync_ms"] for r in recs],
+                            "centers_ms": [r["reference"]["centers_ms"] for r in recs], "caps": ref["caps"]}
+    for name in cfg["modes"]:
+        per = [r["modes"][name] for r in recs]
+        m = {"window": per[0]["window"], "tries": per[0]["tries"], "caps": per[0]["caps"],
+             "peak_bytes": [p["peak"] for p in per], "seconds": [p["seconds"] for p in per], "steps": []}
+        print(f"{tag}{name}: cold tries (window, overflow_detail) {json.dumps(per[0]['tries'])}, capacities "
+              f"{per[0]['caps']}", flush=True)
+        for step in range(1 + cfg["steps"]):
+            s = [p["steps"][step] for p in per]
+            spans = [x["span"] for x in s]
+            row = {"wall_ms": 1e3 * (max(e for _, e in spans) - min(b for b, _ in spans)),
+                   **{k: [x[k] for x in s] for k in ("sync_ms", "centers_ms", "owned", "halos", "nodes", "held",
+                                                      "gap", "pos", "mass", "sphere")},
+                   **{k: [x["comm"][k] for x in s] for k in s[0]["comm"]},
+                   "centers_comm": [x["centers_comm"] for x in s],
+                   "one_card_sync_ms": [r["reference"]["sync_ms"][step] for r in recs]}
+            m["steps"].append(row)
+            what = f"{tag}{name}, " + ("cold step" if step == 0 else f"drift step {step}")
+            print(f"{what}: {R}-rank sync wall {row['wall_ms']:.3f} ms; per rank sync ms {_fmt(row['sync_ms'])}, "
+                  f"centres ms {_fmt(row['centers_ms'])}; the one-card run's sync ms "
+                  f"{_fmt(row['one_card_sync_ms'])}; owned {row['owned']}, halo particles {row['halos']}", flush=True)
+            print(f"{what}: per rank all_to_all rounds {row['all_to_all']}, bytes {row['all_to_all_bytes']}; "
+                  f"ragged rounds {row['ragged']}, bytes {row['ragged_bytes']}; ppermute rounds {row['ppermute']}, "
+                  f"bytes {row['ppermute_bytes']}; staged through host memory {row['staged_bytes']}; the centres' "
+                  f"rounds (all_to_all, ragged, ppermute) "
+                  f"{[(c['all_to_all'], c['ragged'], c['ppermute']) for c in row['centers_comm']]}", flush=True)
+            print(f"{what}: focus nodes {row['nodes']}, held to rtol {gr.CENTER_RTOL} in the rank's own range "
+                  f"{row['held']}, largest gap there {max(row['gap']):.3e}; outside, rounding units off the float64 "
+                  f"oracle (limit {gr.OUTSIDE_UNITS}): positions {json.dumps([round(x, 4) for x in row['pos']])}, "
+                  f"masses {json.dumps([round(x, 4) for x in row['mass']])}", flush=True)
+        print(f"{tag}{name}: every rank at every step held to the one-card run (overflow 0, the owned ids a "
+              f"partition, own nodes within rtol {gr.CENTER_RTOL}, others within {gr.OUTSIDE_UNITS} rounding units "
+              f"of the float64 oracle)" + (" and to pool slot for slot" if name != "pool" and "pool" in cfg["modes"]
+                                           else "")
+              + f"; peak memory allocated per rank {json.dumps(m['peak_bytes'])} bytes", flush=True)
+        summary["modes"][name] = m
+    summary["launches"] = [r["launches"] for r in recs]
+    summary["seconds"] = seconds
+    return summary
+
+
+@contextlib.contextmanager
+def _leave_on_failure():
+    """Around a torchrun rank's work: on an exception, print its traceback
+    and end the process with exit code 1 at once. Its peers may be waiting
+    in a collective for it; destroy_process_group, or NCCL's teardown at
+    exit, would then wait for them until the collective's timeout, and the
+    traceback would not show until then. torchrun stops the other ranks
+    when one exits with an error."""
+    try:
+        yield
+    except Exception:
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+
+
 def _main_steps(args) -> int:
-    """The steps mode of main: spawned ranks (--ranks) or torchrun's. Under
-    torchrun rank 0 prints the modes' lines before the simulation loop
-    starts, so that they survive a failure there."""
+    """The steps mode of main (with --grav its syncGrav form): spawned
+    ranks (--ranks) or torchrun's. Under torchrun rank 0 prints the modes'
+    lines before the simulation loop starts, so that they survive a
+    failure there."""
     from .parallel import dist as pdist
 
     t0 = time.perf_counter()
     modes = [m for m in args.modes.split(",") if m]
+    if args.grav:
+        def config(R):
+            return grav_config(args.n_total, R, args.steps, modes)
+        rank_fn, report = grav_rank, report_grav
+    else:
+        def config(R):
+            return steps_config(args.n_total, R, args.steps, modes, args.sim_steps)
+        rank_fn, report = steps_rank, report_steps
     if args.ranks is not None:
         from .utils.device import resolve_device
 
         dev = resolve_device(args.device) if args.backend == "gloo" else torch.device("cuda")
-        cfg = steps_config(args.n_total, args.ranks, args.steps, modes, args.sim_steps)
-        if dev.type == "cuda" and torch.cuda.is_available():  # built once, before the ranks start
+        cfg = config(args.ranks)
+        if not args.grav and dev.type == "cuda" and torch.cuda.is_available():  # built once, before the ranks
             for lib in _libraries():
                 lib.load()
-        recs = pdist.spawn_ranks(args.ranks, spawned_rank, [cfg] * args.ranks, backend=args.backend, device=dev,
-                                 timeout=args.timeout)
-        summary = report_steps(recs, cfg, args.backend, time.perf_counter() - t0)
-        if cfg["sim_steps"]:
+        recs = pdist.spawn_ranks(args.ranks, grav_rank if args.grav else spawned_rank, [cfg] * args.ranks,
+                                 backend=args.backend, device=dev, timeout=args.timeout)
+        summary = report(recs, cfg, args.backend, time.perf_counter() - t0)
+        if cfg.get("sim_steps"):
             summary["sim"] = report_sim([r["sim"] for r in recs])
     else:
         comm = pdist.comm_from_env(args.backend, args.device, timeout=args.timeout)
-        cfg = steps_config(args.n_total, comm.n_ranks, args.steps, modes, args.sim_steps)
+        cfg = config(comm.n_ranks)
 
         def gathered(rec):
             recs = [None] * comm.n_ranks
             torch.distributed.all_gather_object(recs, rec)
             return recs
 
-        try:
-            if comm.device.type == "cuda":
+        with _leave_on_failure():
+            if comm.device.type == "cuda" and not args.grav:  # syncGrav launches no kernel
                 load_kernels(comm, int(os.environ.get("LOCAL_RANK", comm.rank)) == 0)
-            rec = steps_rank(comm, cfg)
+            rec = rank_fn(comm, cfg)
             recs = gathered(rec)
-            summary = report_steps(recs, cfg, args.backend, time.perf_counter() - t0) if comm.rank == 0 else None
-            if cfg["sim_steps"]:
+            summary = report(recs, cfg, args.backend, time.perf_counter() - t0) if comm.rank == 0 else None
+            if cfg.get("sim_steps"):
                 sims = gathered(sim_rank(comm, cfg, sim_caps(rec)))
                 if comm.rank == 0:
                     summary["sim"] = report_sim(sims)
-        finally:
-            torch.distributed.destroy_process_group()
+        torch.distributed.destroy_process_group()
         if comm.rank != 0:
             return 0
         summary["seconds"] = time.perf_counter() - t0
@@ -1175,8 +1412,16 @@ def main(argv=None) -> int:
     ap.add_argument("--modes", default=",".join(STEP_MODES), help="the steps mode's modes, comma-separated")
     ap.add_argument("--sim-steps", type=int, default=2,
                     help="the steps mode's simulation steps after its cold step (0: no simulation loop)")
+    ap.add_argument("--grav", action="store_true",
+                    help="with --steps: syncGrav (sync(grav=True) + update_expansion_centers) in each mode, held to "
+                         "a one-card run and the float64 centre of mass; no simulation loop")
     ap.add_argument("--timeout", type=float, default=1800.0, help="seconds a collective may wait")
     args = ap.parse_args(argv)
+    if args.grav and args.steps is None:
+        ap.error("--grav runs in the steps mode: give --steps")
+    if args.ranks is None and "RANK" not in os.environ:
+        raise ValueError("without --ranks this runs one rank of torchrun's, and RANK is not set: give --ranks, "
+                         "or start it under torchrun")
     if args.steps is not None:
         return _main_steps(args)
     t0 = time.perf_counter()
@@ -1187,7 +1432,8 @@ def main(argv=None) -> int:
         from .parallel.dist import comm_from_env
 
         comm = comm_from_env(args.backend, args.device, timeout=args.timeout)
-        rec, n_ranks = _both_protocols(comm, args.n_per_rank), comm.n_ranks
+        with _leave_on_failure():
+            rec, n_ranks = _both_protocols(comm, args.n_per_rank), comm.n_ranks
         torch.distributed.destroy_process_group()
         if comm.rank != 0:
             return 0

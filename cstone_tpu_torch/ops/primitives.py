@@ -83,7 +83,17 @@ def segment_max(values: torch.Tensor, segment_offsets: torch.Tensor, num_segment
 def segment_sum(values: torch.Tensor, segment_offsets: torch.Tensor, num_segments: int) -> torch.Tensor:
     """Sum over contiguous segments given by offsets, along the first axis
     of `values` (the JAX package's segment_sum with sorted indices). An
-    empty segment holds 0."""
+    empty segment holds 0.
+
+    On the card index_add_ adds with atomics in no fixed order, so float32
+    sums would change in their last bits from run to run and between two
+    processes that sum the same values (a rank's own leaves and the
+    one-rank run's). There float32 values are summed in float64 and
+    rounded once: the order no longer shows in the result, bar a double
+    rounding. The CPU adds in index order, as the JAX package does."""
     seg_id = segment_ids_from_offsets(segment_offsets, values.shape[0], num_segments)
+    if values.device.type == "cuda" and values.dtype == torch.float32:
+        out = torch.zeros((num_segments,) + tuple(values.shape[1:]), dtype=torch.float64, device=values.device)
+        return out.index_add_(0, seg_id, values.double()).to(values.dtype)
     out = values.new_zeros((num_segments,) + tuple(values.shape[1:]))
     return out.index_add_(0, seg_id, values)
