@@ -2671,11 +2671,11 @@ def grav_ranks_phase(dev, card, tree_cap) -> dict:
     thread ranks of path I (b)'s particles, pool then p2p, a cold step
     under sync_with_retry from path F's capacities and GRAV_DRIFT_STEPS
     drift steps (grav_ranks.grav_steps), held to the one-rank run of the
-    same steps and to the float64 oracle (grav_ranks.grav_ranks_checks);
-    the foreign leaves recomputed from plain float32 prefix sums and the
-    lower-precision control (grav_ranks.prefix_sum_readings), which the
-    outside limit must refuse; then the modules no other path runs
-    (grav_leaves_phase)."""
+    same steps and to the float64 oracle (grav_ranks.rank_checks on the
+    thread ranks); the foreign leaves recomputed from plain float32 prefix
+    sums and the lower-precision control (grav_ranks.prefix_sum_readings),
+    which the outside limit must refuse; then the modules no other path
+    runs (grav_leaves_phase)."""
     import torch
 
     from cstone_tpu_torch import grav_ranks as gr
@@ -2702,8 +2702,10 @@ def grav_ranks_phase(dev, card, tree_cap) -> dict:
         steps = [[o[0][s] for o in outs] for s in range(1 + GRAV_DRIFT_STEPS)]
         for s, per in enumerate(steps):
             what = f"path M, {mode}, " + ("cold step" if s == 0 else f"drift step {s}")
-            cmp = gr.grav_ranks_checks(what, per, ref[s], runs["pool"][s] if mode == "p2p" else None)
-            readings = gr.prefix_sum_readings(per, ref[s])
+            sums = gr.step_sums(ref[s])
+            pools = [gr.slot_record(p) for p in runs["pool"][s]] if mode == "p2p" else [None] * R
+            cmp = run_ranks(R, lambda comm, o, p: gr.rank_checks(what, comm, o, ref[s], sums, p), per, pools)
+            readings = gr.prefix_sum_readings(per, ref[s], sums)
             f32 = max(max(x["float32"]) for x in readings)
             control = min(max(x["control"]) for x in readings)
             check(f32 <= gr.OUTSIDE_UNITS < control,

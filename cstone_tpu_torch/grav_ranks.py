@@ -36,9 +36,8 @@ The checks of a step:
   the pool run's (`slot_record`): assignment, focus leaves, buffer size,
   keys, layout and the halo flags over the leaves.
 
-`grav_ranks_checks` holds every rank's step in one process (the thread
-ranks of run_ranks); `rank_checks` holds one rank's step in that rank
-(a rank process), the partition by one all_reduce on its comm.
+`rank_checks` holds one rank's step in that rank, a rank process or a
+thread rank of run_ranks, the partition by one all_reduce on its comm.
 
 Gaps within rtol: positions relative to the larger of the reference's
 value and the node's side, masses and squared MAC radii relative to the
@@ -390,12 +389,15 @@ def slot_record(got: dict) -> dict:
     """What a p2p step is held to of the pool step of the same rank and
     step: the assignment, the focus leaves, the buffer size, the layout
     and the halo flags over the leaves (two modes' cold steps may grow the
-    focus capacity apart, and the arrays' lengths with it) and the keys
-    of the filled slots."""
+    focus capacity apart, and the arrays' lengths with it), the count of
+    layout entries past the leaves that are not the buffer's end
+    (same_as_pool holds it to 0: the padding's leaves are empty) and the
+    keys of the filled slots."""
     res = got["res"]
     nl, nwh = int(res.tree.n_leaf), int(res.n_with_halos)
     return {"boundaries": got["state"].assignment.boundaries, "n_leaf": nl, "n_with_halos": nwh,
-            "leaves": res.tree.leaves[:nl + 1], "layout": res.layout[:nl + 1], "halo_flags": res.halo_flags[:nl],
+            "leaves": res.tree.leaves[:nl + 1], "layout": res.layout[:nl + 1],
+            "layout_past_leaves": int((res.layout[nl + 1:] != nwh).sum()), "halo_flags": res.halo_flags[:nl],
             "keys": res.keys[:nwh]}
 
 
@@ -409,6 +411,8 @@ def same_as_pool(what, rank: int, pool: dict, got: dict) -> None:
     _check(not bad, f"{what}, rank {rank}: p2p differs from pool in "
                     + ", ".join(f"{k} ({pool[k].shape[0]} / {mine[k].shape[0]} entries)"
                                 if isinstance(pool[k], torch.Tensor) else f"{k} ({pool[k]} / {mine[k]})" for k in bad))
+    _check(mine["layout_past_leaves"] == 0,
+           f"{what}, rank {rank}: {mine['layout_past_leaves']} layout entries past the leaves hold no buffer end")
 
 
 def _overflow_ok(what, rank: int, got: dict) -> None:
@@ -447,20 +451,3 @@ def rank_checks(what, comm, got: dict, ref: dict, sums: dict | None = None, pool
         same_as_pool(what, comm.rank, pool, got)
     return out
 
-
-def grav_ranks_checks(what, outs, ref, pool_outs=None) -> list:
-    """A step of every rank, all held in one process, as the module
-    docstring says. Returns the per-rank centre readings
-    (centers_vs_one_rank)."""
-    n = ref["rid"].shape[0]
-    for r, o in enumerate(outs):
-        _overflow_ok(what, r, o)
-    ids = torch.cat([_owned_ids(o) for o in outs])
-    _check(ids.numel() == n and torch.equal(torch.sort(ids).values, torch.arange(n, device=ids.device)),
-           f"{what}: the owned ranges are not a partition of the {n} particles")
-    sums = step_sums(ref)
-    cmp = [centers_vs_one_rank(what, r, o, ref, sums) for r, o in enumerate(outs)]
-    if pool_outs is not None:
-        for r, (p, o) in enumerate(zip(pool_outs, outs)):
-            same_as_pool(what, r, slot_record(p), o)
-    return cmp

@@ -1143,12 +1143,11 @@ def report_sim(sims: list) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def grav_config(n: int, n_ranks: int, steps: int, modes, keep_records: bool = False) -> dict:
+def grav_config(n: int, n_ranks: int, steps: int, modes) -> dict:
     """Everything the ranks of the grav steps mode share: the sizes of
     grav_ranks (its particles, h, theta, bucket), the cold step's first
-    capacities (first_caps), the one-card run's tree capacity, the modes
-    with pool first (the p2p modes are held to it) and whether each rank
-    returns its records beside its numbers."""
+    capacities (first_caps), the one-card run's tree capacity and the
+    modes with pool first (the p2p modes are held to it)."""
     from . import grav_ranks as gr
 
     for m in modes:
@@ -1156,8 +1155,7 @@ def grav_config(n: int, n_ranks: int, steps: int, modes, keep_records: bool = Fa
             raise ValueError(f"unknown mode {m!r}; the modes are {sorted(STEP_MODES)}")
     return {"grav": True, "n": n, "ranks": n_ranks, "steps": steps,
             "modes": sorted(modes, key=lambda m: m != "pool"), "h": gr.H, "theta": gr.THETA,
-            "bucket": gr.BUCKET, "caps": first_caps(n, n_ranks, gr.BUCKET), "tree": tree_capacity(n, gr.BUCKET),
-            "keep_records": keep_records}
+            "bucket": gr.BUCKET, "caps": first_caps(n, n_ranks, gr.BUCKET), "tree": tree_capacity(n, gr.BUCKET)}
 
 
 def grav_reference_steps(setup: dict, steps: int, tree_cap: int):
@@ -1217,23 +1215,20 @@ def grav_rank_steps(comm, setup: dict, name: str, cfg: dict, ref: list, sums: li
         [gr.slot_record(o) for o in outs], outs
 
 
-def _to_cpu(rec: dict) -> dict:
-    return {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in rec.items()}
-
-
-def grav_rank(comm, cfg: dict) -> dict:
+def grav_rank(comm, cfg: dict, device=None) -> dict:
     """One rank of the grav steps mode (every rank runs it; spawned rank
     processes import it from here): the one-card run on the rank's own
     device, so that no rank waits on another's, then every mode of cfg in
-    turn (grav_rank_steps), the p2p modes held to pool. Returns the rank's
-    numbers and the kernel launches counted in the run (none: syncGrav
-    calls no kernel); with cfg["keep_records"] also per mode and step the
-    slot record, the centres and MAC spheres of the focus nodes and the
-    slots' particle ids, on the CPU. A thread rank of run_ranks, whose
-    comm names no device, runs on the CPU."""
+    turn (grav_rank_steps), the p2p modes held to pool. The device is
+    `device`, else the comm's (a rank process's DistComm names one), else
+    the card (resolve_device: a thread rank of run_ranks runs on the CPU
+    only when the caller names it). Returns the rank's numbers and the
+    kernel launches counted in the run (none: syncGrav calls no
+    kernel)."""
     from . import grav_ranks as gr
+    from .utils.device import resolve_device
 
-    dev = getattr(comm, "device", torch.device("cpu"))
+    dev = resolve_device(device if device is not None else getattr(comm, "device", None))
     cuda = dev.type == "cuda"
     before = _kernel_launches()
     setup = gr.grav_setup(cfg["n"], dev)
@@ -1241,7 +1236,7 @@ def grav_rank(comm, cfg: dict) -> dict:
     if comm.rank == 0:
         print(f"rank 0: the one-card run took {ref_numbers['seconds']:.3f} s", flush=True)
     out = {"rank": comm.rank, "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
-           "reference": ref_numbers, "modes": {}, "records": {}}
+           "reference": ref_numbers, "modes": {}}
     pool = None
     for name in cfg["modes"]:
         t0 = time.perf_counter()
@@ -1253,11 +1248,6 @@ def grav_rank(comm, cfg: dict) -> dict:
         out["modes"][name] = numbers
         if name == "pool":
             pool = records
-        if cfg["keep_records"]:
-            out["records"][name] = [
-                dict(_to_cpu(rec), centers=o["centers"][:int(o["res"].tree.n_nodes)].cpu(),
-                     spheres=o["spheres"][:int(o["res"].tree.n_nodes)].cpu(), rid=o["rid"].cpu())
-                for rec, o in zip(records, outs)]
         del outs
         if comm.rank == 0:
             print(f"rank 0: mode {name} held to the one-card run" + ("" if pool is None or name == "pool" else

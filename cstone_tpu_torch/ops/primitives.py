@@ -17,7 +17,7 @@ from .keys64 import flip, usort
 
 __all__ = [
     "searchsorted", "multi_searchsorted", "sort_by_key", "exclusive_scan", "cumsum64",
-    "segment_ids_from_offsets", "segment_max", "segment_sum",
+    "segment_ids_from_offsets", "segment_max", "segment_sum", "fixed_point_segment_sum",
 ]
 
 
@@ -88,12 +88,32 @@ def segment_sum(values: torch.Tensor, segment_offsets: torch.Tensor, num_segment
     On the card index_add_ adds with atomics in no fixed order, so float32
     sums would change in their last bits from run to run and between two
     processes that sum the same values (a rank's own leaves and the
-    one-rank run's). There float32 values are summed in float64 and
-    rounded once: the order no longer shows in the result, bar a double
-    rounding. The CPU adds in index order, as the JAX package does."""
+    one-rank run's). There float32 values are summed in fixed point
+    (fixed_point_segment_sum): the result depends on the segment's values
+    alone. The CPU adds in index order, as the JAX package does."""
     seg_id = segment_ids_from_offsets(segment_offsets, values.shape[0], num_segments)
     if values.device.type == "cuda" and values.dtype == torch.float32:
-        out = torch.zeros((num_segments,) + tuple(values.shape[1:]), dtype=torch.float64, device=values.device)
-        return out.index_add_(0, seg_id, values.double()).to(values.dtype)
+        return fixed_point_segment_sum(values, seg_id, num_segments)
     out = values.new_zeros((num_segments,) + tuple(values.shape[1:]))
     return out.index_add_(0, seg_id, values)
+
+
+def fixed_point_segment_sum(values: torch.Tensor, seg_id: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Sums of finite float32 `values` by segment id (n,), exact in fixed
+    point: each segment's values (each column apart) are scaled by the
+    power of two that puts their largest |value| in [2^(b-1), 2^b), rounded
+    to int64 and added, then the integer sum is scaled back and rounded to
+    float32. b = 62 - max(24, bit length of n), so no sum overflows.
+    Integer sums do not depend on the order of their terms, so the result
+    depends only on the segment's values: not on their order, on zeros
+    among them, on the other segments or on the device. Before the last
+    rounding it is within n_seg 2^-b x the segment's largest |value| of
+    the exact sum."""
+    bits = 62 - max(24, values.shape[0].bit_length())
+    idx = seg_id.view((-1,) + (1,) * (values.dim() - 1)).expand_as(values)
+    top = values.new_zeros((num_segments,) + tuple(values.shape[1:]))
+    top.scatter_reduce_(0, idx, values.abs(), reduce="amax", include_self=True)
+    shift = (bits - torch.frexp(top)[1]).double()
+    fixed = torch.round(torch.ldexp(values.double(), shift[seg_id])).to(torch.int64)
+    total = torch.zeros_like(top, dtype=torch.int64).index_add_(0, seg_id, fixed)
+    return torch.ldexp(total.double(), -shift).to(values.dtype)

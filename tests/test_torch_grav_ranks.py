@@ -9,13 +9,13 @@ The cold step of grav_steps on 8 run_ranks threads in p2p mode, and the
 same step at one rank, by both packages. Tolerance:
 
 - every rank's focus tree, assignment and buffer size equal to JAX's;
-- grav_ranks_checks passes: overflow 0, the owned ids a partition, the
-  one-rank centres within rtol 1e-5 of the oracle, on the nodes inside a
-  rank's assignment its centres and MAC spheres within rtol 1e-5 of the
-  one-rank run's, elsewhere its centres within rtol plus
-  grav_ranks.OUTSIDE_UNITS rounding units of the oracle (the bound the
-  owners' float32 prefix sums put on them) and its MAC radii moved no
-  more than their centres;
+- grav_ranks.rank_checks passes on every rank: overflow 0, the owned
+  ids a partition, the one-rank centres within rtol 1e-5 of the oracle,
+  on the nodes inside a rank's assignment its centres and MAC spheres
+  within rtol 1e-5 of the one-rank run's, elsewhere its centres within
+  rtol plus grav_ranks.OUTSIDE_UNITS rounding units of the oracle (the
+  bound the owners' float32 prefix sums put on them) and its MAC radii
+  moved no more than their centres;
 - the foreign leaves recomputed from plain float32 prefix sums land as
   far from the oracle as the rank's, within the limit; rounded to 16
   significant bits (the control) they land beyond it;
@@ -97,7 +97,8 @@ def runs():
 def test_rank_centres_match_one_rank_and_the_oracle(runs):
     ref, outs, _ = runs
     gr.one_rank_checks("one rank", ref)
-    cmp = gr.grav_ranks_checks("p2p, cold step", outs, ref)
+    sums = gr.step_sums(ref)
+    cmp = run_ranks(R, lambda comm, o: gr.rank_checks("p2p, cold step", comm, o, ref, sums), outs)
     for r, c in enumerate(cmp):
         assert c["shared"] == c["nodes"] and 0 < c["held"] < c["nodes"], r
         assert c["gap"] <= gr.CENTER_RTOL and max(c["pos"], c["mass"]) <= gr.OUTSIDE_UNITS and c["sphere"] == 0, r
@@ -105,7 +106,7 @@ def test_rank_centres_match_one_rank_and_the_oracle(runs):
     # one-rank centres, as far as plain float32 prefix sums put them, and
     # the control beyond the limit
     assert max(max(c["pos"], c["mass"]) for c in cmp) > 0
-    readings = gr.prefix_sum_readings(outs, ref)
+    readings = gr.prefix_sum_readings(outs, ref, sums)
     for c, x in zip(cmp, readings):
         assert max(x["float32"]) <= gr.OUTSIDE_UNITS < max(x["control"])
         assert 0.5 <= max(c["pos"], c["mass"]) / max(x["float32"]) <= 2.0

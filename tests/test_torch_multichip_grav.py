@@ -22,7 +22,8 @@ clipped to +-0.99 in the open box [-1, 1], masses uniform(0.5, 1.5), h
 - a centres' range-sum overflow that no slot of overflow_detail names
   raises with the treelet capacity's name instead of looping;
 - `main([... "--grav", "--backend", "nccl"])` without a card raises,
-  spawned, under torchrun's environment, or outside both."""
+  spawned, under torchrun's environment, or outside both; so does
+  grav_rank on a thread rank that names no device."""
 
 import dataclasses
 
@@ -34,6 +35,7 @@ from cstone_tpu_torch import multichip
 from cstone_tpu_torch.parallel import run_ranks
 from cstone_tpu_torch.parallel.dist import spawn_ranks
 
+import torch_dist_ranks as ranks
 import torch_threads  # noqa: F401  (two intra-op threads per xdist worker)
 
 R, N, STEPS = 4, 8000, 1
@@ -44,12 +46,17 @@ READINGS = ("owned", "halos", "overflow_detail", "nodes", "shared", "held", "gap
 
 @pytest.fixture(scope="module")
 def cfg():
-    return multichip.grav_config(N, R, STEPS, MODES, keep_records=True)
+    return multichip.grav_config(N, R, STEPS, MODES)
 
 
 @pytest.fixture(scope="module")
 def threads(cfg):
-    return run_ranks(R, multichip.grav_rank, [cfg] * R)
+    """multichip.grav_rank on run_ranks threads on the CPU, each rank's
+    records beside its numbers (ranks.keep_grav_records)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(multichip, "grav_rank_steps", ranks.keep_grav_records(multichip.grav_rank_steps))
+        outs = run_ranks(R, multichip.grav_rank, [cfg] * R, [CPU] * R)
+    return [dict(o, records=ranks.KEPT.pop(r)) for r, o in enumerate(outs)]
 
 
 def _same(a, b, what):
@@ -67,7 +74,8 @@ def _same_comm(a, b, what):
 
 
 def test_processes_equal_threads(cfg, threads):
-    got = spawn_ranks(R, multichip.grav_rank, [cfg] * R, backend="gloo", device="cpu", timeout=60.0, deadline=300.0)
+    got = spawn_ranks(R, ranks.grav_rank_kept, [cfg] * R, backend="gloo", device="cpu", timeout=60.0,
+                      deadline=300.0)
     for r in range(R):
         want, run = threads[r], got[r]
         _same(want["reference"]["caps"], run["reference"]["caps"], f"rank {r}: the one-rank capacities")
@@ -103,7 +111,8 @@ def test_every_step_within_the_rank_checks(threads, name):
         for r, t in enumerate(threads):
             # the p2p modes equal pool's slot records (the checks held this)
             want, got = t["records"]["pool"][step], t["records"][name][step]
-            for k in ("boundaries", "n_leaf", "n_with_halos", "leaves", "layout", "halo_flags", "keys"):
+            for k in ("boundaries", "n_leaf", "n_with_halos", "leaves", "layout", "layout_past_leaves", "halo_flags",
+                      "keys"):
                 _same(want[k], got[k], f"rank {r}, {name}, step {step}: {k}")
     run = threads[0]["modes"][name]
     if name == "window":
@@ -187,6 +196,14 @@ def test_an_unnamed_centres_overflow_raises_with_the_treelet_capacity(monkeypatc
     setup = gr.grav_setup(2000, CPU)
     with pytest.raises(RuntimeError, match="needs 12345 foreign leaves from one owner, above its treelet capacity"):
         run_ranks(R, lambda comm: gr.grav_steps(comm, setup, multichip.first_caps(2000, R), "p2p", 0))
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="holds what a thread rank does without a card")
+def test_a_thread_rank_names_no_device_and_goes_to_the_card(cfg):
+    # a run_ranks thread rank's comm names no device: grav_rank takes the
+    # card unless the caller names the CPU, and raises without one
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        run_ranks(R, multichip.grav_rank, [cfg] * R)
 
 
 def test_nccl_without_a_card_raises(monkeypatch):

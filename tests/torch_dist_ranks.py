@@ -1,5 +1,6 @@
-"""Per-rank functions of tests/test_torch_dist.py, run both by run_ranks
-threads and by spawn_ranks processes. Spawned processes import this
+"""Per-rank functions of tests/test_torch_dist.py (and the grav steps
+mode's records of tests/test_torch_multichip_grav.py), run both by
+run_ranks threads and by spawn_ranks processes. Spawned processes import this
 module by name, so it imports torch, numpy and the port only (no jax, no
 conftest)."""
 
@@ -195,3 +196,37 @@ def steps_modes(comm, n, steps, modes, reference=None):
         out[name] = {"caps": run["caps"], "window": run["window"], "tries": run["tries"],
                      "comm": [s["comm"] for s in run["steps"]], "records": run["records"]}
     return out
+
+
+KEPT = {}
+
+
+def keep_grav_records(steps_fn):
+    """multichip.grav_rank_steps that also keeps, on the CPU in
+    KEPT[rank][mode], every step's slot record, the centres and MAC
+    spheres of its focus nodes and its slots' particle ids."""
+
+    def run(comm, setup, name, *args):
+        numbers, records, outs = steps_fn(comm, setup, name, *args)
+        KEPT.setdefault(comm.rank, {})[name] = [
+            dict({k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in rec.items()},
+                 centers=o["centers"][:int(o["res"].tree.n_nodes)].cpu(),
+                 spheres=o["spheres"][:int(o["res"].tree.n_nodes)].cpu(), rid=o["rid"].cpu())
+            for rec, o in zip(records, outs)]
+        return numbers, records, outs
+
+    return run
+
+
+def grav_rank_kept(comm, cfg):
+    """multichip.grav_rank in a rank process, with its records
+    (keep_grav_records) under "records"."""
+    from cstone_tpu_torch import multichip
+
+    real = multichip.grav_rank_steps
+    multichip.grav_rank_steps = keep_grav_records(real)
+    try:
+        out = multichip.grav_rank(comm, cfg)
+    finally:
+        multichip.grav_rank_steps = real
+    return dict(out, records=KEPT.pop(comm.rank))
