@@ -29,6 +29,12 @@ exchange is dense in both. With peer_window = W > 0 the dense services
 and halo moves run over the peer window of ranks me-W..me+W
 (parallel/exchange.py's windowed protocol).
 
+`sync` opens a `sync` span and, inside it, one span a stage of the
+reference's sync (utils/trace.py): sync.box, sync.keys, sync.tree,
+sync.assign, sync.exchange, sync.focus, sync.halos, sync.layout,
+sync.halo_exchange, sync.overflow, in that order in both modes and at any
+number of ranks (a stage with nothing to do opens its span all the same).
+
 Shapes are capacity-padded exactly as in the JAX package, so a SyncResult
 compares with JAX slot for slot. The JAX `while_loop`/`cond` become Python
 control flow on host flags: each tree-convergence check reads one scalar
@@ -63,6 +69,7 @@ from ..traversal.macs import inv_theta_min_mac, inv_theta_vec_mac, mark_macs
 from ..traversal.neighbors import OctreeNsView, make_ns_view
 from ..traversal.peers import find_peers_mac
 from ..tree.octree import LinkedOctree, build_linked_octree
+from ..utils import trace
 from ..utils.device import resolve_device
 from .decomposition import SfcAssignment, limit_boundary_shifts, make_sfc_assignment
 from .layout import compute_node_layout
@@ -335,9 +342,10 @@ class Domain:
         """
         if grav and len(properties) == 0:
             raise ValueError("sync(grav=True) requires the mass as properties[0]")
-        if self.exchange_mode == "pool":
-            return self._sync_pool(state, x, y, z, h, properties, n_local, boundaries, grav)
-        return self._sync_p2p(state, x, y, z, h, properties, n_local, boundaries, grav)
+        with trace.span("sync"):
+            if self.exchange_mode == "pool":
+                return self._sync_pool(state, x, y, z, h, properties, n_local, boundaries, grav)
+            return self._sync_p2p(state, x, y, z, h, properties, n_local, boundaries, grav)
 
     # ------------------------------------------------------------------
     def _p2p_caps(self, cap: int) -> Tuple[int, int, int, int]:
@@ -366,125 +374,131 @@ class Domain:
         dev = x.device
         rk = remove_key(self.key_dtype)
         single = self.n_ranks == 1
-        zero = torch.zeros((), dtype=torch.int64, device=dev)
-        move_cap, treelet_cap, halo_req_cap, halo_cap = self._p2p_caps(cap)
 
         (box, keys, sort_order, xs, ys, zs, hs, props_s, tree, assignment,
          n_local, tree_changed) = self._common_assign(
             state, x, y, z, h, properties, n_local, boundaries)
 
         # ---- 5. particle exchange (domaindecomp_mpi.hpp:104-158) -----------
-        if single:
-            # one rank owns everything: the sorted arrays are the owned set
-            okeys, opayload, ex, n_owned, move_ovf = keys, (xs, ys, zs, hs) + props_s, None, n_local, zero
-        else:
-            okeys, opayload, ex = exchange_particles(keys, (xs, ys, zs, hs) + props_s, assignment.boundaries,
-                                                     self.rank, n_local, move_cap, self.comm)
-            n_owned, move_ovf = ex.n_owned, ex.overflow
-        ox, oy, oz, oh, *oprops = opayload
+        with trace.span("sync.exchange"):
+            zero = torch.zeros((), dtype=torch.int64, device=dev)
+            move_cap, treelet_cap, halo_req_cap, halo_cap = self._p2p_caps(cap)
+            if single:
+                # one rank owns everything: the sorted arrays are the owned set
+                okeys, opayload, ex, n_owned, move_ovf = keys, (xs, ys, zs, hs) + props_s, None, n_local, zero
+            else:
+                okeys, opayload, ex = exchange_particles(keys, (xs, ys, zs, hs) + props_s, assignment.boundaries,
+                                                         self.rank, n_local, move_cap, self.comm)
+                n_owned, move_ovf = ex.n_owned, ex.overflow
+            ox, oy, oz, oh, *oprops = opayload
 
         # ---- 6. focused octree (LET) ---------------------------------------
-        # syncGrav builds the tree for the worst-case vector MAC (domain.hpp:266)
-        itm = inv_theta_vec_mac if grav else inv_theta_min_mac
-        focus_start = assignment.boundaries[self.rank]
-        focus_end = assignment.boundaries[self.rank + 1]
-        fast_focus = (single and self.bucket_size_focus == self.bucket_size
-                      and state.focus_leaves.shape[0] == tree.keys.shape[0])
-        if fast_focus:
-            # one rank and equal buckets: the focus tree's fixed point IS the
-            # global cornerstone tree, so mirror it and reuse its counts; a
-            # warm step whose decision said "converged" also reuses last
-            # step's linked structure (octree_focus_mpi.hpp:669-677)
-            if tree_changed or state.first_call:
-                linked = build_linked_octree(tree.keys, tree.n_nodes)
+        with trace.span("sync.focus"):
+            # syncGrav builds the tree for the worst-case vector MAC (domain.hpp:266)
+            itm = inv_theta_vec_mac if grav else inv_theta_min_mac
+            focus_start = assignment.boundaries[self.rank]
+            focus_end = assignment.boundaries[self.rank + 1]
+            fast_focus = (single and self.bucket_size_focus == self.bucket_size
+                          and state.focus_leaves.shape[0] == tree.keys.shape[0])
+            if fast_focus:
+                # one rank and equal buckets: the focus tree's fixed point IS the
+                # global cornerstone tree, so mirror it and reuse its counts; a
+                # warm step whose decision said "converged" also reuses last
+                # step's linked structure (octree_focus_mpi.hpp:669-677)
+                if tree_changed or state.first_call:
+                    linked = build_linked_octree(tree.keys, tree.n_nodes)
+                else:
+                    linked = state.linked
+                cap_leaf = linked.leaves.shape[0] - 1
+                lif = torch.arange(cap_leaf, device=dev)
+                leaf_counts = torch.where(lif < linked.n_leaf, tree.counts, 0)
+                focus_conv_ovf = svc_ovf = zero
+                focus_converged = not tree_changed
             else:
-                linked = state.linked
-            cap_leaf = linked.leaves.shape[0] - 1
-            lif = torch.arange(cap_leaf, device=dev)
-            leaf_counts = torch.where(lif < linked.n_leaf, tree.counts, 0)
-            focus_conv_ovf = svc_ovf = zero
-            focus_converged = not tree_changed
-        else:
-            # own cells are counted locally, foreign cells by their owners'
-            # range-count service (updateCounts, octree_focus_mpi.hpp:205-273)
-            def counts_fn(leaves, n_leaf):
-                return self._leaf_counts_service(leaves, n_leaf, okeys, n_owned, assignment.boundaries,
-                                                 treelet_cap, tree)
+                # own cells are counted locally, foreign cells by their owners'
+                # range-count service (updateCounts, octree_focus_mpi.hpp:205-273)
+                def counts_fn(leaves, n_leaf):
+                    return self._leaf_counts_service(leaves, n_leaf, okeys, n_owned, assignment.boundaries,
+                                                     treelet_cap, tree)
 
-            (_, _, linked, node_counts_f, focus_conv_ovf, svc_ovf, focus_converged) = focus_converge(
-                state.focus_leaves, state.focus_n, None, None, box, focus_start, focus_end,
-                assignment.boundaries, self.bucket_size_focus, itm(self.theta), comm=self.comm,
-                curve=self.curve, leaf_counts_fn=counts_fn, skip_macs=single,
-                linked0=state.linked,
-                use_carried=state.focus_converged and not state.first_call)
-            cap_leaf = linked.leaves.shape[0] - 1
-            # leaf counts come from the converge loop's final count pass
-            lif = torch.arange(cap_leaf, device=dev)
-            leaf_counts = torch.where(lif < linked.n_leaf, node_counts_f[linked.leaf_order()], 0)
-
-        # a focus tree that overflowed may end short of the assignment: its
-        # range clamps to the leaves array, as JAX's indexing clamps
-        first_leaf, last_leaf = torch.clamp(
-            searchsorted(linked.leaves, assignment.boundaries[self.rank:self.rank + 2]), max=cap_leaf)
-        mine = (lif >= first_leaf) & (lif < last_leaf)
-        j = torch.arange(cap, device=dev)
+                (_, _, linked, node_counts_f, focus_conv_ovf, svc_ovf, focus_converged) = focus_converge(
+                    state.focus_leaves, state.focus_n, None, None, box, focus_start, focus_end,
+                    assignment.boundaries, self.bucket_size_focus, itm(self.theta), comm=self.comm,
+                    curve=self.curve, leaf_counts_fn=counts_fn, skip_macs=single,
+                    linked0=state.linked,
+                    use_carried=state.focus_converged and not state.first_call)
+                cap_leaf = linked.leaves.shape[0] - 1
+                # leaf counts come from the converge loop's final count pass
+                lif = torch.arange(cap_leaf, device=dev)
+                leaf_counts = torch.where(lif < linked.n_leaf, node_counts_f[linked.leaf_order()], 0)
 
         # ---- 7. halos: per-leaf radii 2 * ext * max(h) over the own leaves'
         # owned particles (halos.hpp:116-189); at one rank every leaf is
         # in the assignment and nothing is a halo
-        grav_ovf = zero
-        if single:
-            halo_flags = torch.zeros(cap_leaf, dtype=torch.int32, device=dev)
-        else:
-            radii = leaf_halo_radii(linked.leaves, okeys, oh, n_owned, mine, self.halo_search_ext)
-            halo_flags = find_halos(linked, radii, box, first_leaf, last_leaf, self.curve)
-            if grav:
-                # vector-MAC halo augmentation from the exact mass centers,
-                # foreign leaves summed by their owners (addMacs, :601-610)
-                _, spheres, grav_ovf = self._expansion_centers(linked, okeys, ox, oy, oz, oprops[0], n_owned,
-                                                               assignment.boundaries, treelet_cap, box)
-                mac_marks = mark_macs(linked, spheres, box, focus_start, focus_end, linked.leaves,
-                                      linked.n_leaf, limit_source=False, curve=self.curve)
-                mac_leaf = mac_marks[linked.leaf_order()]
-                halo_flags = torch.where(mine, halo_flags, halo_flags | mac_leaf.to(halo_flags.dtype))
+        with trace.span("sync.halos"):
+            # a focus tree that overflowed may end short of the assignment: its
+            # range clamps to the leaves array, as JAX's indexing clamps
+            first_leaf, last_leaf = torch.clamp(
+                searchsorted(linked.leaves, assignment.boundaries[self.rank:self.rank + 2]), max=cap_leaf)
+            mine = (lif >= first_leaf) & (lif < last_leaf)
+            j = torch.arange(cap, device=dev)
+            grav_ovf = zero
+            if single:
+                halo_flags = torch.zeros(cap_leaf, dtype=torch.int32, device=dev)
+            else:
+                radii = leaf_halo_radii(linked.leaves, okeys, oh, n_owned, mine, self.halo_search_ext)
+                halo_flags = find_halos(linked, radii, box, first_leaf, last_leaf, self.curve)
+                if grav:
+                    # vector-MAC halo augmentation from the exact mass centers,
+                    # foreign leaves summed by their owners (addMacs, :601-610)
+                    _, spheres, grav_ovf = self._expansion_centers(linked, okeys, ox, oy, oz, oprops[0], n_owned,
+                                                                   assignment.boundaries, treelet_cap, box)
+                    mac_marks = mark_macs(linked, spheres, box, focus_start, focus_end, linked.leaves,
+                                          linked.n_leaf, limit_source=False, curve=self.curve)
+                    mac_leaf = mac_marks[linked.leaf_order()]
+                    halo_flags = torch.where(mine, halo_flags, halo_flags | mac_leaf.to(halo_flags.dtype))
 
         # ---- 8. layout (layout.hpp:150-164) --------------------------------
-        layout = compute_node_layout(leaf_counts, halo_flags, first_leaf, last_leaf)
-        n_with_halos = layout[cap_leaf]
-        start_index = layout[first_leaf]
-        end_index = layout[last_leaf]
+        with trace.span("sync.layout"):
+            layout = compute_node_layout(leaf_counts, halo_flags, first_leaf, last_leaf)
+            n_with_halos = layout[cap_leaf]
+            start_index = layout[first_leaf]
+            end_index = layout[last_leaf]
+            if single:
+                # ---- 9. placement is the identity: layout order == sorted order
+                new_keys = torch.where(j < n_with_halos, keys, rk)
+                new_x, new_y, new_z, new_h, new_props = xs, ys, zs, hs, props_s
 
-        win_need = zero
-        if single:
-            # ---- 9./10. placement is the identity: layout order == sorted order
+        with trace.span("sync.halo_exchange"):
+            win_need = zero
             halo_rec, halo_ovf = None, zero
-            new_keys = torch.where(j < n_with_halos, keys, rk)
-            new_x, new_y, new_z, new_h, new_props = xs, ys, zs, hs, props_s
-        else:
-            # ---- 9. owned particles at [start_index, end_index) -------------
-            def place(owned, fill):
-                return _place(owned, start_index, n_owned, fill)
+            if not single:
+                # ---- 9. owned particles at [start_index, end_index), placed
+                # field by field as its halos move (one field's buffer at a time)
+                def place(owned, fill):
+                    return _place(owned, start_index, n_owned, fill)
 
-            # ---- 10. halo exchange of x, y, z, h and the properties --------
-            dest_leaf = self._owner(assignment.boundaries, linked.leaves[:-1])
-            halo_req = halo_flags.bool() & ~mine & (lif < linked.n_leaf)
-            args = (linked.leaves[:-1], linked.leaves[1:], leaf_counts, layout, halo_req, dest_leaf, okeys, n_owned,
-                    self.n_ranks, halo_req_cap, halo_cap, self.comm)
-            if self.protocol == "ragged":
-                halo_rec = build_halo_exchange_ragged(*args)
-            else:
-                W = self.peer_window or None
-                if W is not None:
-                    win_need = self._window_need(dest_leaf, halo_req, assignment, linked, box, itm)
-                halo_rec = build_halo_exchange(*args, my_rank=self.rank, window=W)
-            halo_ovf = halo_rec.overflow
-            new_x, new_y, new_z, new_h = (self._halo_field(o, place(o, 0.0), halo_rec) for o in (ox, oy, oz, oh))
-            new_props = tuple(self._halo_field(o, place(o, 0), halo_rec) for o in oprops)
+                # ---- 10. halo exchange of x, y, z, h and the properties --------
+                dest_leaf = self._owner(assignment.boundaries, linked.leaves[:-1])
+                halo_req = halo_flags.bool() & ~mine & (lif < linked.n_leaf)
+                args = (linked.leaves[:-1], linked.leaves[1:], leaf_counts, layout, halo_req, dest_leaf, okeys,
+                        n_owned, self.n_ranks, halo_req_cap, halo_cap, self.comm)
+                if self.protocol == "ragged":
+                    halo_rec = build_halo_exchange_ragged(*args)
+                else:
+                    W = self.peer_window or None
+                    if W is not None:
+                        win_need = self._window_need(dest_leaf, halo_req, assignment, linked, box, itm)
+                    halo_rec = build_halo_exchange(*args, my_rank=self.rank, window=W)
+                halo_ovf = halo_rec.overflow
+                new_x, new_y, new_z, new_h = (self._halo_field(o, place(o, 0.0), halo_rec)
+                                              for o in (ox, oy, oz, oh))
+                new_props = tuple(self._halo_field(o, place(o, 0), halo_rec) for o in oprops)
 
-            # halo keys recomputed from the coordinates (domain.hpp:523-540)
-            new_keys = torch.where(j < n_with_halos,
-                                   compute_sfc_keys(new_x, new_y, new_z, box, self.key_dtype, self.curve), rk)
-            new_keys = torch.where((j >= start_index) & (j < end_index), place(okeys, rk), new_keys)
+                # halo keys recomputed from the coordinates (domain.hpp:523-540)
+                new_keys = torch.where(j < n_with_halos,
+                                       compute_sfc_keys(new_x, new_y, new_z, box, self.key_dtype, self.curve), rk)
+                new_keys = torch.where((j >= start_index) & (j < end_index), place(okeys, rk), new_keys)
 
         overflow, detail = self._overflow(tree, linked, focus_conv_ovf, n_with_halos, cap, move=move_ovf,
                                           svc=svc_ovf, halo=halo_ovf, window=win_need, extra=grav_ovf)
@@ -516,66 +530,73 @@ class Domain:
          n_local, _) = self._common_assign(state, x, y, z, h, properties, n_local, boundaries)
 
         # ---- 5. particle exchange: all_gather + one stable sort of the pool
-        payload = (xs, ys, zs, hs) + props_s
-        pool_keys = self._pgather(keys).reshape(-1)
-        n_pool = pool_keys.shape[0]
-        pool_keys, (pool_perm, *pool_payload) = sort_by_key(
-            pool_keys, torch.arange(n_pool, device=dev), *(self._pgather(p).reshape(-1) for p in payload))
-        n_pool_valid = self._psum(n_local)
+        with trace.span("sync.exchange"):
+            payload = (xs, ys, zs, hs) + props_s
+            pool_keys = self._pgather(keys).reshape(-1)
+            n_pool = pool_keys.shape[0]
+            pool_keys, (pool_perm, *pool_payload) = sort_by_key(
+                pool_keys, torch.arange(n_pool, device=dev), *(self._pgather(p).reshape(-1) for p in payload))
+            n_pool_valid = self._psum(n_local)
 
         # ---- 6. focused octree (LET) from the pool, with MAC marks ---------
-        # syncGrav builds the tree for the worst-case vector MAC (domain.hpp:266)
-        itm = inv_theta_vec_mac if grav else inv_theta_min_mac
-        focus_start = assignment.boundaries[self.rank]
-        focus_end = assignment.boundaries[self.rank + 1]
-        (_, _, linked, node_counts_f, focus_conv_ovf, _, focus_converged) = focus_converge(
-            state.focus_leaves, state.focus_n, pool_keys, n_pool_valid, box, focus_start, focus_end,
-            assignment.boundaries, self.bucket_size_focus, itm(self.theta), comm=self.comm,
-            curve=self.curve, linked0=state.linked,
-            use_carried=state.focus_converged and not state.first_call)
-        cap_leaf = linked.leaves.shape[0] - 1
-        lif = torch.arange(cap_leaf, device=dev)
-        # leaf counts come from the converge loop's final count pass
-        leaf_counts = torch.where(lif < linked.n_leaf, node_counts_f[linked.leaf_order()], 0)
-        # clamped as in the p2p branch
-        first_leaf, last_leaf = torch.clamp(
-            searchsorted(linked.leaves, assignment.boundaries[self.rank:self.rank + 2]), max=cap_leaf)
+        with trace.span("sync.focus"):
+            # syncGrav builds the tree for the worst-case vector MAC (domain.hpp:266)
+            itm = inv_theta_vec_mac if grav else inv_theta_min_mac
+            focus_start = assignment.boundaries[self.rank]
+            focus_end = assignment.boundaries[self.rank + 1]
+            (_, _, linked, node_counts_f, focus_conv_ovf, _, focus_converged) = focus_converge(
+                state.focus_leaves, state.focus_n, pool_keys, n_pool_valid, box, focus_start, focus_end,
+                assignment.boundaries, self.bucket_size_focus, itm(self.theta), comm=self.comm,
+                curve=self.curve, linked0=state.linked,
+                use_carried=state.focus_converged and not state.first_call)
+            cap_leaf = linked.leaves.shape[0] - 1
+            lif = torch.arange(cap_leaf, device=dev)
+            # leaf counts come from the converge loop's final count pass
+            leaf_counts = torch.where(lif < linked.n_leaf, node_counts_f[linked.leaf_order()], 0)
 
         # ---- 7. halos: per-leaf radii 2 * ext * max(h) over the own leaves'
         # particles (halos.hpp:116-189); an empty leaf's max is -inf -> 0
-        leaf_pool_off = torch.minimum(searchsorted(pool_keys, linked.leaves), n_pool_valid)
-        leaf_hmax = torch.clamp(segment_max(pool_payload[3], leaf_pool_off, cap_leaf), min=0.0)
-        mine = (lif >= first_leaf) & (lif < last_leaf)
-        radii = torch.where(mine, leaf_hmax * (2.0 * self.halo_search_ext), 0.0)
-        halo_flags = find_halos(linked, radii, box, first_leaf, last_leaf, self.curve)
+        with trace.span("sync.halos"):
+            # clamped as in the p2p branch
+            first_leaf, last_leaf = torch.clamp(
+                searchsorted(linked.leaves, assignment.boundaries[self.rank:self.rank + 2]), max=cap_leaf)
+            leaf_pool_off = torch.minimum(searchsorted(pool_keys, linked.leaves), n_pool_valid)
+            leaf_hmax = torch.clamp(segment_max(pool_payload[3], leaf_pool_off, cap_leaf), min=0.0)
+            mine = (lif >= first_leaf) & (lif < last_leaf)
+            radii = torch.where(mine, leaf_hmax * (2.0 * self.halo_search_ext), 0.0)
+            halo_flags = find_halos(linked, radii, box, first_leaf, last_leaf, self.curve)
 
-        if grav:
-            # vector-MAC halo augmentation from the pool's exact mass
-            # centers (updateCenters, octree_focus_mpi.hpp:369-449, and
-            # addMacs, :601-610)
-            w = pool_payload[4].abs()
-            sums = torch.stack([w * pool_payload[0], w * pool_payload[1], w * pool_payload[2], w], dim=-1)
-            _, centers4 = self._node_centers(linked, segment_sum(sums, leaf_pool_off, cap_leaf), box)
-            mac_marks = mark_macs(linked, centers4, box, focus_start, focus_end, linked.leaves,
-                                  linked.n_leaf, limit_source=False, curve=self.curve)
-            mac_leaf = mac_marks[linked.leaf_order()]
-            halo_flags = torch.where(mine, halo_flags, halo_flags | mac_leaf.to(halo_flags.dtype))
+            if grav:
+                # vector-MAC halo augmentation from the pool's exact mass
+                # centers (updateCenters, octree_focus_mpi.hpp:369-449, and
+                # addMacs, :601-610)
+                w = pool_payload[4].abs()
+                sums = torch.stack([w * pool_payload[0], w * pool_payload[1], w * pool_payload[2], w], dim=-1)
+                _, centers4 = self._node_centers(linked, segment_sum(sums, leaf_pool_off, cap_leaf), box)
+                mac_marks = mark_macs(linked, centers4, box, focus_start, focus_end, linked.leaves,
+                                      linked.n_leaf, limit_source=False, curve=self.curve)
+                mac_leaf = mac_marks[linked.leaf_order()]
+                halo_flags = torch.where(mine, halo_flags, halo_flags | mac_leaf.to(halo_flags.dtype))
 
         # ---- 8. layout (layout.hpp:150-239) --------------------------------
-        layout = compute_node_layout(leaf_counts, halo_flags, first_leaf, last_leaf)
-        n_with_halos = layout[cap_leaf]
-        start_index = layout[first_leaf]
-        end_index = layout[last_leaf]
+        with trace.span("sync.layout"):
+            layout = compute_node_layout(leaf_counts, halo_flags, first_leaf, last_leaf)
+            n_with_halos = layout[cap_leaf]
+            start_index = layout[first_leaf]
+            end_index = layout[last_leaf]
 
-        # ---- 9. every buffer slot is a gather from the pool: slot j of leaf
-        # i = searchsorted(layout, j) - 1 is pool slot leaf_pool_off[i] +
-        # (j - layout[i]); slots past the buffer point at the last pool slot
-        j = torch.arange(cap, device=dev)
-        leaf_of_j = segment_ids_from_offsets(layout, cap, cap_leaf)
-        in_buffer = j < n_with_halos
-        pool_idx = torch.where(in_buffer, leaf_pool_off[leaf_of_j] + (j - layout[leaf_of_j]), n_pool - 1)
-        new_keys = torch.where(in_buffer, pool_keys[pool_idx], rk)
-        new_x, new_y, new_z, new_h, *new_props = (p[pool_idx] for p in pool_payload)
+            # ---- 9. every buffer slot is a gather from the pool: slot j of leaf
+            # i = searchsorted(layout, j) - 1 is pool slot leaf_pool_off[i] +
+            # (j - layout[i]); slots past the buffer point at the last pool slot
+            j = torch.arange(cap, device=dev)
+            leaf_of_j = segment_ids_from_offsets(layout, cap, cap_leaf)
+            in_buffer = j < n_with_halos
+            pool_idx = torch.where(in_buffer, leaf_pool_off[leaf_of_j] + (j - layout[leaf_of_j]), n_pool - 1)
+            new_keys = torch.where(in_buffer, pool_keys[pool_idx], rk)
+            new_x, new_y, new_z, new_h, *new_props = (p[pool_idx] for p in pool_payload)
+
+        with trace.span("sync.halo_exchange"):
+            pass  # step 10 has nothing left to move: the gathers of step 9 filled the halo slots
 
         overflow, detail = self._overflow(tree, linked, focus_conv_ovf, n_with_halos, cap)
         new_state = DomainState(
@@ -598,20 +619,21 @@ class Domain:
         """(overflow, the 7-entry overflow_detail), each the largest of all
         ranks. `extra` enters overflow only (syncGrav's range-sum
         overflow, as in the JAX package)."""
-        zero = torch.zeros((), dtype=torch.int64, device=n_with_halos.device)
-        move, svc, halo, window, extra = (zero if v is None else v for v in (move, svc, halo, window, extra))
-        gcap = tree.keys.shape[0] - 1
-        cap_leaf = linked.leaves.shape[0] - 1
-        tree_ovf = torch.where(tree.n_nodes > gcap, tree.n_nodes, zero)
-        focus_ovf = torch.maximum(torch.where(linked.n_leaf > cap_leaf, linked.n_leaf, zero),
-                                  focus_conv_ovf)
-        local_ovf = torch.where(n_with_halos > cap, n_with_halos, zero)
-        detail = torch.stack([local_ovf, tree_ovf, focus_ovf, move, svc, halo, window])
-        both = torch.cat([detail, torch.stack([detail.max(), extra]).max()[None]])
-        if self.comm is not None:
-            # the largest of all ranks: every rank takes the same retry
-            both = self.comm.all_reduce(both, "max")
-        return both[-1], both[:-1]
+        with trace.span("sync.overflow"):
+            zero = torch.zeros((), dtype=torch.int64, device=n_with_halos.device)
+            move, svc, halo, window, extra = (zero if v is None else v for v in (move, svc, halo, window, extra))
+            gcap = tree.keys.shape[0] - 1
+            cap_leaf = linked.leaves.shape[0] - 1
+            tree_ovf = torch.where(tree.n_nodes > gcap, tree.n_nodes, zero)
+            focus_ovf = torch.maximum(torch.where(linked.n_leaf > cap_leaf, linked.n_leaf, zero),
+                                      focus_conv_ovf)
+            local_ovf = torch.where(n_with_halos > cap, n_with_halos, zero)
+            detail = torch.stack([local_ovf, tree_ovf, focus_ovf, move, svc, halo, window])
+            both = torch.cat([detail, torch.stack([detail.max(), extra]).max()[None]])
+            if self.comm is not None:
+                # the largest of all ranks: every rank takes the same retry
+                both = self.comm.all_reduce(both, "max")
+            return both[-1], both[:-1]
 
     # ------------------------------------------------------------------
     def _common_assign(self, state, x, y, z, h, properties, n_local, boundaries):
@@ -622,48 +644,51 @@ class Domain:
         fdt = x.dtype
         dev = x.device
         rk = remove_key(dt)
-        n_local = torch.as_tensor(cap if n_local is None else n_local, dtype=torch.int64, device=dev)
-        valid = torch.arange(cap, device=dev) < n_local
-
         # ---- 1. global bounding box (box_mpi.hpp:85-119) -------------------
-        fit = global_bounds(x, y, z, self.comm, n_valid=n_local)
-        mins, maxs = fit.mins, fit.maxs
-        bnd = state.box.boundaries if boundaries is None else tuple(boundaries)
-        prev_mins = state.box.mins.to(fdt)
-        prev_maxs = state.box.maxs.to(fdt)
-        if not state.first_call:
-            # open dims shrink at most 5% of the previous length per step
-            # (limit_box_shrinking, box.hpp:415-431); periodic/fixed dims
-            # keep the previous limits
-            prev_len = prev_maxs - prev_mins
-            shrink = torch.tensor(0.05, dtype=fdt, device=dev)
-            mins = torch.minimum(mins, prev_mins + shrink * prev_len)
-            maxs = torch.maximum(maxs, prev_maxs - shrink * prev_len)
-            keep = torch.tensor([b != 0 for b in bnd], device=dev)
-            mins = torch.where(keep, prev_mins, mins)
-            maxs = torch.where(keep, prev_maxs, maxs)
-        limits = torch.stack([mins[0], maxs[0], mins[1], maxs[1], mins[2], maxs[2]])
-        if state.first_call and any(b != 0 for b in bnd):
-            # the caller's box is authoritative for periodic/fixed dims
-            keep2 = torch.tensor([b != 0 for b in bnd for _ in range(2)], device=dev)
-            limits = torch.where(keep2, state.box.limits.to(fdt), limits)
-        box = Box(limits=limits, boundaries=bnd)
+        with trace.span("sync.box"):
+            n_local = torch.as_tensor(cap if n_local is None else n_local, dtype=torch.int64, device=dev)
+            valid = torch.arange(cap, device=dev) < n_local
+            fit = global_bounds(x, y, z, self.comm, n_valid=n_local)
+            mins, maxs = fit.mins, fit.maxs
+            bnd = state.box.boundaries if boundaries is None else tuple(boundaries)
+            prev_mins = state.box.mins.to(fdt)
+            prev_maxs = state.box.maxs.to(fdt)
+            if not state.first_call:
+                # open dims shrink at most 5% of the previous length per step
+                # (limit_box_shrinking, box.hpp:415-431); periodic/fixed dims
+                # keep the previous limits
+                prev_len = prev_maxs - prev_mins
+                shrink = torch.tensor(0.05, dtype=fdt, device=dev)
+                mins = torch.minimum(mins, prev_mins + shrink * prev_len)
+                maxs = torch.maximum(maxs, prev_maxs - shrink * prev_len)
+                keep = torch.tensor([b != 0 for b in bnd], device=dev)
+                mins = torch.where(keep, prev_mins, mins)
+                maxs = torch.where(keep, prev_maxs, maxs)
+            limits = torch.stack([mins[0], maxs[0], mins[1], maxs[1], mins[2], maxs[2]])
+            if state.first_call and any(b != 0 for b in bnd):
+                # the caller's box is authoritative for periodic/fixed dims
+                keep2 = torch.tensor([b != 0 for b in bnd for _ in range(2)], device=dev)
+                limits = torch.where(keep2, state.box.limits.to(fdt), limits)
+            box = Box(limits=limits, boundaries=bnd)
 
         # ---- 2. SFC keys + stable local sort (sfc.hpp:284, gather.hpp:158) --
-        keys = compute_sfc_keys(x, y, z, box, dt, self.curve)
-        keys = torch.where(valid, keys, rk)
-        keys, sort_order = usort(keys, stable=True)
-        xs, ys, zs, hs = (a[sort_order] for a in (x, y, z, h))
-        props_s = tuple(p[sort_order] for p in properties)
+        with trace.span("sync.keys"):
+            keys = compute_sfc_keys(x, y, z, box, dt, self.curve)
+            keys = torch.where(valid, keys, rk)
+            keys, sort_order = usort(keys, stable=True)
+            xs, ys, zs, hs = (a[sort_order] for a in (x, y, z, h))
+            props_s = tuple(p[sort_order] for p in properties)
 
         # ---- 3. global tree update (update_mpi.hpp:48-104) -----------------
-        tree, tree_changed = self._update_global_tree(state, keys, n_local)
+        with trace.span("sync.tree"):
+            tree, tree_changed = self._update_global_tree(state, keys, n_local)
 
         # ---- 4. assignment (domaindecomp.hpp:115-166) ----------------------
-        assignment = make_sfc_assignment(tree.keys, tree.counts, tree.n_nodes, self.n_ranks)
-        old_boundaries = assignment.boundaries if state.first_call else state.assignment.boundaries
-        old = SfcAssignment(boundaries=old_boundaries, counts=state.assignment.counts)
-        assignment = limit_boundary_shifts(old, assignment, tree.keys, tree.counts)
+        with trace.span("sync.assign"):
+            assignment = make_sfc_assignment(tree.keys, tree.counts, tree.n_nodes, self.n_ranks)
+            old_boundaries = assignment.boundaries if state.first_call else state.assignment.boundaries
+            old = SfcAssignment(boundaries=old_boundaries, counts=state.assignment.counts)
+            assignment = limit_boundary_shifts(old, assignment, tree.keys, tree.counts)
         return (box, keys, sort_order, xs, ys, zs, hs, props_s, tree, assignment,
                 n_local, tree_changed)
 

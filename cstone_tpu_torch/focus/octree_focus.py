@@ -27,6 +27,7 @@ from ..sfc.box import Box
 from ..sfc.encode import HILBERT
 from ..tree.csarray import rebalance_tree
 from ..tree.octree import LinkedOctree, build_linked_octree, upsweep_sum
+from ..utils import trace
 from .inject import inject_keys
 from .rebalance import FAILED, enforce_keys, protect_ancestors, rebalance_decision_essential
 from .source_center import geo_mac_spheres
@@ -149,6 +150,7 @@ def focus_converge(
     reuse = linked0 is not None and use_carried is not None and bool(use_carried)
     it = 0
     while True:
+        trace.count("focus.rounds")
         # warm first iteration: leaves IS linked0.leaves when last sync converged
         linked = linked0 if (it == 0 and reuse) else build_linked_octree(leaves, n_leaf)
         node_counts, ovf = counts_of(linked)

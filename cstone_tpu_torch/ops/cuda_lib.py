@@ -9,10 +9,11 @@ every module, and the CPU has no nvcc. Any build or load failure raises.
 Sources build independently, so a caller may build several at once from
 threads (nvcc runs in a subprocess and releases the GIL).
 
-`LaunchCounts` counts each wrapper's launches, and `record_launches()`
-lets a check hold each kernel against its plain version on exactly the
-arguments a path launched it with. Both take a lock: ranks that run as
-threads of one process (parallel/comm.run_ranks) launch at once.
+`LaunchCounts` counts each wrapper's launches (utils/trace.Counts), and
+`record_launches()` lets a check hold each kernel against its plain
+version on exactly the arguments a path launched it with. Both take a
+lock: ranks that run as threads of one process (parallel/comm.run_ranks)
+launch at once.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ import threading
 from typing import Callable, Optional
 
 import torch
+
+from ..utils.trace import Counts
 
 __all__ = ["NVCC_FLAGS", "CudaLibrary", "nvcc_path", "ptr", "stream_of", "check_launch",
            "LaunchCounts", "record_launches"]
@@ -119,25 +122,12 @@ def record_launches():
             _recorded = prev
 
 
-class LaunchCounts:
+class LaunchCounts(Counts):
     """One module's launch count per kernel wrapper."""
-
-    def __init__(self, *names: str):
-        self._lock = threading.Lock()
-        self._counts = dict.fromkeys(names, 0)
 
     def launched(self, name: str, args: tuple, out) -> None:
         """Count one launch of `name` and record it for record_launches()."""
-        with self._lock:
-            self._counts[name] += 1
+        self.add(name)
         with _recorded_lock:
             if _recorded is not None:
                 _recorded.append((name, args, out))
-
-    def snapshot(self) -> dict:
-        with self._lock:
-            return dict(self._counts)
-
-    def reset(self) -> None:
-        with self._lock:
-            self._counts = dict.fromkeys(self._counts, 0)

@@ -10,6 +10,8 @@ takes an `axis_name`: `all_gather`, `all_reduce`, `all_reduce_flag`,
 rank.
 `run_ranks(n_ranks, fn, *per_rank_args)` runs `fn(comm, *args_r)` on one
 thread per rank; the ranks meet at a barrier inside each collective.
+Each collective of both comms opens a `comm.<name>` span
+(utils/trace.py), which holds the rank's wait for its peers.
 
 A comm is rank r's handle, not a connection: its collectives run inside
 any run_ranks(n_ranks, ...) call, on the thread that runs rank r there.
@@ -46,6 +48,8 @@ import threading
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
+
+from ..utils import trace
 
 __all__ = ["RankComm", "RanksAborted", "run_ranks", "check_ragged_args", "check_pairs", "source_of"]
 
@@ -211,29 +215,33 @@ class RankComm:
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """(n_ranks, *t.shape): every rank's `t`, in rank order."""
-        return torch.stack(self._exchange(t))
+        with trace.span("comm.all_gather"):
+            return torch.stack(self._exchange(t))
 
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """Elementwise reduction of every rank's `t`, op "sum" | "max" |
         "min". Every rank reduces in rank order, so all get the same bits."""
-        if op not in _REDUCE:
-            raise ValueError(f"op must be one of {sorted(_REDUCE)}, got {op!r}")
-        return _REDUCE[op](self.all_gather(t))
+        with trace.span("comm.all_reduce"):
+            if op not in _REDUCE:
+                raise ValueError(f"op must be one of {sorted(_REDUCE)}, got {op!r}")
+            return _REDUCE[op](self.all_gather(t))
 
     def all_reduce_flag(self, flag: bool, op: str = "all") -> bool:
         """A host bool reduced over the ranks: op "all" (and) | "any" (or)."""
-        if op not in ("all", "any"):
-            raise ValueError(f"op must be 'all' or 'any', got {op!r}")
-        flags = [bool(f) for f in self._exchange(bool(flag))]
-        return all(flags) if op == "all" else any(flags)
+        with trace.span("comm.all_reduce_flag"):
+            if op not in ("all", "any"):
+                raise ValueError(f"op must be 'all' or 'any', got {op!r}")
+            flags = [bool(f) for f in self._exchange(bool(flag))]
+            return all(flags) if op == "all" else any(flags)
 
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
         """t is (n_ranks, ...), row r addressed to rank r. Returns a fresh
         tensor of t's shape whose row r is row `rank` of rank r's t
         (jax.lax.all_to_all with split and concat axis 0, tiled)."""
-        if t.shape[0] != self.n_ranks:
-            raise ValueError(f"all_to_all needs a leading axis of {self.n_ranks} rows, got {tuple(t.shape)}")
-        return torch.stack([u[self.rank] for u in self._exchange(t)])
+        with trace.span("comm.all_to_all"):
+            if t.shape[0] != self.n_ranks:
+                raise ValueError(f"all_to_all needs a leading axis of {self.n_ranks} rows, got {tuple(t.shape)}")
+            return torch.stack([u[self.rank] for u in self._exchange(t)])
 
     def ragged_all_to_all(self, operand: torch.Tensor, output: torch.Tensor, input_offsets: torch.Tensor,
                           send_sizes: torch.Tensor, output_offsets: torch.Tensor,
@@ -250,11 +258,12 @@ class RankComm:
         host read, no (n_ranks, out_cap) buffer); a chunk longer than the
         output or past its end is cut there, as in the JAX package's
         emulation (cstone_tpu/parallel/ragged.py)."""
-        check_ragged_args(self, operand, output, input_offsets, send_sizes, output_offsets, recv_sizes)
-        out = output.clone()
-        for op, i_off, size, w_off in self._exchange((operand, input_offsets, send_sizes, output_offsets)):
-            out = land_chunk(out, op, i_off[self.rank], size[self.rank], w_off[self.rank])
-        return out
+        with trace.span("comm.ragged_all_to_all"):
+            check_ragged_args(self, operand, output, input_offsets, send_sizes, output_offsets, recv_sizes)
+            out = output.clone()
+            for op, i_off, size, w_off in self._exchange((operand, input_offsets, send_sizes, output_offsets)):
+                out = land_chunk(out, op, i_off[self.rank], size[self.rank], w_off[self.rank])
+            return out
 
     def ppermute(self, t: torch.Tensor, pairs: Sequence[Tuple[int, int]]) -> torch.Tensor:
         """jax.lax.ppermute: for every (src, dst) in pairs, rank dst gets
@@ -262,10 +271,11 @@ class RankComm:
         rank passes the same pairs and a `t` of one shape and dtype; no
         rank is named twice as src or twice as dst. Returns a fresh
         tensor."""
-        check_pairs(self, pairs)
-        src = source_of(self.rank, pairs)
-        got = self._exchange(t)
-        return torch.zeros_like(t) if src is None else got[src].clone()
+        with trace.span("comm.ppermute"):
+            check_pairs(self, pairs)
+            src = source_of(self.rank, pairs)
+            got = self._exchange(t)
+            return torch.zeros_like(t) if src is None else got[src].clone()
 
 
 def run_ranks(n_ranks: int, fn: Callable, *per_rank_args: Sequence, timeout: float = 600.0) -> list:

@@ -47,6 +47,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from ..utils import trace
 from .comm import check_pairs, check_ragged_args, source_of
 
 __all__ = ["DistComm", "spawn_ranks", "comm_from_env", "RankFailed"]
@@ -107,40 +108,44 @@ class DistComm:
     # -- collectives ---------------------------------------------------------
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """(n_ranks, *t.shape): every rank's `t`, in rank order."""
-        w = self._send_form(t).reshape(-1)
-        out = w.new_empty(self.n_ranks * w.numel())  # the ranks' tensors back to back
-        dist.all_gather_into_tensor(out, w)
-        return self._recv_form(out).reshape((self.n_ranks,) + tuple(t.shape))
+        with trace.span("comm.all_gather"):
+            w = self._send_form(t).reshape(-1)
+            out = w.new_empty(self.n_ranks * w.numel())  # the ranks' tensors back to back
+            dist.all_gather_into_tensor(out, w)
+            return self._recv_form(out).reshape((self.n_ranks,) + tuple(t.shape))
 
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """Elementwise reduction of every rank's `t`, op "sum" | "max" |
         "min"; every rank gets the same bits."""
-        if op not in _OPS:
-            raise ValueError(f"op must be one of {sorted(_OPS)}, got {op!r}")
-        w = self._send_form(t)
-        w = w.clone() if w is t else w  # the reduction is in place
-        dist.all_reduce(w, op=getattr(dist.ReduceOp, _OPS[op]))
-        return self._recv_form(w)
+        with trace.span("comm.all_reduce"):
+            if op not in _OPS:
+                raise ValueError(f"op must be one of {sorted(_OPS)}, got {op!r}")
+            w = self._send_form(t)
+            w = w.clone() if w is t else w  # the reduction is in place
+            dist.all_reduce(w, op=getattr(dist.ReduceOp, _OPS[op]))
+            return self._recv_form(w)
 
     def all_reduce_flag(self, flag: bool, op: str = "all") -> bool:
         """A host bool reduced over the ranks: op "all" (and) | "any" (or),
         as an int32 min or max."""
-        if op not in ("all", "any"):
-            raise ValueError(f"op must be 'all' or 'any', got {op!r}")
-        wire = self.device if self.backend == "nccl" else torch.device("cpu")
-        t = torch.tensor([int(bool(flag))], dtype=torch.int32, device=wire)
-        dist.all_reduce(t, op=dist.ReduceOp.MIN if op == "all" else dist.ReduceOp.MAX)
-        return bool(t.item())
+        with trace.span("comm.all_reduce_flag"):
+            if op not in ("all", "any"):
+                raise ValueError(f"op must be 'all' or 'any', got {op!r}")
+            wire = self.device if self.backend == "nccl" else torch.device("cpu")
+            t = torch.tensor([int(bool(flag))], dtype=torch.int32, device=wire)
+            dist.all_reduce(t, op=dist.ReduceOp.MIN if op == "all" else dist.ReduceOp.MAX)
+            return bool(t.item())
 
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
         """t is (n_ranks, ...), row r addressed to rank r. Returns a fresh
         tensor of t's shape whose row r is row `rank` of rank r's t."""
-        if t.shape[0] != self.n_ranks:
-            raise ValueError(f"all_to_all needs a leading axis of {self.n_ranks} rows, got {tuple(t.shape)}")
-        w = self._send_form(t)
-        out = torch.empty_like(w)
-        dist.all_to_all_single(out, w)
-        return self._recv_form(out)
+        with trace.span("comm.all_to_all"):
+            if t.shape[0] != self.n_ranks:
+                raise ValueError(f"all_to_all needs a leading axis of {self.n_ranks} rows, got {tuple(t.shape)}")
+            w = self._send_form(t)
+            out = torch.empty_like(w)
+            dist.all_to_all_single(out, w)
+            return self._recv_form(out)
 
     def ragged_all_to_all(self, operand: torch.Tensor, output: torch.Tensor, input_offsets: torch.Tensor,
                           send_sizes: torch.Tensor, output_offsets: torch.Tensor,
@@ -161,30 +166,31 @@ class DistComm:
         ragged_return's offsets have gaps wherever a size was clamped).
         Rows past the operand's end are clamped to its last row, rows past
         the output's end dropped, as in the JAX package's emulation."""
-        check_ragged_args(self, operand, output, input_offsets, send_sizes, output_offsets, recv_sizes)
-        dev, out_cap = output.device, output.shape[0]
-        write_off = self.all_to_all(output_offsets)  # the offsets the senders declared
-        send, recv = torch.stack([send_sizes, recv_sizes]).clamp(0, out_cap).tolist()
-        ranks = torch.arange(self.n_ranks, device=dev)
+        with trace.span("comm.ragged_all_to_all"):
+            check_ragged_args(self, operand, output, input_offsets, send_sizes, output_offsets, recv_sizes)
+            dev, out_cap = output.device, output.shape[0]
+            write_off = self.all_to_all(output_offsets)  # the offsets the senders declared
+            send, recv = torch.stack([send_sizes, recv_sizes]).clamp(0, out_cap).tolist()
+            ranks = torch.arange(self.n_ranks, device=dev)
 
-        def rows(sizes, starts):
-            """Per row of a staging buffer of chunks of `sizes`: its chunk
-            and its place in the chunk + starts[chunk]."""
-            sz = torch.tensor(sizes, device=dev)
-            chunk = torch.repeat_interleave(ranks, sz, output_size=sum(sizes))
-            offs = torch.cumsum(sz, 0) - sz
-            return chunk, torch.arange(sum(sizes), device=dev) - offs[chunk] + starts[chunk]
+            def rows(sizes, starts):
+                """Per row of a staging buffer of chunks of `sizes`: its chunk
+                and its place in the chunk + starts[chunk]."""
+                sz = torch.tensor(sizes, device=dev)
+                chunk = torch.repeat_interleave(ranks, sz, output_size=sum(sizes))
+                offs = torch.cumsum(sz, 0) - sz
+                return chunk, torch.arange(sum(sizes), device=dev) - offs[chunk] + starts[chunk]
 
-        _, src = rows(send, input_offsets.to(dev))
-        w = self._send_form(operand[torch.clamp(src, 0, max(operand.shape[0] - 1, 0))])
-        got = w.new_empty((sum(recv),) + tuple(w.shape[1:]))
-        dist.all_to_all_single(got, w, output_split_sizes=recv, input_split_sizes=send)
-        got = self._recv_form(got)
-        _, tgt = rows(recv, write_off.to(dev))
-        keep = (tgt >= 0) & (tgt < out_cap)
-        out = torch.cat([output, output.new_zeros((1,) + tuple(output.shape[1:]))])  # row out_cap: dropped
-        out[torch.where(keep, tgt, out_cap)] = got
-        return out[:out_cap]
+            _, src = rows(send, input_offsets.to(dev))
+            w = self._send_form(operand[torch.clamp(src, 0, max(operand.shape[0] - 1, 0))])
+            got = w.new_empty((sum(recv),) + tuple(w.shape[1:]))
+            dist.all_to_all_single(got, w, output_split_sizes=recv, input_split_sizes=send)
+            got = self._recv_form(got)
+            _, tgt = rows(recv, write_off.to(dev))
+            keep = (tgt >= 0) & (tgt < out_cap)
+            out = torch.cat([output, output.new_zeros((1,) + tuple(output.shape[1:]))])  # row out_cap: dropped
+            out[torch.where(keep, tgt, out_cap)] = got
+            return out[:out_cap]
 
     def ppermute(self, t: torch.Tensor, pairs: Sequence[Tuple[int, int]]) -> torch.Tensor:
         """jax.lax.ppermute (see RankComm.ppermute): rank dst gets rank
@@ -192,18 +198,19 @@ class DistComm:
         it as dst. The rank's send and receive are posted together in one
         batch_isend_irecv (blocking send/recv pairs can deadlock under
         gloo); a rank that no pair names takes no part."""
-        check_pairs(self, pairs)
-        src = source_of(self.rank, pairs)
-        dst = next((d for s, d in pairs if s == self.rank), None)
-        w = self._send_form(t) if dst is not None else None
-        wire = torch.device("cpu") if self._staged else t.device
-        got = torch.empty(t.shape, dtype=t.dtype, device=wire) if src is not None else None
-        ops = ([dist.P2POp(dist.isend, w, dst)] if dst is not None else []) + \
-              ([dist.P2POp(dist.irecv, got, src)] if src is not None else [])
-        if ops:
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
-        return torch.zeros_like(t) if src is None else self._recv_form(got)
+        with trace.span("comm.ppermute"):
+            check_pairs(self, pairs)
+            src = source_of(self.rank, pairs)
+            dst = next((d for s, d in pairs if s == self.rank), None)
+            w = self._send_form(t) if dst is not None else None
+            wire = torch.device("cpu") if self._staged else t.device
+            got = torch.empty(t.shape, dtype=t.dtype, device=wire) if src is not None else None
+            ops = ([dist.P2POp(dist.isend, w, dst)] if dst is not None else []) + \
+                  ([dist.P2POp(dist.irecv, got, src)] if src is not None else [])
+            if ops:
+                for req in dist.batch_isend_irecv(ops):
+                    req.wait()
+            return torch.zeros_like(t) if src is None else self._recv_form(got)
 
 
 def _quiet_deprecation() -> None:

@@ -18,6 +18,7 @@ import torch
 
 from ..sfc.box import Box
 from ..tree.csarray import CsArray, compute_node_counts, rebalance_decision, rebalance_tree, root_tree
+from ..utils import trace
 from .comm import RankComm
 
 __all__ = ["global_bounds", "update_global_octree", "converge_global_octree", "compute_global_octree"]
@@ -80,6 +81,7 @@ def converge_global_octree(tree: CsArray, codes, bucket_size: int, comm: Optiona
     changed = not _all(bool(converged), comm)
     stop = not changed
     while not stop:
+        trace.count("tree.rounds")
         tree, _ = update_global_octree(tree, codes, bucket_size, comm, max_count, n_codes)
         _, converged = rebalance_decision(tree.keys, tree.counts, tree.n_nodes, bucket_size)
         stop = _all(bool(converged | (tree.n_nodes > capacity)), comm)

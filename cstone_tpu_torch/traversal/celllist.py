@@ -34,6 +34,7 @@ from ..ops.stencil import (
 from ..sfc.box import PERIODIC, Box
 from ..sfc.encode import HILBERT
 from ..sfc.keys import max_tree_level
+from ..utils import trace
 from ..utils.device import resolve_device
 
 __all__ = [
@@ -224,18 +225,22 @@ def cell_list_neighbor_counts(
     plain roll stencil; all three give the same counts. The port defaults
     to the kernel, its main path (the JAX default is "xla"). `const_h`
     (all hs equal) is accepted for API parity and does not change the
-    result.
+    result. The pack, the pass and the scatter back open the spans
+    celllist.pack, celllist.pass and celllist.scatter (utils/trace.py).
     """
     del const_h
     if impl not in _COUNT_IMPLS:
         raise ValueError(f"impl must be one of {sorted(_COUNT_IMPLS)}, got {impl!r}")
-    perm, _ = rowmajor_cell_perm(int(level), curve, device=xs.device)
-    (px, py, pz, ph), valid, pidx, overflow = ell_pack_gather(
-        keys_sorted, perm, (xs, ys, zs, hs), cap, int(level), n_valid=n_valid)
-    r2 = torch.where(valid, (2.0 * ph) * (2.0 * ph), -1.0)
-    counts_ell = _COUNT_IMPLS[impl](px, py, pz, r2, valid, box.lengths, _periodic_flags(box),
-                                    int(level))
-    return _scatter_back(counts_ell, valid, pidx, keys_sorted.shape[0]), overflow
+    with trace.span("celllist.pack"):
+        perm, _ = rowmajor_cell_perm(int(level), curve, device=xs.device)
+        (px, py, pz, ph), valid, pidx, overflow = ell_pack_gather(
+            keys_sorted, perm, (xs, ys, zs, hs), cap, int(level), n_valid=n_valid)
+        r2 = torch.where(valid, (2.0 * ph) * (2.0 * ph), -1.0)
+    with trace.span("celllist.pass"):
+        counts_ell = _COUNT_IMPLS[impl](px, py, pz, r2, valid, box.lengths, _periodic_flags(box),
+                                        int(level))
+    with trace.span("celllist.scatter"):
+        return _scatter_back(counts_ell, valid, pidx, keys_sorted.shape[0]), overflow
 
 
 def cell_list_sph_density(

@@ -1,0 +1,209 @@
+"""The port's spans and counters (cstone_tpu_torch/utils/trace.py) at the
+layer boundaries: Domain.sync's ten stages, the cell list's pack, pass
+and scatter, every collective of a comm, and the passes of the global
+tree's and the focus tree's fixed points.
+
+Off, a span is one shared null context and a profiler sees none of the
+program's ranges; on, the stages open once a sync, in order, nested
+under `sync`; each rank thread of run_ranks keeps its own tally, whose
+collective calls equal those a wrapper of the comm's methods counts; the
+counters equal the loops' passes; and tracing changes no output bit.
+2,000 uniform particles in the periodic unit cube, one rank and two
+(1,000 a rank), p2p and pool modes, a cold and a warm sync each."""
+
+import numpy as np
+import pytest
+import torch
+
+from cstone_tpu_torch.domain import Domain
+from cstone_tpu_torch.focus import octree_focus
+from cstone_tpu_torch.parallel import global_tree, run_ranks
+from cstone_tpu_torch.sfc import PERIODIC, make_box
+from cstone_tpu_torch.traversal import cell_list_neighbor_counts
+from cstone_tpu_torch.utils import trace
+
+import torch_threads  # noqa: F401  (two intra-op threads per xdist worker)
+
+N, H, LEVEL, CELL_CAP, CAP = 2000, 0.05, 3, 64, 2000
+STAGES = ("sync.box", "sync.keys", "sync.tree", "sync.assign", "sync.exchange", "sync.focus", "sync.halos",
+          "sync.layout", "sync.halo_exchange", "sync.overflow")
+CELLLIST = ("celllist.pack", "celllist.pass", "celllist.scatter")
+COLLECTIVES = ("all_gather", "all_reduce", "all_reduce_flag", "all_to_all", "ragged_all_to_all", "ppermute")
+SYNCS = 2  # a cold and a warm sync
+FIELDS = ("keys", "x", "y", "z", "h", "start_index", "end_index", "n_with_halos", "sort_order", "layout",
+          "halo_flags", "leaf_counts", "overflow", "overflow_detail", "global_ids", "pool_perm")
+
+
+def _particles():
+    rng = np.random.default_rng(17)
+    return torch.from_numpy(rng.random((3, N), dtype=np.float32))
+
+
+def _steps(comm, mode: str, ranks: int):
+    """Two syncs of this rank's slice r::ranks (the second drifted, from
+    the first's state) and a cell-list pass after each: per sync the
+    result's fields and the neighbour counts."""
+    r = 0 if comm is None else comm.rank
+    xyz = _particles()[:, r::ranks]
+    n = xyz.shape[1]
+    box = make_box(0.0, 1.0, boundaries=PERIODIC, device="cpu")
+    dom = Domain(bucket_size=32, tree_capacity=1024, exchange_mode=mode, comm=comm, device="cpu")
+    state = dom.init_state(box=box, boundaries=(1, 1, 1))
+    pad = torch.zeros(3, CAP)
+    pad[:, :n] = xyz
+    h = torch.where(torch.arange(CAP) < n, H, 0.0)
+    out = []
+    for step in range(SYNCS):
+        x, y, z = ((pad + 0.003 * step) % 1.0).unbind(0)
+        state, res = dom.sync(state, x, y, z, h, n_local=n)
+        counts, _ = cell_list_neighbor_counts(res.keys, res.x, res.y, res.z, res.h, state.box, LEVEL, CELL_CAP,
+                                              n_valid=res.n_with_halos)
+        out.append({**{f: getattr(res, f) for f in FIELDS}, "counts": counts})
+    return out
+
+
+def _wrap_collectives(comm) -> dict:
+    """A CommTally-style count of the comm's collective calls by name,
+    made by wrapping its methods."""
+    calls = dict.fromkeys(COLLECTIVES, 0)
+    for name in COLLECTIVES:
+        real = getattr(comm, name)
+
+        def counted(*args, _name=name, _real=real, **kwargs):
+            calls[_name] += 1
+            return _real(*args, **kwargs)
+
+        setattr(comm, name, counted)
+    return calls
+
+
+class _Passes:
+    """Counts the calls of the loop bodies' functions (the global tree's
+    update_global_octree, the focus tree's focus_update_once), from every
+    thread, while installed."""
+
+    def __init__(self, monkeypatch):
+        self.n = {}
+        for module, name in ((global_tree, "update_global_octree"), (octree_focus, "focus_update_once")):
+            self.n[name] = 0
+            monkeypatch.setattr(module, name, self._counted(name, getattr(module, name)))
+
+    def _counted(self, name, real):
+        def counted(*args, **kwargs):
+            self.n[name] += 1  # the ranks take turns between collectives: one thread at a time
+            return real(*args, **kwargs)
+        return counted
+
+
+@pytest.fixture(scope="module", params=["p2p", "pool"])
+def two_ranks(request):
+    """(mode, each rank's (outputs, tally, the wrapper's collective counts)
+    traced in its own thread, the loop bodies' calls over both ranks, the
+    ranks' untraced outputs)."""
+    mode = request.param
+
+    def rank_fn(comm):
+        calls = _wrap_collectives(comm)
+        with trace.collect() as tally:
+            out = _steps(comm, mode, 2)
+        return out, tally.read(), calls
+
+    with pytest.MonkeyPatch.context() as mp:
+        passes = _Passes(mp)
+        traced = run_ranks(2, rank_fn)
+    plain = run_ranks(2, lambda comm: _steps(comm, mode, 2))
+    return mode, traced, passes.n, plain
+
+
+def _program_ranges(prof) -> list:
+    """(start, end, name) of the host ranges the program's spans opened."""
+    names = {"sync", *STAGES, *CELLLIST} | {f"comm.{c}" for c in COLLECTIVES}
+    return sorted((e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+                  for e in prof.profiler.kineto_results.events() if e.name() in names)
+
+
+def test_off_is_one_null_context_and_the_profiler_sees_no_span():
+    assert trace.span("sync") is trace.span("comm.all_reduce")
+    trace.count("tree.rounds")  # off: nothing to add to
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _steps(None, "p2p", 1)
+    assert _program_ranges(prof) == []
+    with trace.collect() as tally:
+        assert trace.span("sync") is not trace.span("sync")
+    assert tally.read() == {"spans": {}, "counts": {}}
+    assert trace.span("sync") is trace.span("sync.box")  # off again after the block
+
+
+@pytest.mark.parametrize("mode", ["p2p", "pool"])
+def test_stages_open_once_a_sync_in_order_under_sync(mode):
+    with trace.collect() as tally, \
+            torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _steps(None, mode, 1)
+    spans = tally.read()["spans"]
+    for name in ("sync",) + STAGES + CELLLIST:
+        assert spans[name]["calls"] == SYNCS, name
+        assert spans[name]["host_s"] > 0.0, name
+    assert not any(name.startswith("comm.") for name in spans)  # one rank: no collective
+    ranges = _program_ranges(prof)
+    syncs = [(s, e) for s, e, name in ranges if name == "sync"]
+    assert len(syncs) == SYNCS
+    for lo, hi in syncs:
+        inside = [(s, e, name) for s, e, name in ranges if lo <= s and e <= hi and name.startswith("sync.")]
+        assert tuple(name for _, _, name in inside) == STAGES
+    stage_s = sum(spans[name]["host_s"] for name in STAGES)
+    assert stage_s <= spans["sync"]["host_s"]
+
+
+def test_each_rank_thread_keeps_its_own_comm_tally(two_ranks):
+    mode, traced, _, _ = two_ranks
+    for rank, (_, tally, calls) in enumerate(traced):
+        spans = tally["spans"]
+        for name in COLLECTIVES:
+            got = spans.get(f"comm.{name}", {"calls": 0})["calls"]
+            assert got == calls[name], (mode, rank, name)
+        assert sum(calls.values()) > 0
+        for name in ("sync",) + STAGES + CELLLIST:
+            assert spans[name]["calls"] == SYNCS, (mode, rank, name)
+
+
+def test_counters_equal_the_loops_passes(two_ranks):
+    mode, traced, passes, _ = two_ranks
+    # every rank makes the same passes: the loops branch on reduced flags
+    tree, focus = passes["update_global_octree"], passes["focus_update_once"]
+    assert tree > 0 and tree % 2 == 0 and focus > 0 and focus % 2 == 0
+    for _, tally, _ in traced:
+        assert tally["counts"] == {"tree.rounds": tree // 2, "focus.rounds": focus // 2}, mode
+
+
+def test_one_rank_counts_tree_rounds_and_no_focus_rounds(monkeypatch):
+    passes = _Passes(monkeypatch)
+    with trace.collect() as tally:
+        _steps(None, "p2p", 1)  # equal buckets at one rank: fast_focus, no converge loop
+    assert passes.n["focus_update_once"] == 0
+    assert tally.read()["counts"] == {"tree.rounds": passes.n["update_global_octree"]}
+    assert passes.n["update_global_octree"] > 0
+
+
+@pytest.mark.parametrize("mode", ["p2p", "pool"])
+def test_one_rank_outputs_bit_equal_with_tracing_on_and_off(mode):
+    with trace.collect():
+        on = _steps(None, mode, 1)
+    off = _steps(None, mode, 1)
+    _assert_bit_equal(on, off)
+
+
+def test_two_rank_outputs_bit_equal_with_tracing_on_and_off(two_ranks):
+    _, traced, _, plain = two_ranks
+    for (on, _, _), off in zip(traced, plain):
+        _assert_bit_equal(on, off)
+
+
+def _assert_bit_equal(on, off):
+    assert len(on) == len(off) == SYNCS
+    for a, b in zip(on, off):
+        assert a.keys() == b.keys()
+        for k in a:
+            if a[k] is None:
+                assert b[k] is None, k
+            else:
+                assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), k
