@@ -90,8 +90,11 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      outside (both counts printed), halo flags 0 inside and equal to an all-pairs box
      overlap on the card, mark_macs on the card equal to the same function
      on CPU copies of its inputs, every marked node's parent marked, no
-     marked node wholly inside the focus. Prints the converge iterations,
-     batched_mark's levels per call and the ms of the whole build;
+     marked node wholly inside the focus, and its walk's kernel
+     (csrc/mark_macs.cu, one launch a call) equal to the plain walk on the
+     card. Prints the converge iterations, batched_mark's levels per call
+     and the ms of the whole build, then the kernel's launches and ms, the
+     plain walk's ms and tests, and their bound;
   9. path E, 8 ranks of the pool protocol on the one card: phase 4's 1M
      positions, rank r starting from the strided slice r::8, local
      capacity 262,144, Domain(exchange_mode="pool", comm=...) with
@@ -326,6 +329,9 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
 # and bytes / HBM_PEAK for the work of this run's inputs
 FP32_PEAK = 67e12
 HBM_PEAK = 3.35e12
+# FP32 operations of one MAC test of mark_macs's walk: the minimum image,
+# the clamp, the squared norm and the compare
+MAC_OPS = 25
 # FP32 operations the functions need: d2 of a pair = 3 sub + 3 mul + 2 add,
 # once per pair; one compare at each end that tests it (count: d2 < r2;
 # density: the q < 2 cut-off). The run-streaming route's floor(d/L + 1/2)
@@ -1500,6 +1506,7 @@ def let_phase(dev, card, res, state):
     from cstone_tpu_torch.focus import octree_focus
     from cstone_tpu_torch.focus.source_center import geo_mac_spheres
     from cstone_tpu_torch.octree_build import cornerstone_ok
+    from cstone_tpu_torch.ops import mark_macs as mark_kernel
     from cstone_tpu_torch.ops.keys64 import to_numpy, ule
     from cstone_tpu_torch.ops.primitives import searchsorted, segment_max
     from cstone_tpu_torch.sfc.box import Box
@@ -1588,6 +1595,31 @@ def let_phase(dev, card, res, state):
     check(0 < marked.numel() < int(linked.n_nodes), "the marks should be a proper part of the nodes")
     print(f"mark_macs on the final tree: {marked.numel()} of {int(linked.n_nodes)} nodes marked, equal to "
           f"the CPU run; {mark_ms:.3f} ms on the card, {cpu_s:.3f} s on the CPU [{card}]", flush=True)
+
+    # the walk's two versions on the card, on the same prepared arrays: the
+    # kernel (one launch) and the plain breadth-first walk
+    inputs = macs.prepare_marks(linked, centers, box, fs, fe, leaves, n_leaf, True)
+    mark_kernel.reset_launches()
+    walk = lambda: mark_kernel.mark_walk(*inputs, linked.child_offsets, box, 21)  # noqa: E731
+    (kernel_marks, kernel_ms) = timed_ms(walk)
+    kernel_ms = min([kernel_ms] + [timed_ms(walk)[1] for _ in range(4)])
+    launches = mark_kernel.launches()["mark_walk"]
+    tests = []
+    (plain_marks, plain_ms) = timed_ms(lambda: macs.mark_walk_plain(inputs, linked.child_offsets, box, tests))
+    check(launches == 5, f"the MAC walk launched {launches} times in 5 calls")
+    check(torch.equal(kernel_marks, plain_marks) and torch.equal(marks, plain_marks),
+          f"the MAC kernel's marks differ from the plain walk's at "
+          f"{int((kernel_marks != plain_marks).sum())} nodes")
+    n_tests = sum(tests)
+    cap_nodes, cap_focus = linked.child_offsets.shape[0], leaves.shape[0] - 1
+    # node centres, radii, child offsets and levels read, marks written;
+    # target centres, sizes and levels read
+    nbytes = cap_nodes * (16 + 8 + 4) + cap_focus * (12 + 12 + 4)
+    bound_ms, bound_by = bound(n_tests * MAC_OPS, nbytes)
+    print(f"MAC walk on the card: kernel {kernel_ms:.4f} ms (least of 5 launches, {launches} counted), plain "
+          f"walk {plain_ms:.3f} ms, marks equal; the plain walk's tests {n_tests} ({len(tests)} criterion calls); "
+          f"bound {bound_ms:.4f} ms ({bound_by}: {n_tests * MAC_OPS:.3e} FP32 operations, {nbytes} bytes), "
+          f"kernel share {bound_ms / kernel_ms:.4f} [{card}]", flush=True)
 
 
 # ----------------------------------------------------------------------------
@@ -2905,12 +2937,12 @@ def pairwise_bound(name, args):
 
 
 def build_all():
-    """Build the four kernel libraries in parallel, one nvcc each, and the
+    """Build the five kernel libraries in parallel, one nvcc each, and the
     host C++ oracle of path L with g++ beside them."""
     from cstone_tpu_torch import native
-    from cstone_tpu_torch.ops import neighbors_v1, neighbors_v2, stencil
+    from cstone_tpu_torch.ops import mark_macs, neighbors_v1, neighbors_v2, stencil
 
-    libs = (stencil.SYM_LIBRARY, stencil.LIBRARY, neighbors_v2.LIBRARY, neighbors_v1.LIBRARY)
+    libs = (stencil.SYM_LIBRARY, stencil.LIBRARY, neighbors_v2.LIBRARY, neighbors_v1.LIBRARY, mark_macs.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs) + 1) as pool:
         host = pool.submit(native.available)  # path L's oracle, g++ beside the nvcc builds

@@ -4,24 +4,29 @@ include/cstone/traversal/macs.hpp).
 
 The min-distance and vector MAC radii, PBC-aware evaluation, the
 commutative variants used by peer discovery, and mark_macs, which flags
-every tree node that fails the MAC against any focus leaf in one batched
-traversal. The float expressions keep the JAX package's operation order,
-so a node is marked here exactly when it is marked there.
+every tree node that fails the MAC against any focus leaf: a prepare step
+(prepare_marks, torch operations on the tensors' device) and a walk, the
+plain breadth-first one (mark_walk_plain) on the CPU and one launch of
+the depth-first kernel of ops/mark_macs.py on the card. The float
+expressions keep the JAX package's operation order, so a node is marked
+here exactly when it is marked there.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..ops.keys64 import ule
+from ..ops.mark_macs import mark_walk
 from ..sfc.box import Box, IBox, center_and_size
 from ..sfc.encode import HILBERT, sfc_ibox
 from ..sfc.keys import max_tree_level, node_range, tree_level
 from ..tree.octree import LinkedOctree, node_keys_and_levels
+from ..utils import trace
 from .boxoverlap import contained_in_keys, min_distance_boxes, min_distance_point_box
 from .geometry import node_geometry
 from .traversal import batched_mark
@@ -34,6 +39,9 @@ __all__ = [
     "evaluate_mac",
     "min_mac_mutual",
     "min_vec_mac_mutual",
+    "MarkInputs",
+    "prepare_marks",
+    "mark_walk_plain",
     "mark_macs",
 ]
 
@@ -103,17 +111,33 @@ def min_vec_mac_mutual(center_a, size_a, center_b, size_b, box: Box, inv_theta_e
     return (_sum_sq(da) > mac_a * mac_a) & (_sum_sq(db) > mac_b * mac_b)
 
 
-def mark_macs(
+class MarkInputs(NamedTuple):
+    """What mark_macs's walk reads, computed on the tensors' device with no
+    host read (prepare_marks).
+
+    Per target (focus leaf), (cap_focus, ...): t_center, t_size (3
+    components each, the box's float type), max_level (the deepest source
+    level the target may mark), active (the target walks). Per node,
+    (cap_nodes, ...): src_center (3 components), mac_sq (the squared MAC
+    radius), outside (the node is not wholly inside the focus), node_level.
+    """
+
+    t_center: torch.Tensor
+    t_size: torch.Tensor
+    max_level: torch.Tensor
+    active: torch.Tensor
+    src_center: torch.Tensor
+    mac_sq: torch.Tensor
+    outside: torch.Tensor
+    node_level: torch.Tensor
+
+
+def prepare_marks(
     tree: LinkedOctree, centers: torch.Tensor, box: Box, focus_start, focus_end,
     focus_leaves: torch.Tensor, n_focus, limit_source: bool, curve: str = HILBERT,
-) -> torch.Tensor:
-    """Mark every node failing the MAC vs any focus leaf (macs.hpp:228-269).
-
-    centers: (cap_nodes, 4) expansion centers + squared MAC radius.
-    focus_leaves: (cap_focus+1,) cornerstone keys of the focus area.
-    focus_start, focus_end: 0-d key tensors or python ints (key patterns).
-    Returns (cap_nodes,) int32 marks over sorted node indices.
-    """
+) -> MarkInputs:
+    """The targets' and the nodes' arrays of mark_macs (macs.hpp:228-269),
+    its arguments as there."""
     dt = tree.prefixes.dtype
     dev = tree.prefixes.device
     lmax = max_tree_level(dt)
@@ -141,12 +165,46 @@ def mark_macs(
 
     node_start, node_end, node_level = node_keys_and_levels(tree)
     outside = ~(ule(focus_start, node_start) & ule(node_end, focus_end))
-    src_center = centers[:, :3]
-    mac_sq = centers[:, 3]
+    return MarkInputs(t_center, t_size, max_level, active, centers[:, :3], centers[:, 3], outside, node_level)
+
+
+def mark_walk_plain(inputs: MarkInputs, child_offsets: torch.Tensor, box: Box,
+                    tests: Optional[List[int]] = None) -> torch.Tensor:
+    """The walk of mark_macs in plain PyTorch: traversal.batched_mark with
+    the MAC criterion over the prepared arrays, on any device. `tests`, a
+    list, gets the number of (target, node) tests of each criterion call."""
+    t_center, t_size, max_level, active, src_center, mac_sq, outside, node_level = inputs
 
     def criterion(q_ids, node_ids):
+        if tests is not None:
+            tests.append(q_ids.numel())
         violates = evaluate_mac(src_center[node_ids], mac_sq[node_ids], t_center[q_ids], t_size[q_ids], box)
         return outside[node_ids] & violates & (node_level[node_ids] <= max_level[q_ids])
 
-    return batched_mark(tree.child_offsets, criterion, cap_focus, mark_endpoints_only=False,
+    return batched_mark(child_offsets, criterion, t_center.shape[0], mark_endpoints_only=False,
                         active_mask=active)
+
+
+def mark_macs(
+    tree: LinkedOctree, centers: torch.Tensor, box: Box, focus_start, focus_end,
+    focus_leaves: torch.Tensor, n_focus, limit_source: bool, curve: str = HILBERT,
+) -> torch.Tensor:
+    """Mark every node failing the MAC vs any focus leaf (macs.hpp:228-269).
+
+    centers: (cap_nodes, 4) expansion centers + squared MAC radius.
+    focus_leaves: (cap_focus+1,) cornerstone keys of the focus area.
+    focus_start, focus_end: 0-d key tensors or python ints (key patterns).
+    Returns (cap_nodes,) int32 marks over sorted node indices.
+
+    CPU tensors take the plain walk (mark_walk_plain); CUDA tensors one
+    launch of the depth-first kernel (ops/mark_macs.mark_walk), which
+    raises rather than fall back. Neither reads the card back.
+    """
+    with trace.span("macs.mark"):
+        inputs = prepare_marks(tree, centers, box, focus_start, focus_end, focus_leaves, n_focus, limit_source,
+                               curve)
+        if tree.child_offsets.device.type == "cpu":
+            trace.count("macs.plain")
+            return mark_walk_plain(inputs, tree.child_offsets, box)
+        trace.count("macs.kernel")
+        return mark_walk(*inputs, tree.child_offsets, box, max_tree_level(tree.prefixes.dtype))

@@ -3,11 +3,10 @@ stack: batched_mark, batched_collect_leaves and the monopole walk of
 gravity_monopole, held against brute-force references; and equal to
 the JAX walks where the JAX stack holds.
 
-The tree: the node path to the largest key, and at each level on it the
-7 other children, each holding one pair of points at uint64 resolution
-(bucket 1, so each pair makes its node internal). A depth-first walk
-that descends the path keeps 7 siblings pending per level: past 18
-levels more than 128, where the JAX walks drop pushes.
+The tree: tests/deep_tree.py's, the node path to the largest key and
+at each level on it the 7 other children, each holding one pair of
+points (bucket 1); a depth-first walk that descends the path keeps more
+than 128 pushes pending, where the JAX walks drop them.
 
 Tolerance: marks, leaf sets and counts exact; accelerations within 1e-4
 of |a| of a float64 Barnes-Hut sum over the same accepted nodes and P2P
@@ -23,83 +22,24 @@ from cstone_tpu.traversal.traversal import batched_mark as jax_mark
 from cstone_tpu_torch.domain.layout import leaf_layout_from_counts
 from cstone_tpu_torch.focus.source_center import compute_leaf_source_centers, set_mac_radii, upsweep_centers
 from cstone_tpu_torch.models.nbody import gravity_monopole
-from cstone_tpu_torch.ops.keys64 import usort
-from cstone_tpu_torch.sfc import compute_sfc_keys, make_box
-from cstone_tpu_torch.sfc.hilbert import decode_hilbert
 from cstone_tpu_torch.traversal.boxoverlap import min_distance_boxes, min_distance_point_box
 from cstone_tpu_torch.traversal.geometry import node_geometry
 from cstone_tpu_torch.traversal.traversal import batched_collect_leaves, batched_mark
-from cstone_tpu_torch.tree.csarray import compute_octree
-from cstone_tpu_torch.tree.octree import build_linked_octree
 
 import torch_threads  # noqa: F401  (two intra-op threads per xdist worker)
-
-LMAX = 21
-
-
-def _key(digits):
-    """uint64 Hilbert key (as int) whose top octal digits are `digits`."""
-    k = 0
-    for d in digits:
-        k = (k << 3) | d
-    return k << 3 * (LMAX - len(digits))
-
-
-def _deep_sample(depth):
-    """Points of the deep tree: the pair of keys 7...7 (the path to the
-    largest key), and for l = 1..depth and each digit k < 7 a pair below
-    the path node of level l - 1: (7,)*(l-1) + (k,) then (0, 0) or (0, 1)."""
-    keys = [_key([7] * LMAX), _key([7] * (LMAX - 1) + [6])]
-    for level in range(1, depth + 1):
-        for k in range(7):
-            head = [7] * (level - 1) + [k]
-            tail = ([0, 0], [0, 1]) if level + 2 <= LMAX else ([0], [1])
-            keys += [_key(head + t) for t in tail]
-    ix, iy, iz = decode_hilbert(torch.tensor(keys, dtype=torch.int64))
-    pos = torch.stack([(c.double() + 0.5) / (1 << LMAX) for c in (ix, iy, iz)], -1).float()
-    return pos
-
-
-def _tree(pos, capacity=8192):
-    box = make_box(0.0, 1.0, device="cpu")
-    keys, order = usort(compute_sfc_keys(pos[:, 0], pos[:, 1], pos[:, 2], box, np.uint64))
-    pos = pos[order]
-    tree = compute_octree(keys, bucket_size=1, capacity=capacity)
-    linked = build_linked_octree(tree.keys, tree.n_nodes)
-    return pos, box, tree, linked
-
-
-def _reach(linked, crit_matrix):
-    """(n_q, cap_nodes) bool: the node and all its ancestors pass."""
-    co = linked.child_offsets
-    nn = int(linked.n_nodes)
-    parent = torch.zeros(co.shape[0], dtype=torch.int64)
-    internal = torch.nonzero((co > 0) & (torch.arange(co.shape[0]) < nn))[:, 0]
-    for k in range(8):
-        parent[co[internal] + k] = internal
-    reach = crit_matrix.clone()
-    for _ in range(LMAX + 2):
-        reach = crit_matrix & reach[:, parent]
-    reach[:, nn:] = False
-    return reach
-
-
-def _all_pairs(n_q, cap_nodes):
-    q = torch.arange(n_q).repeat_interleave(cap_nodes)
-    node = torch.arange(cap_nodes).repeat(n_q)
-    return q, node
+from deep_tree import all_pairs, deep_sample, deep_tree, passes_to_root
 
 
 @pytest.fixture(scope="module")
 def deep():
-    pos, box, tree, linked = _tree(_deep_sample(20))
+    pos, box, tree, linked = deep_tree(deep_sample(20))
     centers, sizes = node_geometry(linked, box)
     return pos, box, tree, linked, centers, sizes
 
 
 @pytest.fixture(scope="module")
 def shallow():
-    pos, box, tree, linked = _tree(_deep_sample(12))
+    pos, box, tree, linked = deep_tree(deep_sample(12))
     centers, sizes = node_geometry(linked, box)
     return pos, box, tree, linked, centers, sizes
 
@@ -142,7 +82,7 @@ def test_batched_mark_on_the_deep_tree_matches_brute_force(deep, endpoints):
     _, _, _, linked, centers, sizes = deep
     n_q, cap_nodes = 9, linked.child_offsets.shape[0]
     tcrit, _ = _query_crit(centers, sizes, n_q, 3e-4, 1)
-    reach = _reach(linked, tcrit(*_all_pairs(n_q, cap_nodes)).reshape(n_q, cap_nodes))
+    reach = passes_to_root(linked, tcrit(*all_pairs(n_q, cap_nodes)).reshape(n_q, cap_nodes))
     leaf = linked.child_offsets == 0
     want = (reach & leaf).any(0) if endpoints else reach.any(0)
     marks = batched_mark(linked.child_offsets, tcrit, n_q, mark_endpoints_only=endpoints)
@@ -154,7 +94,7 @@ def test_collect_leaves_on_the_deep_tree_matches_brute_force(deep):
     _, _, _, linked, centers, sizes = deep
     n_q, cap_nodes = 9, linked.child_offsets.shape[0]
     tcrit, _ = _query_crit(centers, sizes, n_q, 3e-4, 2)
-    reach = _reach(linked, tcrit(*_all_pairs(n_q, cap_nodes)).reshape(n_q, cap_nodes))
+    reach = passes_to_root(linked, tcrit(*all_pairs(n_q, cap_nodes)).reshape(n_q, cap_nodes))
     want = reach & (linked.child_offsets == 0)
     leaves, counts = batched_collect_leaves(linked.child_offsets, tcrit, n_q, cap_nodes)
     assert torch.equal(counts, want.sum(1))
@@ -193,12 +133,12 @@ def _bh_brute(pos, m, linked, layout, centers, mac_sq, box, group_size):
     gmin = torch.where(valid[..., None], gpos, big).amin(1)
     gmax = torch.where(valid[..., None], gpos, -big).amax(1)
     gc, gs = (gmin + gmax) * 0.5, (gmax - gmin) * 0.5
-    q, node = _all_pairs(n_groups, cap_nodes)
+    q, node = all_pairs(n_groups, cap_nodes)
     d = min_distance_point_box(centers[node, :3], gc[q], gs[q], box)
     fails = ((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]) < mac_sq[node]).reshape(n_groups,
                                                                                                cap_nodes)
     nn = int(linked.n_nodes)
-    reach_fail = _reach(linked, fails)
+    reach_fail = passes_to_root(linked, fails)
     co = linked.child_offsets
     parent = torch.zeros(cap_nodes, dtype=torch.int64)
     internal = torch.nonzero((co > 0) & (torch.arange(cap_nodes) < nn))[:, 0]
