@@ -21,6 +21,13 @@ single-level pass at levels[0] bit for bit.
 The JAX version maps results back with three sorts (TPU scatters are
 slow); the port scatters integer counts with index_add_, which gives the
 same integers.
+
+Traced (utils/trace.py, off unless the thread collects): the spans
+tiered.partition, tiered.pack (each tier packed), tiered.same (each B1
+pass), tiered.cross (each B3 pass alone) and tiered.scatter (each scatter
+back); the counters tiered.tiers, tiered.cross_passes and tiered.slots,
+the ELL slots packed (cap x 8^level summed over the packs, known on the
+host): what the padding of clustered data costs.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from ..ops.stencil import stencil_counts, stencil_cross
 from ..sfc.box import Box
 from ..sfc.encode import HILBERT
 from ..sfc.keys import max_tree_level
+from ..utils import trace
 from .celllist import ell_pack_gather, rowmajor_cell_perm
 
 __all__ = [
@@ -165,32 +173,45 @@ def cell_list_neighbor_counts_tiered(
     cap, the result is invalid)."""
     T = len(levels)
     periodic = tuple(int(b) == 1 for b in box.boundaries)
-    orig_s, tier_s, keys_s, fields = _partition(keys_sorted, xs, ys, zs, hs, box, levels, n_valid)
-    total = torch.zeros(keys_sorted.shape[0], dtype=torch.int32, device=keys_sorted.device)
+    with trace.span("tiered.partition"):
+        orig_s, tier_s, keys_s, fields = _partition(keys_sorted, xs, ys, zs, hs, box, levels, n_valid)
+        total = torch.zeros(keys_sorted.shape[0], dtype=torch.int32, device=keys_sorted.device)
+    trace.count("tiered.tiers", T)
+    trace.count("tiered.cross_passes", T * (T - 1) // 2)
 
     def scatter_add(vals_ell, valid, pidx):
-        total.index_add_(0, pidx[valid], vals_ell[valid])
+        with trace.span("tiered.scatter"):
+            total.index_add_(0, pidx[valid], vals_ell[valid])
+
+    def pack(t, level, cap):
+        trace.count("tiered.slots", cap << (3 * level))
+        with trace.span("tiered.pack"):
+            return _pack_tier(keys_s, tier_s, fields, t, level, cap, curve)
 
     overflow = torch.zeros((), dtype=torch.bool, device=keys_sorted.device)
     packs = []  # per tier: (ELL at its own level, pidx)
     for t in range(T):
-        ell, pidx, ovf = _pack_tier(keys_s, tier_s, fields, t, levels[t], caps[t], curve)
+        ell, pidx, ovf = pack(t, levels[t], caps[t])
         overflow = overflow | ovf
         packs.append((ell, pidx))
-        scatter_add(stencil_counts(*ell, box.lengths, periodic, levels[t]), ell[4], pidx)
+        with trace.span("tiered.same"):
+            same = stencil_counts(*ell, box.lengths, periodic, levels[t])
+        scatter_add(same, ell[4], pidx)
+        del same  # freed before the next pack, as an unnamed result would be
 
     # cross passes at the coarser level: targets reuse tier a's pack, tier
     # b is packed again at level_a as the candidate set
     for a in range(T):
         for b in range(a + 1, T):
-            ell_b, pidx_b, ovf_b = _pack_tier(keys_s, tier_s, fields, b, levels[a],
-                                              cross_caps[(a, b)], curve)
+            ell_b, pidx_b, ovf_b = pack(b, levels[a], cross_caps[(a, b)])
             overflow = overflow | ovf_b
             ell_a, pidx_a = packs[a]
-            add_a, add_b = stencil_cross(ell_a, ell_b, box.lengths, periodic, levels[a])
+            with trace.span("tiered.cross"):
+                add_a, add_b = stencil_cross(ell_a, ell_b, box.lengths, periodic, levels[a])
             scatter_add(add_a, ell_a[4], pidx_a)
             scatter_add(add_b, ell_b[4], pidx_b)
 
-    counts = torch.empty_like(total)
-    counts[orig_s] = total  # back to the caller's (key-sorted) order
+    with trace.span("tiered.scatter"):
+        counts = torch.empty_like(total)
+        counts[orig_s] = total  # back to the caller's (key-sorted) order
     return counts, overflow
