@@ -6,9 +6,9 @@
 Phases, each printed as it runs; any failure raises and exits non-zero:
   1. card: nvidia-smi name and power limit, torch's device name; refuses
      to run without CUDA (there is no CPU fallback);
-  2. build: compiles the four kernel sources (csrc/stencil_sym.cu,
-     stencil.cu, neighbors_v2.cu, neighbors_v1.cu) with nvcc, one process
-     each, all started together, and prints ptxas' registers, shared
+  2. build: compiles the six kernel sources (csrc/stencil_sym.cu,
+     stencil.cu, neighbors_v2.cu, neighbors_v1.cu, mark_macs.cu, sfc.cu)
+     with nvcc, one process each, all started together, and prints ptxas' registers, shared
      memory and spills per kernel;
   3. kernel vs plain version on the card: B1/B2 (the half-stencil kernel)
      at levels 3 and 5, cap 64, periodic and open, uniform and Gaussian,
@@ -179,7 +179,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      direct sums over all 1M sources on the card the median relative
      error below 2e-2 and the 95th percentile below 0.2. Prints the ms of
      the sync, the centres, the call and, apart, its P2P leaf walk,
-     monopole walk and P2P sums. Path I launches no kernel.
+     monopole walk and P2P sums. Path I launches none of B1-B6; its
+     syncs encode their keys through K1.
  14. path J, the dense p2p protocol over a peer window: (a) path F's
      inputs, capacities and steps on LET_RANKS thread ranks with
      Domain(peer_window=W), the cold step grown from W = 1 by
@@ -236,7 +237,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      bytes and the 8-rank wall. Then Halos (one rank),
      exchange_focus_quantities (8 ranks), ParticleFields and a
      checkpoint round trip of a DomainState on the card, each equal
-     to the same call on the CPU. Paths L and M launch no kernel.
+     to the same call on the CPU. Paths L and M launch none of B1-B6
+     (checked); their keys go through K1 (sfc_encode > 0, checked).
  17. path N, cstone_tpu_torch.multichip's grav steps mode (the per-rank
      body of `multichip --steps --grav`, which runs one rank a card over
      NCCL on four cards) on GRAV_PROC_RANKS (4) rank processes that
@@ -254,9 +256,24 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      of the float64 centre of mass, the p2p modes equal to pool slot for
      slot. Prints the 4-process sync wall, per-rank sync and centres ms,
      rounds and bytes, halo particles and the readings. Like path M it
-     launches no kernel (the JAX package's syncGrav path calls none):
-     every rank's launch counts must be 0.
-Each path's launch counts are set to 0 just before it is driven and read
+     launches none of B1-B6 (the JAX package's syncGrav path calls none):
+     every rank's counts of them must be 0, its K1 encodes above 0.
+ 18. the Hilbert key codec (csrc/sfc.cu, K1) at the main path's shapes:
+     CODEC_N uniform float32 particles in the periodic unit box encoded
+     to uint64 keys (compute_sfc_keys, as Domain.sync's sync.keys does),
+     and those keys decoded (decode_sfc); K1's integer encode as its
+     callers launch it (sfc_grid_checks): isfc_key on int64 coordinates
+     in and around the grid, as the extended and halo boxes of
+     macs.prepare_marks and collisions.find_halos give, contained_in_keys
+     on CONTAIN_N extended node boxes, isfc_key_top at every level count
+     cover.py may ask for. Checks each result bit-equal to the plain
+     codec (encode._grid_coords and sfc/hilbert.py) run on the card, or
+     to the same call on the CPU, and one launch a call. Prints each
+     kernel's ms (device time of
+     CODEC_REPS queued calls, device_time_ms), its bound (bytes over 3.35
+     TB/s), the integer operations as the source writes them and their
+     time at INT32_PEAK, and the plain codec's ms (one warm call).
+Each path's launch counts (B1-B6 and K1's sfc_encode, sfc_decode) are set to 0 just before it is driven and read
 just after (paths E and F each over their 4 steps; path G in each rank
 process, summed; path H over its two routes; path J over (a), plus (b)'s
 processes). Every kernel's bound is the larger of its FP32 operations over
@@ -329,6 +346,18 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
 # and bytes / HBM_PEAK for the work of this run's inputs
 FP32_PEAK = 67e12
 HBM_PEAK = 3.35e12
+# 32-bit integer operations: 64 lanes an SM (four partitions of 16), 132
+# SMs at the 1.98 GHz boost clock (the Hopper white paper's SM)
+INT32_PEAK = 132 * 64 * 1.98e9
+# phase 18: the codec at the main path's 2M particles. Integer operations a
+# round as the source writes them (bit extracts, octant and digit, the
+# key's shift-add, reflection masks and xors, rotate-or-swap selects): the
+# compiler fuses three-input logic into one instruction, so their time at
+# INT32_PEAK is printed beside the bound, not taken as one
+CODEC_N = 2_000_000
+CONTAIN_N = 299_593  # the nodes of a rank's tree in the 4-card cell: the boxes macs.prepare_marks tests
+CODEC_REPS = 20
+OPS_ENCODE_ROUND, OPS_DECODE_ROUND = 39, 48
 # FP32 operations of one MAC test of mark_macs's walk: the minimum image,
 # the clamp, the squared norm and the compare
 MAC_OPS = 25
@@ -500,16 +529,24 @@ def plain_of(name):
 
 
 def all_launches() -> dict:
-    from cstone_tpu_torch.ops import neighbors_v1, neighbors_v2, stencil
+    from cstone_tpu_torch.ops import neighbors_v1, neighbors_v2, sfc_codec, stencil
 
-    return {**stencil.launches(), **neighbors_v2.launches(), **neighbors_v1.launches()}
+    return {**stencil.launches(), **neighbors_v2.launches(), **neighbors_v1.launches(),
+            **{f"sfc_{k}": v for k, v in sfc_codec.launches().items()}}
 
 
 def reset_all_launches() -> None:
-    from cstone_tpu_torch.ops import neighbors_v1, neighbors_v2, stencil
+    from cstone_tpu_torch.ops import neighbors_v1, neighbors_v2, sfc_codec, stencil
 
-    for mod in (stencil, neighbors_v2, neighbors_v1):
+    for mod in (stencil, neighbors_v2, neighbors_v1, sfc_codec):
         mod.reset_launches()
+
+
+def no_cell_list_kernel(launches: dict, what: str) -> None:
+    """A path that launches none of B1-B6 and encodes its keys through K1."""
+    launched = {k: v for k, v in launches.items() if v and not k.startswith("sfc_")}
+    check(not launched, f"{what} launched {launched}")
+    check(launches["sfc_encode"] > 0, f"{what} encoded no keys through K1: {launches}")
 
 
 class Errors:
@@ -925,6 +962,7 @@ def main_path_phase(dev, card):
     print(f"phase 4 launches: {json.dumps(launches)}", flush=True)
     for k in ("stencil_counts", "stencil_density"):
         check(launches[k] > 0, f"{k} was not launched on its main path: {launches}")
+    check(launches["sfc_encode"] >= 1 + DRIFT_STEPS + SPH_STEPS, f"K1 should encode once a sync at least: {launches}")
 
     # kernels vs plain versions on the main path's own last inputs
     planes = ell_inputs(sres.keys, sres.x, sres.y, sres.z, sres.h, sph.domain.box, LEVEL, CAP,
@@ -1393,7 +1431,7 @@ def focus_tree_phase(dev, card):
 
     def add_launches(before):
         for k, v in all_launches().items():
-            launches[k] += v - before[k]
+            launches[k] = launches.get(k, 0) + v - before[k]
 
     def same_as_phase_4(out, what):
         (rc, cc), (r4, c4) = out["C"][:2], out["4"][:2]
@@ -1788,6 +1826,8 @@ def ranks_phase(dev, card, reference, tree_cap, mode, path_e=None):
           f"{peak} bytes [{card}]", flush=True)
     for k in ("stencil_counts", "stencil_density"):
         check(launches[k] == R * (1 + POOL_DRIFT_STEPS), f"{k} should launch once per rank and step: {launches}")
+    check(launches["sfc_encode"] >= R * (1 + POOL_DRIFT_STEPS), f"K1 should encode once a rank's sync at least: "
+          f"{launches}")
     if path_e is not None:
         print(f"8-rank sync wall ms, cold then drift steps: path E {json.dumps([round(t, 3) for t in path_e['walls']])}, "
               f"path F {json.dumps([round(t, 3) for t in walls])} [{card}]", flush=True)
@@ -2582,6 +2622,7 @@ def octree_phase(dev, card) -> dict:
     from cstone_tpu_torch import octree_build as ob
 
     out = {}
+    reset_all_launches()
     for name, n, kdt, curve in OCTREE_CONFIGS:
         what = f"path L, {name}"
         torch.cuda.empty_cache()
@@ -2610,6 +2651,9 @@ def octree_phase(dev, card) -> dict:
             rec["leaves_ms"] = octree_leaves_phase(dev, card, run, curve)
         out[name] = rec
         del run
+    launches = all_launches()
+    print(f"path L launches: {json.dumps(launches)}", flush=True)
+    no_cell_list_kernel(launches, "path L")
     return out
 
 
@@ -2714,6 +2758,7 @@ def grav_ranks_phase(dev, card, tree_cap) -> dict:
     from cstone_tpu_torch.parallel import run_ranks
 
     R = LET_RANKS
+    reset_all_launches()
     setup = gr.grav_setup(N, dev, H, SEED)
     t0 = time.perf_counter()
     ref, ref_caps = gr.grav_steps(None, setup, {"tree": tree_capacity(N)}, None, GRAV_DRIFT_STEPS, BUCKET, GRAV_THETA)
@@ -2765,6 +2810,9 @@ def grav_ranks_phase(dev, card, tree_cap) -> dict:
               f"{GRAV_DRIFT_STEPS} drift steps with update_expansion_centers; peak memory allocated {peak} bytes"
               + ("; every rank equal to pool at every step" if mode == "p2p" else "") + f" [{card}]", flush=True)
         runs[mode] = steps
+    launches = all_launches()
+    print(f"path M launches: {json.dumps(launches)}", flush=True)
+    no_cell_list_kernel(launches, "path M")
     grav_leaves_phase(dev, card, ref[0], runs["p2p"][-1])
     return runs
 
@@ -2791,11 +2839,12 @@ def grav_processes_phase(dev, card) -> dict:
                        deadline=900.0)
     seconds = time.perf_counter() - t0
     summary = multichip.report_grav(recs, cfg, "gloo", seconds, tag="path N, ")
-    launched = {k: v for rec in recs for k, v in rec["launches"].items() if v}
-    check(not launched, f"path N: the rank processes launched kernels {launched}; syncGrav calls none")
+    for rec in recs:
+        no_cell_list_kernel(rec["launches"], f"path N, rank {rec['rank']}")
     print(f"path N: {R} rank processes on the card over gloo, {N} particles, modes {cfg['modes']}, a cold and "
           f"{GRAV_DRIFT_STEPS} drift step each, every rank's every step held: {seconds:.3f} s, the rank processes' "
-          f"start included; kernel launches 0 [{card}]", flush=True)
+          f"start included; B1-B6 launches 0, K1 encodes per rank "
+          f"{json.dumps([rec['launches']['sfc_encode'] for rec in recs])} [{card}]", flush=True)
     return summary
 
 
@@ -2936,13 +2985,142 @@ def pairwise_bound(name, args):
     return bound(pairs * (OPS_D2 + OPS_CMP), nbytes)
 
 
+def sfc_codec_phase(dev, card) -> dict:
+    """Phase 18: the Hilbert key codec's kernel against the plain codec on
+    the card at CODEC_N particles, uint64 keys; returns the times."""
+    import torch
+
+    from cstone_tpu_torch.ops import sfc_codec
+    from cstone_tpu_torch.sfc import PERIODIC, compute_sfc_keys, make_box
+    from cstone_tpu_torch.sfc import hilbert
+    from cstone_tpu_torch.sfc.encode import _grid_coords, _grid_scale, decode_sfc
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x, y, z = torch.rand(3, CODEC_N, device=dev, generator=g).unbind(0)
+    box = make_box(0.0, 1.0, boundaries=PERIODIC, device=dev)
+    sfc_codec.reset_launches()
+    encode = lambda: compute_sfc_keys(x, y, z, box, np.uint64)  # noqa: E731
+    plain_encode = lambda: hilbert.ihilbert(*_grid_coords(x, y, z, box, np.uint64), np.uint64)  # noqa: E731
+    keys = encode()
+    coords = decode_sfc(keys)
+    check(sfc_codec.launches() == {"encode": 1, "decode": 1},
+          f"the codec launched {sfc_codec.launches()} for one encode and one decode")
+    # the plain codec's first calls, which also load torch's kernels
+    plain_keys, plain_coords = plain_encode(), hilbert.decode_hilbert(keys)
+    check(torch.equal(keys, plain_keys), f"the codec's keys differ from the plain codec's at "
+          f"{int((keys != plain_keys).sum())} of {CODEC_N} particles")
+    check(all(torch.equal(a, b) for a, b in zip(coords, plain_coords)),
+          "the codec's decode differs from the plain codec's")
+    sfc_grid_checks(dev, card)
+    plain_encode_ms = timed_ms(plain_encode)[1]
+    plain_decode_ms = timed_ms(lambda: hilbert.decode_hilbert(keys))[1]
+    # device time of the launches alone: the host issues a call's few
+    # torch operations more slowly than the card runs the kernel
+    scale = torch.cat(_grid_scale(box, torch.float32, np.uint64))
+    encode_ms = device_time_ms(lambda: sfc_codec.encode_coords(x, y, z, scale, np.uint64), CODEC_REPS)
+    decode_ms = device_time_ms(lambda: sfc_codec.decode(keys), CODEC_REPS)
+    out = {}
+    for what, ms, plain_ms, nbytes, ops in (
+            ("encode", encode_ms, plain_encode_ms, CODEC_N * (3 * 4 + 8), CODEC_N * 21 * OPS_ENCODE_ROUND),
+            ("decode", decode_ms, plain_decode_ms, CODEC_N * (8 + 3 * 8), CODEC_N * 21 * OPS_DECODE_ROUND)):
+        bound_ms, ops_ms = nbytes / HBM_PEAK * 1e3, ops / INT32_PEAK * 1e3
+        print(f"K1 {what} at {CODEC_N} particles, uint64 keys: kernel {ms:.4f} ms (device time of {CODEC_REPS} "
+              f"queued calls), bound {bound_ms:.4f} ms (bytes: {nbytes}), share {bound_ms / ms:.4f}; integer operations "
+              f"as written {ops:.3e}, {ops_ms:.4f} ms at INT32_PEAK; plain codec {plain_ms:.3f} ms (one warm "
+              f"call); bit-equal [{card}]", flush=True)
+        out[what] = {"kernel_ms": ms, "bound_ms": bound_ms, "ops_ms": ops_ms, "plain_ms": plain_ms}
+    return out
+
+
+def sfc_grid_checks(dev, card) -> None:
+    """Phase 18: K1's integer encode (encode_grid) as its callers launch
+    it, uint32 and uint64 keys, each call one launch and bit-equal to the
+    plain rounds on the card (or, for contained_in_keys, to the same call
+    on the CPU): isfc_key on CODEC_N int64 coordinates from -cube to
+    2 cube - 1, the 7^3 combinations of the grid's edges and their
+    neighbours first; contained_in_keys on the boxes of CONTAIN_N random
+    nodes extended by one cell, as macs.prepare_marks makes them (those at
+    the grid's faces reach -1 and cube), and by a halo radius of up to 1/8
+    of the box, as collisions.find_halos' make_halo_box does in a
+    periodic box; isfc_key_top at every level count with 3*levels <= 30
+    on cell corners as cover.py makes them (coordinate << shift)."""
+    import torch
+
+    from cstone_tpu_torch.ops import sfc_codec
+    from cstone_tpu_torch.sfc import hilbert, isfc_key
+    from cstone_tpu_torch.sfc.box import IBox
+    from cstone_tpu_torch.sfc.encode import isfc_key_top, sfc_ibox
+    from cstone_tpu_torch.sfc.keys import max_tree_level
+    from cstone_tpu_torch.traversal.boxoverlap import contained_in_keys
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+
+    def launched(fn, encodes, what):
+        before = sfc_codec.launches()["encode"]
+        out = fn()
+        check(sfc_codec.launches()["encode"] == before + encodes, f"{what}: {encodes} encode launches expected, "
+              f"{sfc_codec.launches()['encode'] - before} made")
+        return out
+
+    outside, inside = {}, {}
+    for kdt in (np.uint32, np.uint64):
+        lmax = max_tree_level(kdt)
+        cube = 1 << lmax
+        c = torch.randint(-cube, 2 * cube, (3, CODEC_N), device=dev, generator=g)
+        edges = torch.tensor([-cube, -1, 0, 1, cube - 1, cube, 2 * cube - 1], device=dev)
+        corners = torch.stack(torch.meshgrid(edges, edges, edges, indexing="ij")).reshape(3, -1)
+        c[:, :corners.shape[1]] = corners
+        keys = launched(lambda: isfc_key(*c, kdt), 1, f"isfc_key, {kdt.__name__}")
+        check(torch.equal(keys, hilbert.ihilbert(*c, kdt)),
+              f"isfc_key, {kdt.__name__}: the codec's keys differ from the plain codec's at "
+              f"{int((keys != hilbert.ihilbert(*c, kdt)).sum())} of {CODEC_N} coordinates")
+
+        # random nodes: the start key of a random cell's level-lvl ancestor
+        lvl = torch.randint(1, lmax + 1, (CONTAIN_N,), device=dev, generator=g)
+        cell = hilbert.ihilbert(*torch.randint(0, cube, (3, CONTAIN_N), device=dev, generator=g), kdt)
+        start = cell.to(torch.int64) & ~((torch.ones_like(lvl) << 3 * (lmax - lvl)) - 1)
+        node = sfc_ibox(start.to(keys.dtype), lvl)
+        radius = torch.randint(0, cube // 8 + 1, (CONTAIN_N,), device=dev, generator=g)
+        boxes = {"extended": IBox(node.xmin - 1, node.xmax + 1, node.ymin - 1, node.ymax + 1, node.zmin - 1,
+                                  node.zmax + 1),
+                 "halo": IBox(node.xmin - radius, node.xmax + radius, node.ymin - radius, node.ymax + radius,
+                              node.zmin - radius, node.zmax + radius)}
+        span = 1 << 3 * lmax
+        for name, box in boxes.items():
+            lo = torch.minimum(torch.minimum(box.xmin, box.ymin), box.zmin)
+            hi = torch.maximum(torch.maximum(box.xmax, box.ymax), box.zmax)
+            outside[f"{name} {kdt.__name__}"] = int(((lo < 0) | (hi > cube)).sum())
+            on_cpu = IBox(*(getattr(box, f).cpu() for f in ("xmin", "xmax", "ymin", "ymax", "zmin", "zmax")))
+            for first, last in ((span // 4, span // 2), (0, span // 2)):
+                got = launched(lambda: contained_in_keys(box, first, last, kdt), 2,
+                               f"contained_in_keys, {name} boxes, {kdt.__name__}")
+                want = contained_in_keys(on_cpu, first, last, kdt)
+                check(torch.equal(got.cpu(), want), f"contained_in_keys, {name} boxes, {kdt.__name__}, range "
+                      f"[{first}, {last}): the card and the CPU differ at {int((got.cpu() != want).sum())} boxes")
+                inside[f"{name} {kdt.__name__} [{first}, {last})"] = int(want.sum())
+
+        # cell corners at full resolution: a coordinate at resolution
+        # `shift` bits coarser, shifted back up
+        shift = torch.randint(0, lmax + 1, (CODEC_N,), device=dev, generator=g)
+        top = [torch.randint(0, cube, (CODEC_N,), device=dev, generator=g) >> shift << shift for _ in range(3)]
+        for levels in range(0, min(lmax, 10) + 1):
+            got = launched(lambda: isfc_key_top(*top, levels, lmax), 1, f"isfc_key_top, levels {levels}")
+            check(torch.equal(got, hilbert.ihilbert_top(*top, levels, lmax)),
+                  f"isfc_key_top, {kdt.__name__}, levels {levels}: the codec differs from the plain codec")
+    print(f"K1 integer encode, uint32 and uint64 keys: isfc_key on {CODEC_N} int64 coordinates in [-cube, 2 cube) "
+          f"and contained_in_keys on {CONTAIN_N} node boxes (boxes reaching outside the grid: "
+          f"{json.dumps(outside)}; inside the range: {json.dumps(inside)}) over two key ranges, each bit-equal to the plain codec; isfc_key_top at levels "
+          f"0-10 bit-equal; one launch an encode [{card}]", flush=True)
+
+
 def build_all():
-    """Build the five kernel libraries in parallel, one nvcc each, and the
+    """Build the six kernel libraries in parallel, one nvcc each, and the
     host C++ oracle of path L with g++ beside them."""
     from cstone_tpu_torch import native
-    from cstone_tpu_torch.ops import mark_macs, neighbors_v1, neighbors_v2, stencil
+    from cstone_tpu_torch.ops import mark_macs, neighbors_v1, neighbors_v2, sfc_codec, stencil
 
-    libs = (stencil.SYM_LIBRARY, stencil.LIBRARY, neighbors_v2.LIBRARY, neighbors_v1.LIBRARY, mark_macs.LIBRARY)
+    libs = (stencil.SYM_LIBRARY, stencil.LIBRARY, neighbors_v2.LIBRARY, neighbors_v1.LIBRARY, mark_macs.LIBRARY,
+            sfc_codec.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs) + 1) as pool:
         host = pool.submit(native.available)  # path L's oracle, g++ beside the nvcc builds
@@ -3026,6 +3204,9 @@ def main():
 
     phase("17 path N: multichip's grav steps mode on 4 rank processes over gloo, four modes, against one card")
     grav_processes_phase(dev, card)
+
+    phase("18 the Hilbert key codec (K1) at the main path's shapes")
+    sfc_codec_phase(dev, card)
 
     for e in (err4, err5, err6, err7, err9, err10, err11, err12, err14):
         for k, v in e.max.items():

@@ -87,7 +87,9 @@ holds its own steps (grav_ranks.rank_checks), raising otherwise: overflow
 and MAC spheres within rtol 1e-5 of the one-card run, every other node's
 centre within 16 rounding units of the float64 centre of mass, the p2p
 modes equal to pool slot for slot. No simulation loop follows; syncGrav
-launches no kernel.
+launches none of the cell-list kernels, and on a card encodes and
+decodes its keys through the key codec (`sfc_encode`, `sfc_decode` in
+the launch counts).
 """
 
 from __future__ import annotations
@@ -605,9 +607,10 @@ def cold_step(comm, setup: dict, caps: dict, mode: str, protocol: str, window: i
 
 
 def _kernel_launches() -> dict:
-    from .ops import neighbors_v1, neighbors_v2, stencil
+    from .ops import neighbors_v1, neighbors_v2, sfc_codec, stencil
 
-    return {**stencil.launches(), **neighbors_v2.launches(), **neighbors_v1.launches()}
+    return {**stencil.launches(), **neighbors_v2.launches(), **neighbors_v1.launches(),
+            **{f"sfc_{k}": v for k, v in sfc_codec.launches().items()}}
 
 
 def hold_to_plain(calls, what: str) -> dict:
@@ -1223,8 +1226,8 @@ def grav_rank(comm, cfg: dict, device=None) -> dict:
     `device`, else the comm's (a rank process's DistComm names one), else
     the card (resolve_device: a thread rank of run_ranks runs on the CPU
     only when the caller names it). Returns the rank's numbers and the
-    kernel launches counted in the run (none: syncGrav calls no
-    kernel)."""
+    kernel launches counted in the run (syncGrav calls none of the
+    cell-list kernels; on a card its keys go through the key codec)."""
     from . import grav_ranks as gr
     from .utils.device import resolve_device
 
@@ -1370,7 +1373,7 @@ def _main_steps(args) -> int:
             return recs
 
         with _leave_on_failure():
-            if comm.device.type == "cuda" and not args.grav:  # syncGrav launches no kernel
+            if comm.device.type == "cuda" and not args.grav:  # syncGrav runs none of these kernels
                 load_kernels(comm, int(os.environ.get("LOCAL_RANK", comm.rank)) == 0)
             rec = rank_fn(comm, cfg)
             recs = gathered(rec)

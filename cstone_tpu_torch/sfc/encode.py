@@ -1,7 +1,16 @@
 """Float coordinates -> Morton/Hilbert keys and back to integer boxes
 (counterpart of cstone_tpu/sfc/encode.py; reference:
 include/cstone/sfc/sfc.hpp:157-292).
-The default curve is Hilbert, like the reference (sfc.hpp:55)."""
+The default curve is Hilbert, like the reference (sfc.hpp:55).
+
+The Hilbert codec (isfc_key, isfc_key_top, decode_sfc, sfc3d) runs on
+CUDA tensors as one launch of csrc/sfc.cu (ops/sfc_codec.py) and on CPU
+tensors as sfc/hilbert.py's plain rounds, which the kernel equals bit for
+bit; the input's device chooses, and each call counts its route in the
+trace counters `sfc.kernel` and `sfc.plain` (a call, launched or not: an
+empty input on the card counts `sfc.kernel` and launches nothing). Morton
+keeps its torch code.
+"""
 
 from __future__ import annotations
 
@@ -10,6 +19,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..ops import sfc_codec
+from ..ops.keys64 import torch_key_dtype
+from ..utils import trace
 from . import hilbert as _hilbert
 from . import morton as _morton
 from .box import Box, IBox, pbc_adjust
@@ -24,11 +36,22 @@ MORTON = "morton"
 HILBERT = "hilbert"
 
 
+def _hilbert_on_card(t: torch.Tensor) -> bool:
+    """Whether a Hilbert codec call on `t` launches the kernel (a CUDA
+    tensor) or runs the plain rounds; counts the route."""
+    on_card = t.device.type == "cuda"
+    trace.count("sfc.kernel" if on_card else "sfc.plain")
+    return on_card
+
+
 def isfc_key(ix, iy, iz, key_dtype, curve: str = HILBERT) -> torch.Tensor:
     """Integer coordinates -> SFC key (sfc.hpp:143-155)."""
     if curve == MORTON:
         return _morton.imorton(ix, iy, iz, key_dtype)
     if curve == HILBERT:
+        if _hilbert_on_card(ix):
+            lmax = max_tree_level(key_dtype)
+            return sfc_codec.encode_grid(ix, iy, iz, lmax, lmax, torch_key_dtype(key_dtype))
         return _hilbert.ihilbert(ix, iy, iz, key_dtype)
     raise ValueError(f"unknown curve {curve!r}")
 
@@ -42,6 +65,10 @@ def isfc_key_top(ix, iy, iz, levels: int, lmax: int, curve: str = HILBERT) -> to
         return _morton.imorton(ix.to(torch.int64) >> ls, iy.to(torch.int64) >> ls,
                                iz.to(torch.int64) >> ls, np.uint32).to(torch.int64)
     if curve == HILBERT:
+        if _hilbert_on_card(ix):
+            if not 0 <= 3 * levels <= 30:
+                raise ValueError(f"ihilbert_top takes 3*levels <= 30, got levels={levels}")
+            return sfc_codec.encode_grid(ix, iy, iz, lmax, levels, torch.int64)
         return _hilbert.ihilbert_top(ix, iy, iz, levels, lmax)
     raise ValueError(f"unknown curve {curve!r}")
 
@@ -51,8 +78,18 @@ def decode_sfc(key: torch.Tensor, curve: str = HILBERT):
     if curve == MORTON:
         return _morton.decode_morton(key)
     if curve == HILBERT:
+        if _hilbert_on_card(key):
+            return sfc_codec.decode(key)
         return _hilbert.decode_hilbert(key)
     raise ValueError(f"unknown curve {curve!r}")
+
+
+def _grid_scale(box: Box, fdt: torch.dtype, key_dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(m, min * m), each (3,) in the float type fdt: m = 2^maxLevel / L
+    as sfc3D computes it (sfc.hpp:157-175)."""
+    il = 1.0 / box.lengths.to(fdt)
+    m = il * float(1 << max_tree_level(key_dtype))
+    return m, box.mins.to(fdt) * m
 
 
 def _grid_coords(x, y, z, box: Box, key_dtype) -> Tuple[torch.Tensor, ...]:
@@ -60,22 +97,21 @@ def _grid_coords(x, y, z, box: Box, key_dtype) -> Tuple[torch.Tensor, ...]:
     ix = min(floor(x * mx) - xmin * mx, maxCoord-1) with mx = 2^maxLevel / L,
     all in the coordinates' float type. int32."""
     cube = 1 << max_tree_level(key_dtype)
-    fdt = x.dtype
-    lengths = box.lengths.to(fdt)
-    il = 1.0 / lengths
-    m = il * float(cube)
-    mins = box.mins.to(fdt)
+    m, min_m = _grid_scale(box, x.dtype, key_dtype)
     out = []
     for c, d in ((x, 0), (y, 1), (z, 2)):
-        i = (torch.floor(c * m[d]) - mins[d] * m[d]).to(torch.int32)
+        i = (torch.floor(c * m[d]) - min_m[d]).to(torch.int32)
         out.append(torch.clamp(i, max=cube - 1))
     return tuple(out)
 
 
 def sfc3d(x, y, z, box: Box, key_dtype, curve: str = HILBERT) -> torch.Tensor:
     """Float coordinates inside `box` -> SFC keys (sfc.hpp:187-194)."""
-    ix, iy, iz = _grid_coords(x, y, z, box, key_dtype)
-    return isfc_key(ix, iy, iz, key_dtype, curve)
+    if curve == HILBERT and x.device.type == "cuda":
+        trace.count("sfc.kernel")
+        scale = torch.cat(_grid_scale(box, x.dtype, key_dtype)).to(x.device)
+        return sfc_codec.encode_coords(x, y, z, scale, key_dtype)
+    return isfc_key(*_grid_coords(x, y, z, box, key_dtype), key_dtype, curve)
 
 
 def compute_sfc_keys(x, y, z, box: Box, key_dtype, curve: str = HILBERT,

@@ -64,7 +64,8 @@ def _kernel_marks(linked, centers, box, fs, fe, leaves, n_focus, limit_source):
         marks = macs.mark_macs(linked, centers, box, fs, fe, leaves, n_focus, limit_source)
     torch.cuda.synchronize()
     assert kernel.launches()["mark_walk"] == before + 1
-    assert tally.read()["counts"] == {"macs.kernel": 1}
+    # the prepare step's codec calls: the targets' decode, contained_in_keys' two encodes
+    assert tally.read()["counts"] == {"macs.kernel": 1, "sfc.kernel": 3}
     return marks
 
 

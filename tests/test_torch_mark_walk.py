@@ -117,7 +117,8 @@ def test_mark_macs_on_cpu_tensors_counts_one_plain_walk_and_no_launch(rank_tree)
     with trace.collect() as tally:
         macs.mark_macs(tl, centers, box, fs, fe, tl.leaves, tl.n_leaf, limit_source=True)
     out = tally.read()
-    assert out["counts"] == {"macs.plain": 1}
+    # the prepare step's codec calls: the targets' decode, contained_in_keys' two encodes
+    assert out["counts"] == {"macs.plain": 1, "sfc.plain": 3}
     assert out["spans"]["macs.mark"]["calls"] == 1
     # the kernel's wrapper takes CUDA tensors only
     inputs = macs.prepare_marks(tl, centers, box, fs, fe, tl.leaves, tl.n_leaf, True)

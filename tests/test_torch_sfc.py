@@ -15,12 +15,15 @@ from cstone_tpu.sfc import compute_sfc_keys as jax_compute_sfc_keys
 from cstone_tpu.sfc import make_box as jax_make_box
 from cstone_tpu.sfc.encode import decode_sfc as jax_decode_sfc
 from cstone_tpu.sfc.encode import sfc_ibox as jax_sfc_ibox
+from cstone_tpu_torch.ops import sfc_codec
 from cstone_tpu_torch.ops.bits import count_leading_zeros
 from cstone_tpu_torch.ops.keys64 import flip, from_numpy, srl, to_numpy
 from cstone_tpu_torch.ops.primitives import searchsorted
 from cstone_tpu_torch.sfc import compute_sfc_keys, isfc_key, make_box, sfc3d
-from cstone_tpu_torch.sfc.encode import decode_sfc, sfc_ibox
-from cstone_tpu_torch.sfc.keys import node_range, remove_key, tree_level
+from cstone_tpu_torch.sfc import hilbert
+from cstone_tpu_torch.sfc.encode import _grid_coords, decode_sfc, isfc_key_top, sfc_ibox
+from cstone_tpu_torch.sfc.keys import max_tree_level, node_range, remove_key, tree_level
+from cstone_tpu_torch.utils import trace
 
 import torch_threads  # noqa: F401  (two intra-op threads per xdist worker)
 
@@ -122,3 +125,74 @@ def test_port_import_loads_no_jax():
             "cstone_tpu_torch.utils.workloads; "
             "assert not [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'cstone_tpu.'))]")
     subprocess.run([sys.executable, "-c", code], cwd=PORT.parent, check=True)
+
+
+def _codec_calls(key_dtype):
+    """(name, call, plain result) of each Hilbert codec entry point on CPU
+    tensors."""
+    lmax = max_tree_level(key_dtype)
+    rng = np.random.RandomState(7)
+    grid = [torch.from_numpy(rng.randint(0, 1 << lmax, 300)) for _ in range(3)]
+    pos = [torch.from_numpy(rng.uniform(-1, 1, 300).astype(np.float32)) for _ in range(3)]
+    box = make_box(-1.0, 1.0, device="cpu")
+    keys = hilbert.ihilbert(*grid, key_dtype)
+    old = torch.where(keys > keys[7], keys, remove_key(key_dtype))
+    plain_keys = hilbert.ihilbert(*_grid_coords(*pos, box, key_dtype), key_dtype)
+    return [
+        ("isfc_key", lambda: isfc_key(*grid, key_dtype), keys),
+        ("isfc_key_top", lambda: isfc_key_top(*grid, 4, lmax), hilbert.ihilbert_top(*grid, 4, lmax)),
+        ("decode_sfc", lambda: decode_sfc(keys), hilbert.decode_hilbert(keys)),
+        ("sfc3d", lambda: sfc3d(*pos, box, key_dtype), plain_keys),
+        ("compute_sfc_keys", lambda: compute_sfc_keys(*pos, box, key_dtype, old_keys=old),
+         torch.where(old == remove_key(key_dtype), old, plain_keys)),
+    ]
+
+
+@pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64])
+@pytest.mark.parametrize("call", range(5))
+def test_cpu_tensors_take_the_plain_codec_and_count_it(key_dtype, call):
+    name, fn, want = _codec_calls(key_dtype)[call]
+    before = sfc_codec.launches()
+    with trace.collect() as tally:
+        got = fn()
+    assert tally.read()["counts"] == {"sfc.plain": 1}, name
+    assert sfc_codec.launches() == before
+    for a, b in zip((got,) if torch.is_tensor(got) else got, (want,) if torch.is_tensor(want) else want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+def test_morton_counts_no_codec_route():
+    grid = [torch.arange(16) for _ in range(3)]
+    with trace.collect() as tally:
+        decode_sfc(isfc_key(*grid, np.uint64, "morton"), "morton")
+        sfc3d(*(g.float() / 16 for g in grid), make_box(0.0, 1.0, device="cpu"), np.uint64, "morton")
+    assert tally.read()["counts"] == {}
+
+
+@pytest.mark.parametrize("call", ["encode_coords", "encode_grid", "decode"])
+def test_codec_wrapper_raises_on_cpu_tensors(call):
+    f, i = torch.zeros(4), torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        {"encode_coords": lambda: sfc_codec.encode_coords(f, f, f, torch.ones(6), np.uint64),
+         "encode_grid": lambda: sfc_codec.encode_grid(i, i, i, 21, 21, torch.int64),
+         "decode": lambda: sfc_codec.decode(i)}[call]()
+    assert sfc_codec.launches() == {"encode": 0, "decode": 0}
+
+
+@pytest.mark.parametrize("case", ["int coords", "mixed floats", "float grid", "int16 grid", "mixed ints",
+                                  "float keys", "float out", "levels"])
+def test_codec_wrapper_raises_on_unsupported_dtypes_and_levels(case):
+    f, d, i = torch.zeros(4), torch.zeros(4, dtype=torch.float64), torch.zeros(4, dtype=torch.int64)
+    calls = {
+        "int coords": (TypeError, lambda: sfc_codec.encode_coords(i, i, i, torch.ones(6), np.uint64)),
+        "mixed floats": (TypeError, lambda: sfc_codec.encode_coords(f, d, f, torch.ones(6), np.uint64)),
+        "float grid": (TypeError, lambda: sfc_codec.encode_grid(f, i, i, 21, 21, torch.int64)),
+        "int16 grid": (TypeError, lambda: sfc_codec.encode_grid(i, i, i.to(torch.int16), 21, 21, torch.int64)),
+        "mixed ints": (TypeError, lambda: sfc_codec.encode_grid(i, i.to(torch.int32), i, 21, 21, torch.int64)),
+        "float keys": (TypeError, lambda: sfc_codec.decode(f)),
+        "float out": (TypeError, lambda: sfc_codec.encode_grid(i, i, i, 21, 21, torch.float32)),
+        "levels": (ValueError, lambda: sfc_codec.encode_grid(i, i, i, 10, 11, torch.int64)),
+    }
+    exc, fn = calls[case]
+    with pytest.raises(exc):
+        fn()

@@ -1,8 +1,9 @@
 """The port's spans and counters (cstone_tpu_torch/utils/trace.py) at the
 layer boundaries: Domain.sync's ten stages, the cell list's pack, pass
 and scatter, every collective of a comm, the passes of the global
-tree's and the focus tree's fixed points, and mark_macs's walks (the
-plain walk on the CPU, one a focus round).
+tree's and the focus tree's fixed points, mark_macs's walks (the plain
+walk on the CPU, one a focus round) and the Hilbert codec's calls (the
+plain codec on the CPU, `sfc.plain`).
 
 Off, a span is one shared null context and a profiler sees none of the
 program's ranges; on, the stages open once a sync, in order, nested
@@ -19,7 +20,7 @@ import torch
 from cstone_tpu_torch.domain import Domain
 from cstone_tpu_torch.focus import octree_focus
 from cstone_tpu_torch.parallel import global_tree, run_ranks
-from cstone_tpu_torch.sfc import PERIODIC, make_box
+from cstone_tpu_torch.sfc import PERIODIC, hilbert, make_box
 from cstone_tpu_torch.traversal import cell_list_neighbor_counts, macs
 from cstone_tpu_torch.utils import trace
 
@@ -81,12 +82,14 @@ def _wrap_collectives(comm) -> dict:
 class _Passes:
     """Counts the calls of the loop bodies' functions (the global tree's
     update_global_octree, the focus tree's focus_update_once and
-    mark_macs), from every thread, while installed."""
+    mark_macs) and of the plain Hilbert codec's (ihilbert, ihilbert_top,
+    decode_hilbert), from every thread, while installed."""
 
     def __init__(self, monkeypatch):
         self.n = {}
         for module, name in ((global_tree, "update_global_octree"), (octree_focus, "focus_update_once"),
-                             (macs, "mark_macs")):
+                             (macs, "mark_macs"), (hilbert, "ihilbert"), (hilbert, "ihilbert_top"),
+                             (hilbert, "decode_hilbert")):
             self.n[name] = 0
             monkeypatch.setattr(module, name, self._counted(name, getattr(module, name)))
 
@@ -174,9 +177,11 @@ def test_counters_equal_the_loops_passes(two_ranks):
     tree, focus = passes["update_global_octree"], passes["focus_update_once"]
     assert tree > 0 and tree % 2 == 0 and focus > 0 and focus % 2 == 0
     assert passes["mark_macs"] == focus  # one MAC walk a converge round, on the CPU the plain one
+    codec = passes["ihilbert"] + passes["ihilbert_top"] + passes["decode_hilbert"]
+    assert codec > 0 and codec % 2 == 0
     for _, tally, _ in traced:
         assert tally["counts"] == {"tree.rounds": tree // 2, "focus.rounds": focus // 2,
-                                   "macs.plain": focus // 2}, mode
+                                   "macs.plain": focus // 2, "sfc.plain": codec // 2}, mode
 
 
 def test_one_rank_counts_tree_rounds_and_no_focus_rounds(monkeypatch):
@@ -184,7 +189,9 @@ def test_one_rank_counts_tree_rounds_and_no_focus_rounds(monkeypatch):
     with trace.collect() as tally:
         _steps(None, "p2p", 1)  # equal buckets at one rank: fast_focus, no converge loop
     assert passes.n["focus_update_once"] == passes.n["mark_macs"] == 0
-    assert tally.read()["counts"] == {"tree.rounds": passes.n["update_global_octree"]}
+    codec = passes.n["ihilbert"] + passes.n["ihilbert_top"] + passes.n["decode_hilbert"]
+    assert tally.read()["counts"] == {"tree.rounds": passes.n["update_global_octree"], "sfc.plain": codec}
+    assert codec > 0
     assert passes.n["update_global_octree"] > 0
 
 
