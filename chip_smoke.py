@@ -6,10 +6,10 @@
 Phases, each printed as it runs; any failure raises and exits non-zero:
   1. card: nvidia-smi name and power limit, torch's device name; refuses
      to run without CUDA (there is no CPU fallback);
-  2. build: compiles the six kernel sources (csrc/stencil_sym.cu,
-     stencil.cu, neighbors_v2.cu, neighbors_v1.cu, mark_macs.cu, sfc.cu)
-     with nvcc, one process each, all started together, and prints ptxas' registers, shared
-     memory and spills per kernel;
+  2. build: compiles every registered kernel source (cuda_lib.libraries():
+     csrc/mark_macs.cu, neighbors_v1.cu, neighbors_v2.cu, sfc.cu,
+     stencil_sym.cu) with nvcc, one process each, all started together,
+     and prints ptxas' registers, shared memory and spills per kernel;
   3. kernel vs plain version on the card: B1/B2 (the half-stencil kernel)
      at levels 3 and 5, cap 64, periodic and open, uniform and Gaussian,
      B1 launched twice (the same counts each launch); B1 on a pair across
@@ -34,12 +34,10 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      steps, then 3 steps of the SPH density cell path. Checks overflow,
      mean neighbour count 57.9 +- 0.5, mean density within 2% of
      1 + 1/(pi h^3 n), the cornerstone invariants, and that B1/B2
-     launched; on the last step's inputs times B1/B2 against the
-     one-sided kernel (csrc/stencil.cu, self mask on) in turns (old, new,
-     new, old) and against their plain versions, with each kernel's bound,
-     and B4 (the one-sided mode of csrc/stencil_sym.cu) in turns against
-     its first draft (csrc/stencil.cu, self mask off), with B1's function
-     bound and the one-sided work bound (every ordered pair tested);
+     launched; on the last step's inputs checks B4 (the one-sided mode of
+     csrc/stencil_sym.cu) equal to B1 and times B1, B2 and B4 alone and
+     their plain versions, with each kernel's bound (B4: B1's function
+     bound and the one-sided work bound, every ordered pair tested);
   5. path A, the tiered adaptive-h cell list: 1M Gaussian particles (seed
      42) in the periodic unit box, h = adaptive_h(pos, 100 neighbours),
      bucket 64, tiers from choose_tier_levels(max_tiers=3) and tier_caps
@@ -47,8 +45,7 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      warm and 3 drift steps; checks overflow 0, at least 2 tiers, B1
      launched and B3 launched once per tier pair and step, every B1 and B3
      launch of the last step bit-equal to its plain version on the
-     arguments it was given and timed on them in device time (B3 also in turns old, new, new, old against the two one-sided
-     launches of csrc/stencil.cu it replaced), and the tiered counts
+     arguments it was given and timed on them in device time, and the tiered counts
      bit-equal to one single-level pass at levels[0] by impl="pallas"
      (B1) and by impl="pallas_asym" (B4, its launches counted around that
      pass alone), the latter also bit-equal to its plain version;
@@ -284,9 +281,7 @@ arguments and results of the path's own launches (record_launches).
 Kernel times: CUDA events around back-to-back launches (phases 4 and 6);
 in phase 5, whose short launches the host could not keep the card busy
 with, device time: CUDA events around launches queued behind a spin
-kernel (device_time_ms), each same-tier B1 launch also timed every way
-scripts/torch_sym_kernels.py times it (tier_timer_readings); plain
-times: one call. The
+kernel (device_time_ms); plain times: one call. The
 line before last is the kernel summary JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -302,6 +297,9 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+from cstone_tpu_torch.multichip import tree_capacity
+from cstone_tpu_torch.ops.cuda_lib import all_launches, libraries, plain_of, reset_all_launches
 
 N = 1_000_000
 SEED = 42
@@ -492,23 +490,6 @@ def device_time_ms(fn, reps):
     raise RuntimeError("chip_smoke check failed: the calls' issue outlasted every spin kernel")
 
 
-def tier_timer_readings(fn) -> dict:
-    """One launch timed, in ms a call, every way this script and
-    scripts/torch_sym_kernels.py time it: device_time_ms with queues of 1,
-    5 (this script's), 20 (the script's queued_ms) and 80 calls; CUDA
-    events around 20 calls issued to an idle card (the script's ms); the
-    script's torch.profiler sums over 20 calls, of every kernel and memset
-    of the call and of the stencil kernel alone (0 where the profiler
-    records nothing). A cost paid once a queue would show as a reading
-    that falls with the queue's length."""
-    from scripts.torch_sym_kernels import device_ms
-
-    out = {f"queue_{n}": device_time_ms(fn, n) for n in (1, 5, 20, 80)}
-    out["events_20"] = cuda_time_ms(fn, 20)
-    out["profiler_all_20"], out["profiler_kernel_20"] = device_ms(fn, 20)
-    return out
-
-
 def timed_ms(fn):
     """(result, ms) of one call, CUDA events around it."""
     import torch
@@ -521,30 +502,9 @@ def timed_ms(fn):
     return out, start.elapsed_time(end)
 
 
-def plain_of(name):
-    from cstone_tpu_torch.ops import neighbors_v1, neighbors_v2, stencil
-
-    mod = {"pairwise_count_runs": neighbors_v2, "pairwise_count": neighbors_v1}.get(name, stencil)
-    return getattr(mod, name + "_plain")
-
-
-def all_launches() -> dict:
-    from cstone_tpu_torch.ops import neighbors_v1, neighbors_v2, sfc_codec, stencil
-
-    return {**stencil.launches(), **neighbors_v2.launches(), **neighbors_v1.launches(),
-            **{f"sfc_{k}": v for k, v in sfc_codec.launches().items()}}
-
-
-def reset_all_launches() -> None:
-    from cstone_tpu_torch.ops import neighbors_v1, neighbors_v2, sfc_codec, stencil
-
-    for mod in (stencil, neighbors_v2, neighbors_v1, sfc_codec):
-        mod.reset_launches()
-
-
 def no_cell_list_kernel(launches: dict, what: str) -> None:
     """A path that launches none of B1-B6 and encodes its keys through K1."""
-    launched = {k: v for k, v in launches.items() if v and not k.startswith("sfc_")}
+    launched = {k: launches[k] for k in KERNELS if launches[k]}
     check(not launched, f"{what} launched {launched}")
     check(launches["sfc_encode"] > 0, f"{what} encoded no keys through K1: {launches}")
 
@@ -842,24 +802,17 @@ def kernel_vs_plain_phase(dev, err: Errors):
 # ----------------------------------------------------------------------------
 
 def uniform_setup(dev):
-    """1M uniform particles (seed 42), the drift field and h = 0.012."""
-    import torch
+    """multichip.uniform_setup's sample of N particles from SEED on dev, the
+    input of phases 4, 6, 7 and paths E-J: uniform positions in the
+    periodic unit box, the drift, h = default_h(N) (H), mass 1/N, the
+    particle ids and the box."""
+    from cstone_tpu_torch import multichip
 
-    rng = np.random.RandomState(SEED)
-    pos = rng.uniform(0.0, 1.0, size=(N, 3)).astype(np.float32)
-    spacing = (1.0 / N) ** (1.0 / 3.0)
-    drift = torch.from_numpy(rng.uniform(-0.2, 0.2, size=(N, 3)).astype(np.float32) * spacing).to(dev)
-    xyz = tuple(torch.from_numpy(np.ascontiguousarray(pos[:, i])).to(dev) for i in range(3))
-    h = torch.full((N,), H, dtype=torch.float32, device=dev)
-    return xyz, drift, h
+    return multichip.uniform_setup(N, dev, SEED)
 
 
 def drifted(xyz, drift, sgn):
     return tuple((c + sgn * drift[:, i]) % 1.0 for i, c in enumerate(xyz))
-
-
-def tree_capacity(n, bucket=BUCKET):
-    return max(4096, int(3.2 * n / bucket) // 1024 * 1024 + 4096)
 
 
 def main_path_phase(dev, card):
@@ -873,7 +826,8 @@ def main_path_phase(dev, card):
     from cstone_tpu_torch.sfc import PERIODIC, make_box
     from cstone_tpu_torch.traversal import cell_list_neighbor_counts, cell_list_sph_density, choose_cell_level
 
-    (x, y, z), drift, h = uniform_setup(dev)
+    setup = uniform_setup(dev)
+    (x, y, z), drift, h = setup["xyz"], setup["drift"], setup["h"]
     box = make_box(0.0, 1.0, boundaries=PERIODIC, device=dev)
     level = choose_cell_level(box, H)
     check(level == LEVEL, f"cell level {level} != {LEVEL}")
@@ -980,55 +934,23 @@ def main_path_phase(dev, card):
               "stencil_density": stencil_bound(valid, flags, LEVEL, ends, pm is not None)}
     print(f"density pass: {ends[0]} ends with q < 2, {ends[1]} with q < 1", flush=True)
     bounds["stencil_counts_asym"] = bounds["stencil_counts"]  # the same function as B1
-
-    # the half-stencil kernel against the one-sided kernel (csrc/stencil.cu
-    # with the self mask on) on the same inputs, in turns: old, new, new, old
-    one_sided = {
-        "stencil_counts": lambda: stencil._launch(False, (px, py, pz, r2, valid),
-                                                  (px, py, pz, None, valid), L, flags, LEVEL, True),
-        "stencil_density": lambda: stencil._launch(True, (px, py, pz, ph, valid),
-                                                   (px, py, pz, pm, valid), L, flags, LEVEL, True),
-    }
-    check(torch.equal(one_sided["stencil_counts"](), stencil.stencil_counts(*counts_args)),
-          "the half-stencil and one-sided kernels disagree on the phase-4 counts")
+    # B4 computes B1's function; then each kernel alone on the same inputs
+    check(torch.equal(stencil.stencil_counts_asym(*counts_args), stencil.stencil_counts(*counts_args)),
+          "the one-sided (B4) and half-stencil (B1) kernels disagree on the phase-4 counts")
     times = {}
-    for name, args in (("stencil_counts", counts_args), ("stencil_density", density_args)):
-        new = lambda: getattr(stencil, name)(*args)
-        turns = [cuda_time_ms(fn, 20) for fn in (one_sided[name], new, new, one_sided[name])]
-        old_ms, ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    for name, args in (("stencil_counts", counts_args), ("stencil_density", density_args),
+                       ("stencil_counts_asym", counts_args)):
+        ms = cuda_time_ms(lambda: getattr(stencil, name)(*args), 20)
         plain = cuda_time_ms(lambda: getattr(stencil, name + "_plain")(*args), 3)
         b_ms, b_by = bounds[name]
         times[name] = (ms, plain)
-        print(f"{name} at {shape}: half-stencil kernel {turns[1]:.4f} / {turns[2]:.4f} ms, "
-              f"one-sided kernel {turns[0]:.4f} / {turns[3]:.4f} ms (turns old, new, new, old), "
-              f"speed-up {old_ms / ms:.3f}x; bound {b_ms:.4f} ms ({b_by}), share of bound: "
-              f"half-stencil {b_ms / ms:.4f}, one-sided {b_ms / old_ms:.4f}; plain {plain:.4f} ms "
-              f"[{card}]", flush=True)
-
-    # B4: the one-sided mode of csrc/stencil_sym.cu against its first draft
-    # (csrc/stencil.cu, self mask off, the self pair subtracted as the
-    # wrapper did) on the same inputs, in turns: old, new, new, old
-    def old_asym():
-        return (stencil._launch(False, (px, py, pz, r2, valid), (px, py, pz, None, valid), L, flags,
-                                LEVEL, False) - (valid & (r2 > 0)).to(torch.int32))
-
-    def new_asym():
-        return stencil.stencil_counts_asym(*counts_args)
-
-    check(torch.equal(old_asym(), new_asym()), "the old and new one-sided kernels disagree")
-    turns = [cuda_time_ms(fn, 20) for fn in (old_asym, new_asym, new_asym, old_asym)]
-    old_ms, ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-    plain = cuda_time_ms(lambda: stencil.stencil_counts_asym_plain(*counts_args), 3)
-    times["stencil_counts_asym"] = (ms, plain)
-    b_ms, b_by = bounds["stencil_counts_asym"]
+        print(f"{name} at {shape}: kernel {ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}), share of bound "
+              f"{b_ms / ms:.4f}; plain {plain:.4f} ms [{card}]", flush=True)
     tests = stencil_pairs(valid, valid, flags, LEVEL, same=False)  # every ordered pair, self included
     w_ms, w_by = bound(tests * (OPS_D2 + OPS_CMP), stencil_bytes(valid, 4))
-    print(f"stencil_counts_asym at {shape}: one-sided mode {turns[1]:.4f} / {turns[2]:.4f} ms, first "
-          f"draft {turns[0]:.4f} / {turns[3]:.4f} ms (turns old, new, new, old), speed-up "
-          f"{old_ms / ms:.3f}x; bound {b_ms:.4f} ms ({b_by}, the function of B1), share of bound: "
-          f"new {b_ms / ms:.4f}, old {b_ms / old_ms:.4f}; one-sided work bound ({tests:.6g} tests x "
-          f"{OPS_D2 + OPS_CMP} operations) {w_ms:.4f} ms ({w_by}), share new {w_ms / ms:.4f}, old "
-          f"{w_ms / old_ms:.4f}; plain {plain:.4f} ms [{card}]", flush=True)
+    print(f"stencil_counts_asym at {shape}: one-sided work bound ({tests:.6g} tests x {OPS_D2 + OPS_CMP} "
+          f"operations) {w_ms:.4f} ms ({w_by}), share {w_ms / times['stencil_counts_asym'][0]:.4f} [{card}]",
+          flush=True)
     launches = {k: launches[k] for k in ("stencil_counts", "stencil_density")}
     return launches, err, {k: {"ms": ms, "plain_ms": p, "shape": shape, "bound_ms": bounds[k][0],
                                "bound_by": bounds[k][1]} for k, (ms, p) in times.items()}, \
@@ -1038,18 +960,6 @@ def main_path_phase(dev, card):
 # ----------------------------------------------------------------------------
 # phase 5: path A, tiered adaptive-h cell list
 # ----------------------------------------------------------------------------
-
-def two_legs(tgt, cand, lengths, periodic, level, op="count", mass_t=None, mass_c=None):
-    """stencil_cross by the route the symmetric kernel replaced: the
-    one-sided kernel (csrc/stencil.cu) launched from each end."""
-    from cstone_tpu_torch.ops import stencil
-
-    density = op == "density"
-    ax, ay, az, _, av = tgt
-    bx, by, bz, _, bv = cand
-    return (stencil._launch(density, tgt, (bx, by, bz, mass_c, bv), lengths, periodic, level, False),
-            stencil._launch(density, cand, (ax, ay, az, mass_t, av), lengths, periodic, level, False))
-
 
 def tiered_phase(dev, card):
     import torch
@@ -1134,16 +1044,15 @@ def tiered_phase(dev, card):
     check(mean_nb > 0 and bool((counts[:N] >= 0).all()), "tiered counts must be non-negative")
 
     # every B1 and B3 launch of the last step against its plain version on
-    # the arguments it was given, timed at those shapes; B3 also in turns
-    # against the two one-sided launches of csrc/stencil.cu it replaced
+    # the arguments it was given, timed at those shapes
     err = Errors()
-    cross_ms = cross_old_ms = cross_plain_ms = cross_flops = cross_bytes = 0.0
+    cross_ms = cross_plain_ms = cross_flops = cross_bytes = 0.0
     names = sorted(name for name, _, _ in calls)
     check(names == ["stencil_counts"] * len(levels) + ["stencil_cross"] * len(cross),
           f"path A launched {names}")
     for name, args, got in calls:
         want, plain_ms = timed_ms(lambda: plain_of(name)(*args))
-        new = lambda: getattr(stencil, name)(*args)
+        ms = device_time_ms(lambda: getattr(stencil, name)(*args), 5)
         if name == "stencil_cross":
             tgt, cand, level = args[0], args[1], args[4]
             lanes = "B" if stencil.cross_lanes_on_b(tgt[4], cand[4]) else "A"
@@ -1151,30 +1060,20 @@ def tiered_phase(dev, card):
                      f"lanes on {lanes}")
             for g, w in zip(got, want):
                 err.counts(name, g, w, shape)
-            old = lambda: two_legs(*args)
-            check(all(torch.equal(g, w) for g, w in zip(old(), want)), "the two-leg route disagrees")
-            turns = [device_time_ms(fn, 5) for fn in (old, new, new, old)]
-            ms, old_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
             pairs = stencil_pairs(tgt[4], cand[4], args[3], level, same=False)
-            shape += (f", {pairs:.6g} pairs; two one-sided legs {turns[0]:.4f} / {turns[3]:.4f} "
-                      f"ms, symmetric {turns[1]:.4f} / {turns[2]:.4f} ms (turns old, new, new, "
-                      f"old), {ms * 1e9 / max(pairs, 1.0):.4g} ps per pair")
-            cross_ms, cross_old_ms = cross_ms + ms, cross_old_ms + old_ms
+            shape += f", {pairs:.6g} pairs, {ms * 1e9 / max(pairs, 1.0):.4g} ps per pair"
+            cross_ms += ms
             cross_plain_ms += plain_ms
             # both tables read once, both results written once; one d2 and
             # a compare at each end per cross pair
             cross_bytes += sum(stencil_bytes(t[4], 4) for t in (tgt, cand))
             cross_flops += (OPS_D2 + 2 * OPS_CMP) * pairs
         else:
-            ms = device_time_ms(new, 5)
             valid, flags, level = args[4], args[6], args[7]
             b_ms, b_by = stencil_bound(valid, flags, level)
             shape = (f"same tier, level {level}, cap {args[0].shape[1]}, bound {b_ms:.4f} ms "
                      f"({b_by})")
             err.counts(name, got, want, shape)
-            readings = tier_timer_readings(new)
-            print(f"{name} on path A, level {level}: the timers' readings, ms a call: "
-                  f"{json.dumps({k: round(v, 5) for k, v in readings.items()})} [{card}]", flush=True)
         print(f"{name} on path A, {shape}: bit-equal to plain; kernel {ms:.4f} ms (device time), "
               f"plain {plain_ms:.4f} ms (one call) [{card}]", flush=True)
 
@@ -1208,10 +1107,8 @@ def tiered_phase(dev, card):
     shape = (f"the {len(cross)} cross passes of one path-A step (pairs {sorted(cross)}, levels "
              f"{levels}), {N} Gaussian particles; times summed over the passes")
     b_ms, b_by = bound(cross_flops, cross_bytes)
-    print(f"stencil_cross, {shape}: symmetric kernel {cross_ms:.4f} ms, two one-sided legs "
-          f"{cross_old_ms:.4f} ms (speed-up {cross_old_ms / cross_ms:.3f}x), bound {b_ms:.4f} ms "
-          f"({b_by}), share of bound {b_ms / cross_ms:.4f} (two legs {b_ms / cross_old_ms:.4f}) "
-          f"[{card}]", flush=True)
+    print(f"stencil_cross, {shape}: symmetric kernel {cross_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+          f"share of bound {b_ms / cross_ms:.4f} [{card}]", flush=True)
     return ({"stencil_cross": launches["stencil_cross"],
              "stencil_counts_asym": asym_launches["stencil_counts_asym"]}, err,
             {"stencil_cross": {"ms": cross_ms, "plain_ms": cross_plain_ms, "shape": shape,
@@ -1231,7 +1128,8 @@ def find_neighbors_phase(dev, card):
     from cstone_tpu_torch.sfc import PERIODIC, make_box
     from cstone_tpu_torch.traversal import cell_list_neighbor_counts, find_neighbors
 
-    xyz, drift, h = uniform_setup(dev)
+    setup = uniform_setup(dev)
+    xyz, drift, h = setup["xyz"], setup["drift"], setup["h"]
     box = make_box(0.0, 1.0, boundaries=PERIODIC, device=dev)
     def step(domain, state, x, y, z):
         state, res = domain.sync(state, x, y, z, h)
@@ -1391,7 +1289,8 @@ def focus_tree_phase(dev, card):
     from cstone_tpu_torch.sfc import PERIODIC, make_box
     from cstone_tpu_torch.traversal import cell_list_neighbor_counts, find_neighbors
 
-    xyz, drift, h = uniform_setup(dev)
+    setup = uniform_setup(dev)
+    xyz, drift, h = setup["xyz"], setup["drift"], setup["h"]
     box = make_box(0.0, 1.0, boundaries=PERIODIC, device=dev)
     domains = {
         "C": Domain(bucket_size=GLOBAL_BUCKET, bucket_size_focus=BUCKET,
@@ -1692,15 +1591,6 @@ class RankTimer:
         setattr(self.module, self.name, self.real)
 
 
-def ranks_setup(dev):
-    """Phase 4's 1M positions, drift and h on dev, with mass 1/N, the
-    particle ids and the periodic unit box: the inputs of paths E-G
-    (multichip.uniform_setup draws phase 4's sample)."""
-    from cstone_tpu_torch import multichip
-
-    return multichip.uniform_setup(N, dev, SEED)
-
-
 def make_domain(comm, caps, mode, protocol, dev, window=0):
     from cstone_tpu_torch import multichip
 
@@ -1761,7 +1651,7 @@ def ranks_phase(dev, card, reference, tree_cap, mode, path_e=None):
 
     R = LET_RANKS
     name = "E" if mode == "pool" else "F"
-    setup = ranks_setup(dev)
+    setup = uniform_setup(dev)
     box = setup["box"]
     torch.cuda.reset_peak_memory_stats(dev)
     caps0 = first_caps(tree_cap)
@@ -1869,10 +1759,9 @@ def path_g_rank(comm, tree_cap):
     the peak memory is read. (b) is multichip.rank_steps, the per-rank
     body of the multi-card steps mode."""
     from cstone_tpu_torch import multichip
-    from cstone_tpu_torch.ops import neighbors_v1, neighbors_v2, stencil
     from cstone_tpu_torch.ops.cuda_lib import record_launches
 
-    libs = (stencil.SYM_LIBRARY, stencil.LIBRARY, neighbors_v2.LIBRARY, neighbors_v1.LIBRARY)
+    libs = libraries()
     for lib in libs:
         lib.load()  # the libraries phase 2 built: loaded, never built here
     out = {"built": [lib.source.name for lib in libs if lib.build_log]}
@@ -1884,7 +1773,7 @@ def path_g_rank(comm, tree_cap):
     hold_to_plain(err, calls, f"path-G (a) inputs, rank {comm.rank}")
     out["dry_err"], out["dry_launched"] = err.max, sorted(c[0] for c in calls)
     out["dry_shapes"] = [tuple(args[0].shape[:2]) + tuple(args[2].shape[1:]) for _, args, _ in calls]
-    setup = ranks_setup(comm.device)
+    setup = uniform_setup(comm.device)
     for protocol in ("dense", "ragged"):
         reset_all_launches()
         run = multichip.rank_steps(comm, setup, "p2p", protocol, 0, POOL_DRIFT_STEPS, LEVEL, CAP,
@@ -2167,7 +2056,8 @@ def sim_setup(dev):
     seed 42, minus their mean."""
     import torch
 
-    xyz, _, h = uniform_setup(dev)
+    setup = uniform_setup(dev)
+    xyz, h = setup["xyz"], setup["h"]
     vel = np.random.RandomState(SEED).normal(0.0, 0.05, size=(N, 3)).astype(np.float32)
     vel -= vel.mean(axis=0, keepdims=True)
     v = tuple(torch.from_numpy(np.ascontiguousarray(vel[:, i])).to(dev) for i in range(3))
@@ -2382,12 +2272,11 @@ def path_j_rank(comm, tree_cap, window):
     converged to, its cold step alone: B1 and B2 on the rank's buffer,
     each launch held to its plain version there."""
     from cstone_tpu_torch import multichip
-    from cstone_tpu_torch.ops import neighbors_v1, neighbors_v2, stencil
 
-    libs = (stencil.SYM_LIBRARY, stencil.LIBRARY, neighbors_v2.LIBRARY, neighbors_v1.LIBRARY)
+    libs = libraries()
     for lib in libs:
         lib.load()  # the libraries phase 2 built: loaded, never built here
-    setup = ranks_setup(comm.device)
+    setup = uniform_setup(comm.device)
 
     def record(state, res, after, span, stats):
         rec = res.halo_record
@@ -2419,7 +2308,7 @@ def window_phase(dev, card, reference, tree_cap, path_f):
     from cstone_tpu_torch.parallel.dist import spawn_ranks
 
     R = LET_RANKS
-    setup = ranks_setup(dev)
+    setup = uniform_setup(dev)
     caps = first_caps(tree_cap)
     t_start = time.perf_counter()
 
@@ -3114,13 +3003,11 @@ def sfc_grid_checks(dev, card) -> None:
 
 
 def build_all():
-    """Build the six kernel libraries in parallel, one nvcc each, and the
-    host C++ oracle of path L with g++ beside them."""
+    """Build every registered kernel library in parallel, one nvcc each,
+    and the host C++ oracle of path L with g++ beside them."""
     from cstone_tpu_torch import native
-    from cstone_tpu_torch.ops import mark_macs, neighbors_v1, neighbors_v2, sfc_codec, stencil
 
-    libs = (stencil.SYM_LIBRARY, stencil.LIBRARY, neighbors_v2.LIBRARY, neighbors_v1.LIBRARY, mark_macs.LIBRARY,
-            sfc_codec.LIBRARY)
+    libs = libraries()
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs) + 1) as pool:
         host = pool.submit(native.available)  # path L's oracle, g++ beside the nvcc builds

@@ -7,10 +7,8 @@
 // _kernel_sym, op="count" and op="density" (self excluded), its
 // cross=True variant (_call_sym_cross :589), and :149 _kernel (_call
 // :225), the one-sided impl="pallas_asym" route (B4, mode ONE_SIDED).
-// csrc/stencil.cu, the first draft of all four, is kept only as the
-// yardstick of B1-B4 (ops/stencil.py `_launch`).
 //
-// Contract (that of stencil.cu, once from each end): inputs are (n_cells,
+// Contract: inputs are (n_cells,
 // cap) ELL planes in row-major cell order of a D^3 grid, D = 2^level >= 4;
 // valid slots form a prefix of each row. Slot i counts the slots j of the
 // 27 neighbour cells with d2 < r2_i, or sums m_j W(sqrt(d2) / h_i) with the
@@ -91,7 +89,7 @@
 // function's is B1's, 0.062 ms; tested one-sided, each ordered pair once,
 // 8.2e8 tests x 9 operations (d2, a compare) = 7.4e9, 0.11 ms at 67
 // TFLOP/s, or twice that at one flop an instruction. What held the first
-// draft (csrc/stencil.cu) back: 64-thread blocks, one a cell, so the
+// draft of B1-B4 (one thread a target slot) back: 64-thread blocks, one a cell, so the
 // second warp of nearly every block held no valid target yet staged and
 // waited at every barrier; 27 x (__syncthreads + __syncthreads_count) a
 // block around synchronous loads, so the load latency was exposed 27

@@ -108,6 +108,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .ops.cuda_lib import all_launches, libraries, plain_of
+
 __all__ = ["dryrun_multichip", "rank_step", "particles", "brute_force_pairs", "PROTOCOLS", "STEP_MODES",
            "RankTally", "uniform_setup", "rank_steps", "run_modes", "reference_steps", "steps_rank",
            "grav_config", "grav_reference_steps", "grav_rank_steps", "grav_rank", "report_grav"]
@@ -606,24 +608,14 @@ def cold_step(comm, setup: dict, caps: dict, mode: str, protocol: str, window: i
     raise RuntimeError(f"the cold step still overflows after {tries} retries: caps {caps}, tries {history}")
 
 
-def _kernel_launches() -> dict:
-    from .ops import neighbors_v1, neighbors_v2, sfc_codec, stencil
-
-    return {**stencil.launches(), **neighbors_v2.launches(), **neighbors_v1.launches(),
-            **{f"sfc_{k}": v for k, v in sfc_codec.launches().items()}}
-
-
 def hold_to_plain(calls, what: str) -> dict:
     """Every recorded launch (record_launches) against its plain version on
     the same arguments: counts bit-equal, densities within rtol 1e-5
     (float atomics). Raises on a difference; returns the largest |kernel -
     plain| of each kernel."""
-    from .ops import neighbors_v1, neighbors_v2, stencil
-
     err = {}
     for name, args, got in calls:
-        mod = {"pairwise_count_runs": neighbors_v2, "pairwise_count": neighbors_v1}.get(name, stencil)
-        want = getattr(mod, name + "_plain")(*args)
+        want = plain_of(name)(*args)
         if name.endswith("density"):
             ok = torch.allclose(got, want, rtol=1e-5, atol=1e-6)
             gap = float((got - want).abs().max()) if got.numel() else 0.0
@@ -820,7 +812,7 @@ def rank_steps(comm, setup: dict, mode: str, protocol: str, window: int, steps: 
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     peers_ms = (lambda: peers.ms) if peers is not None else (lambda: 0.0)
-    before = _kernel_launches()
+    before = all_launches()
     cold = cold_step(comm, setup, caps, mode, protocol, window, bucket, theta, peers_ms)
     state, res, span, inp, domain, tally = cold.state, cold.res, cold.span, cold.inp, cold.domain, cold.tally
     name = mode if mode == "pool" else (protocol if not window else "window")
@@ -854,7 +846,7 @@ def rank_steps(comm, setup: dict, mode: str, protocol: str, window: int, steps: 
         if on_step is not None:
             extra.append(on_step(state, res, after, span, stats))
         inp = after["next"]
-    now = _kernel_launches()
+    now = all_launches()
     launches = {k: now[k] - before.get(k, 0) for k in now}
     peak = torch.cuda.max_memory_allocated(dev) if cuda else None
     launched = sorted(c[0] for c in calls)
@@ -964,11 +956,8 @@ def hold_sim(comm, got: list, want: list, n: int, v_abs: float) -> dict:
     return {"energy_gap": e_gap, "momentum_gap": p_gap, "tolerance_momentum": 1e-6 * v_abs}
 
 
-def _libraries() -> tuple:
-    """The kernel libraries of the steps mode (B1/B2) and the dry run (B5)."""
-    from .ops import neighbors_v2, stencil
-
-    return stencil.SYM_LIBRARY, neighbors_v2.LIBRARY
+# the kernel sources of the steps mode (B1/B2) and the dry run (B5)
+STEP_SOURCES = ("stencil_sym.cu", "neighbors_v2.cu")
 
 
 def load_kernels(comm, leader: bool) -> list:
@@ -979,7 +968,7 @@ def load_kernels(comm, leader: bool) -> list:
     flag, on every rank. Returns the names of the sources built here."""
     from concurrent.futures import ThreadPoolExecutor
 
-    libs = _libraries()
+    libs = libraries(*STEP_SOURCES)
     error = None
     if leader:
         try:
@@ -1233,7 +1222,7 @@ def grav_rank(comm, cfg: dict, device=None) -> dict:
 
     dev = resolve_device(device if device is not None else getattr(comm, "device", None))
     cuda = dev.type == "cuda"
-    before = _kernel_launches()
+    before = all_launches()
     setup = gr.grav_setup(cfg["n"], dev)
     ref, sums, ref_numbers = grav_reference_steps(setup, cfg["steps"], cfg["tree"])
     if comm.rank == 0:
@@ -1256,7 +1245,7 @@ def grav_rank(comm, cfg: dict, device=None) -> dict:
             print(f"rank 0: mode {name} held to the one-card run" + ("" if pool is None or name == "pool" else
                                                                      " and to pool")
                   + f" in {numbers['seconds']:.3f} s", flush=True)
-    now = _kernel_launches()
+    now = all_launches()
     out["launches"] = {k: now[k] - before.get(k, 0) for k in now}
     return out
 
@@ -1356,7 +1345,7 @@ def _main_steps(args) -> int:
         dev = resolve_device(args.device) if args.backend == "gloo" else torch.device("cuda")
         cfg = config(args.ranks)
         if not args.grav and dev.type == "cuda" and torch.cuda.is_available():  # built once, before the ranks
-            for lib in _libraries():
+            for lib in libraries(*STEP_SOURCES):
                 lib.load()
         recs = pdist.spawn_ranks(args.ranks, grav_rank if args.grav else spawned_rank, [cfg] * args.ranks,
                                  backend=args.backend, device=dev, timeout=args.timeout)

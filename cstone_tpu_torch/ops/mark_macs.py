@@ -31,7 +31,7 @@ import ctypes
 import torch
 
 from ..sfc.box import Box
-from .cuda_lib import CudaLibrary, LaunchCounts, check_launch, ptr, stream_of
+from .cuda_lib import CudaLibrary, LaunchCounts, check_launch, ptr, register_launches, stream_of
 
 __all__ = ["mark_walk", "load_library", "launches", "reset_launches"]
 
@@ -48,6 +48,7 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 LIBRARY = CudaLibrary("mark_macs.cu", _bind)
 _LAUNCHES = LaunchCounts("mark_walk")
+register_launches(_LAUNCHES)  # not replayed: the plain walk (macs.mark_walk_plain) takes prepare_marks' inputs
 
 
 def load_library() -> ctypes.CDLL:

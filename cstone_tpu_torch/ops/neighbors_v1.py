@@ -30,7 +30,7 @@ import ctypes
 
 import torch
 
-from .cuda_lib import CudaLibrary, LaunchCounts, check_launch, ptr, stream_of
+from .cuda_lib import CudaLibrary, LaunchCounts, check_launch, ptr, register_launches, stream_of
 from .pairs import IMAGE_NONE, pair_within
 
 __all__ = ["pairwise_count", "pairwise_count_plain", "load_library", "launches", "reset_launches"]
@@ -112,3 +112,6 @@ def pairwise_count_plain(targets, r2, cand, cidx, max_pairs: int = 1 << 25) -> t
                              tuple(cand[g0:g1, :, a] for a in range(3)), ok, IMAGE_NONE)
         out[g0:g1] = within.sum(dim=-1, dtype=torch.int32)
     return out
+
+
+register_launches(_LAUNCHES, plain={"pairwise_count": pairwise_count_plain})

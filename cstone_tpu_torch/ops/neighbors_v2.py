@@ -35,7 +35,7 @@ from typing import Tuple
 
 import torch
 
-from .cuda_lib import CudaLibrary, LaunchCounts, check_launch, ptr, stream_of
+from .cuda_lib import CudaLibrary, LaunchCounts, check_launch, ptr, register_launches, stream_of
 from .pairs import IMAGE_FLOOR, pair_within
 
 __all__ = [
@@ -294,3 +294,6 @@ def pairwise_count_runs_tiled_plain(targets, r2, run_start, run_len, xs, ys, zs,
     not_self = ~own[:, None, :] | (cidx[:, None, :] != tidx[:, :, None])
     hit = (d2 < r2[:, :, None]) & (cidx[:, None, :] >= 0) & not_self
     return hit.sum(dim=-1, dtype=torch.int32)
+
+
+register_launches(_LAUNCHES, plain={"pairwise_count_runs": pairwise_count_runs_plain})

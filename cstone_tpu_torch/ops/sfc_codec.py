@@ -30,7 +30,7 @@ import ctypes
 
 import torch
 
-from .cuda_lib import CudaLibrary, LaunchCounts, check_launch, ptr, stream_of
+from .cuda_lib import CudaLibrary, LaunchCounts, check_launch, ptr, register_launches, stream_of
 from .keys64 import torch_key_dtype
 
 __all__ = ["encode_coords", "encode_grid", "decode", "load_library", "launches", "reset_launches"]
@@ -50,6 +50,7 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 LIBRARY = CudaLibrary("sfc.cu", _bind)
 _LAUNCHES = LaunchCounts("encode", "decode")
+register_launches(_LAUNCHES, prefix="sfc_")
 
 
 def load_library() -> ctypes.CDLL:

@@ -38,10 +38,7 @@ ballot or shuffle sum, then global atomics into zeroed outputs). B4 (the
 one-sided mode) walks all 27 cells from the lane end only, in units of
 64 slots (two a lane where a row holds more than 32): each lane owns its
 counts, no atomics. Counts are deterministic; density sums are
-float atomics, so their last bits vary from run to run. csrc/stencil.cu,
-the first draft (one thread a target slot in blocks of up to 256, a
-block barrier a staged chunk), is kept only as the yardstick that
-chip_smoke.py times B1-B4 against (`_launch`).
+float atomics, so their last bits vary from run to run.
 stencil_sym_plain and stencil_cross_sym_plain mirror the symmetric
 decompositions in PyTorch for the tests.
 
@@ -56,7 +53,7 @@ from typing import Tuple
 
 import torch
 
-from .cuda_lib import CudaLibrary, LaunchCounts, check_launch, ptr, stream_of
+from .cuda_lib import CudaLibrary, LaunchCounts, check_launch, ptr, register_launches, stream_of
 
 __all__ = [
     "stencil_counts",
@@ -78,12 +75,6 @@ __all__ = [
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.cstone_stencil.argtypes = [i, p, p, p, p, p, i, p, p, p, p, p, i, p, i, i, i, i, i, p, p]
-    lib.cstone_stencil.restype = i
-
-
-def _bind_sym(lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
     lib.cstone_stencil_sym.argtypes = [i, p, p, p, p, p, p, i, p, i, i, i, i, p, p, p, p, p]
     lib.cstone_stencil_sym.restype = i
     lib.cstone_stencil_cross.argtypes = [i, p, p, p, p, p, p, i, p, p, p, p, p, p, i,
@@ -93,17 +84,14 @@ def _bind_sym(lib: ctypes.CDLL) -> None:
     lib.cstone_stencil_one_sided.restype = i
 
 
-LIBRARY = CudaLibrary("stencil.cu", _bind)
-SYM_LIBRARY = CudaLibrary("stencil_sym.cu", _bind_sym)
+LIBRARY = CudaLibrary("stencil_sym.cu", _bind)
 
 # one count per wrapper, incremented where the kernel launches
 _LAUNCHES = LaunchCounts("stencil_counts", "stencil_density", "stencil_cross", "stencil_counts_asym")
 
 
 def load_library() -> ctypes.CDLL:
-    """Build csrc/stencil.cu and csrc/stencil_sym.cu (once per source
-    version) and load them; returns the first."""
-    SYM_LIBRARY.load()
+    """Build csrc/stencil_sym.cu (once per source version) and load it."""
     return LIBRARY.load()
 
 
@@ -143,28 +131,6 @@ def _check(planes, valid, lengths, periodic, level) -> Tuple[int, int]:
     return n_cells, cap
 
 
-def _launch(density: bool, tgt, cand, lengths, periodic, level, self_mask: bool) -> torch.Tensor:
-    """One launch of csrc/stencil.cu, the first-draft kernel that
-    csrc/stencil_sym.cu replaced, kept only as the yardstick chip_smoke.py
-    times the kernels of B1-B4 against. tgt = (x, y, z, r2 or h, valid);
-    cand = (x, y, z, mass or None, valid). The one-sided B1/B2 route
-    (self_mask=True), the two-leg B3 route (self_mask=False, once from
-    each end) and the old B4 route (self_mask=False on one table)."""
-    tx, ty, tz, tw, tvalid = tgt
-    cx, cy, cz, cw, cvalid = cand
-    dev = tx.device
-    lib = LIBRARY.load()
-    lengths = lengths.to(device=dev, dtype=torch.float32).contiguous()
-    out = torch.empty(tx.shape, dtype=torch.float32 if density else torch.int32, device=dev)
-    err = lib.cstone_stencil(
-        int(density), ptr(tx), ptr(ty), ptr(tz), ptr(tw), ptr(tvalid), tx.shape[1],
-        ptr(cx), ptr(cy), ptr(cz), ptr(cw), ptr(cvalid), cx.shape[1], ptr(lengths),
-        int(periodic[0]), int(periodic[1]), int(periodic[2]), int(level), int(self_mask),
-        ptr(out), stream_of(tx))
-    check_launch(err, "stencil")
-    return out
-
-
 def _scratch(n_tables: int, n_cells: int, cap: int, dev):
     """The symmetric kernel's scratch in one int32 buffer: 5 unsigned 64-bit
     counters (the kernel zeroes them), the row lengths (n_tables, n_cells)
@@ -180,7 +146,7 @@ def _launch_sym(density: bool, px, py, pz, w, mass, valid, lengths, periodic,
     """One launch of the half-stencil kernel (B1 with w = r2, B2 with
     w = h and mass or None) into a zeroed output."""
     dev = px.device
-    lib = SYM_LIBRARY.load()
+    lib = LIBRARY.load()
     lengths = lengths.to(device=dev, dtype=torch.float32).contiguous()
     out = torch.zeros(px.shape, dtype=torch.float32 if density else torch.int32, device=dev)
     row_counts, units, stats = _scratch(1, px.shape[0], px.shape[1], dev)
@@ -196,7 +162,7 @@ def _launch_one_sided(px, py, pz, r2, valid, lengths, periodic, level) -> torch.
     """One launch of the one-sided mode of csrc/stencil_sym.cu (B4) into a
     zeroed output: counts with the self pair included."""
     dev = px.device
-    lib = SYM_LIBRARY.load()
+    lib = LIBRARY.load()
     lengths = lengths.to(device=dev, dtype=torch.float32).contiguous()
     out = torch.zeros(px.shape, dtype=torch.int32, device=dev)
     row_counts, units, stats = _scratch(1, px.shape[0], px.shape[1], dev)
@@ -214,7 +180,7 @@ def _launch_cross(density: bool, ta, tb, lengths, periodic, level):
     on ta's layout, results on tb's layout). The kernel puts its lanes on
     the table whose busy 32-slot chunks are fuller (cross_lanes_on_b)."""
     dev = ta[0].device
-    lib = SYM_LIBRARY.load()
+    lib = LIBRARY.load()
     lengths = lengths.to(device=dev, dtype=torch.float32).contiguous()
     dtype = torch.float32 if density else torch.int32
     outs = tuple(torch.zeros(t[0].shape, dtype=dtype, device=dev) for t in (ta, tb))
@@ -585,3 +551,11 @@ def stencil_cross_sym_plain(tgt, cand, lengths, periodic, level, op: str = "coun
 
     res_l, res_s = uncut(total_l, lanes), uncut(total_s, staged)
     return (res_s, res_l) if lanes_b else (res_l, res_s)
+
+
+register_launches(_LAUNCHES, plain={
+    "stencil_counts": stencil_counts_plain,
+    "stencil_density": stencil_density_plain,
+    "stencil_cross": stencil_cross_plain,
+    "stencil_counts_asym": stencil_counts_asym_plain,
+})
