@@ -7,8 +7,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
   1. card: nvidia-smi name and power limit, torch's device name; refuses
      to run without CUDA (there is no CPU fallback);
   2. build: compiles every registered kernel source (cuda_lib.libraries():
-     csrc/mark_macs.cu, neighbors_v1.cu, neighbors_v2.cu, sfc.cu,
-     stencil_sym.cu) with nvcc, one process each, all started together,
+     csrc/mark_macs.cu, neighbors_v1.cu, neighbors_v2.cu, octree.cu,
+     sfc.cu, stencil_sym.cu) with nvcc, one process each, all started together,
      and prints ptxas' registers, shared memory and spills per kernel;
   3. kernel vs plain version on the card: B1/B2 (the half-stencil kernel)
      at levels 3 and 5, cap 64, periodic and open, uniform and Gaussian,
@@ -270,6 +270,19 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      CODEC_REPS queued calls, device_time_ms), its bound (bytes over 3.35
      TB/s), the integer operations as the source writes them and their
      time at INT32_PEAK, and the plain codec's ms (one warm call).
+ 19. the linked-octree build (csrc/octree.cu, L1) at the benchmark cells'
+     shapes: the cornerstone trees (bucket 64, capacity TREE_CAP) of
+     TREE_N uniform particles and of TREE_N Gaussian ones (sigma
+     TREE_SIGMA about the centre, clamped), with uint32 and with uint64
+     keys. Checks every LinkedOctree field bit-equal to the plain build
+     (tree/octree._build_plain) on the card over the whole capacity, one
+     layout and one link launch a build, and no host read inside it
+     (torch.cuda.set_sync_debug_mode "error"). Prints the torch
+     operations of a build and of the plain build, the plain build's host
+     reads, and for the uint64 trees L1's ms (device time of TREE_REPS
+     queued builds, device_time_ms, and the ms a build issued back to
+     back), its bound (bytes over 3.35 TB/s) and the plain build's ms
+     (one warm call).
 Each path's launch counts (B1-B6 and K1's sfc_encode, sfc_decode) are set to 0 just before it is driven and read
 just after (paths E and F each over their 4 steps; path G in each rank
 process, summed; path H over its two routes; path J over (a), plus (b)'s
@@ -356,6 +369,12 @@ CODEC_N = 2_000_000
 CONTAIN_N = 299_593  # the nodes of a rank's tree in the 4-card cell: the boxes macs.prepare_marks tests
 CODEC_REPS = 20
 OPS_ENCODE_ROUND, OPS_DECODE_ROUND = 39, 48
+# phase 19: the linked-octree build at the benchmark cells' shapes: 2M
+# particles, bucket 64, tree capacity 131,072 (benchmark/configs); the
+# Gaussian sample as the clustered cell's, normal about the centre with
+# sigma = side / 5, clamped to the box
+TREE_N, TREE_CAP, TREE_SIGMA = 2_000_000, 131_072, 0.2
+TREE_REPS = 20
 # FP32 operations of one MAC test of mark_macs's walk: the minimum image,
 # the clamp, the squared norm and the compare
 MAC_OPS = 25
@@ -3002,6 +3021,87 @@ def sfc_grid_checks(dev, card) -> None:
           f"0-10 bit-equal; one launch an encode [{card}]", flush=True)
 
 
+def linked_octree_phase(dev, card) -> dict:
+    """Phase 19: L1 (the linked-octree build's kernels, csrc/octree.cu)
+    against the plain build on the card, every LinkedOctree field over the
+    whole capacity, on the 2M uniform and the 2M Gaussian tree at
+    TREE_CAP, uint32 and uint64 keys, n_leaf a 0-d tensor on the card; one
+    layout and one link launch a build, no host read inside it (the plain
+    build's reads counted by torch's sync debug mode); returns the times
+    of the uint64 trees."""
+    import warnings
+
+    import torch
+
+    from cstone_tpu_torch.ops import linked_octree
+    from cstone_tpu_torch.ops.keys64 import usort
+    from cstone_tpu_torch.sfc import PERIODIC, compute_sfc_keys, make_box
+    from cstone_tpu_torch.tree.csarray import compute_octree
+    from cstone_tpu_torch.tree.octree import _build_plain, build_linked_octree, internal_capacity
+
+    fields = ("prefixes", "child_offsets", "parents", "level_range", "internal_to_leaf", "leaf_to_internal",
+              "leaves", "n_leaf", "n_internal")
+    g = torch.Generator(device=dev).manual_seed(SEED + 19)
+    samples = {"uniform": torch.rand(3, TREE_N, device=dev, generator=g),
+               "gauss": (torch.randn(3, TREE_N, device=dev, generator=g) * TREE_SIGMA + 0.5).clamp(0.0, 1.0)}
+    box = make_box(0.0, 1.0, boundaries=PERIODIC, device=dev)
+    cap_nodes = TREE_CAP + internal_capacity(TREE_CAP)
+    cap_parents = (cap_nodes - 1) // 8 + 1
+    out = {}
+    for kdt in (np.uint32, np.uint64):
+        for name, pos in samples.items():
+            what = f"{name} 2M, {kdt.__name__} keys"
+            keys, _ = usort(compute_sfc_keys(pos[0], pos[1], pos[2], box, kdt))
+            tree = compute_octree(keys, BUCKET, capacity=TREE_CAP)
+            leaves, n_leaf = tree.keys, tree.n_nodes
+            torch.cuda.synchronize()
+            before = linked_octree.launches()
+            with OpCounter() as ops:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    got = build_linked_octree(leaves, n_leaf)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            after = linked_octree.launches()
+            check({k: after[k] - before[k] for k in after} == {"layout": 1, "link": 1},
+                  f"L1, {what}: {after} launches after {before} for one build")
+            with warnings.catch_warnings(record=True) as reads, OpCounter() as plain_ops:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    want = _build_plain(leaves, n_leaf, cap_nodes, cap_parents)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            plain_reads = sum("synchroniz" in str(w.message) for w in reads)
+            for f in fields:
+                a, b = getattr(got, f), getattr(want, f)
+                check(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b),
+                      f"L1, {what}: {f} differs from the plain build's")
+            nn = int(got.n_nodes)
+            levels = int((got.level_range[1:] > got.level_range[:-1]).sum())
+            line = (f"L1 {what}: {int(n_leaf)} leaves, {nn} nodes, {levels} levels; every field bit-equal to "
+                    f"the plain build over capacity {cap_nodes}; torch operations a build {ops.ops} (plain "
+                    f"{plain_ops.ops}), host reads 0 (plain {plain_reads})")
+            if kdt is np.uint64:
+                build = lambda: build_linked_octree(leaves, n_leaf)  # noqa: E731
+                kernel_ms = device_time_ms(build, TREE_REPS)
+                host_ms = cuda_time_ms(build, TREE_REPS)
+                plain_ms = timed_ms(lambda: _build_plain(leaves, n_leaf, cap_nodes, cap_parents))[1]
+                # the function's bytes: the leaves read once, every linked
+                # array written once (four of cap_nodes, parents, level_range)
+                nbytes = (TREE_CAP + 1) * 8 + cap_nodes * 8 * 4 + cap_parents * 8 + 23 * 8
+                bound_ms = nbytes / HBM_PEAK * 1e3
+                line += (f"; kernel {kernel_ms:.4f} ms (device time of {TREE_REPS} queued builds: two launches and "
+                         f"the sort), {host_ms:.4f} ms a build issued back to back, bound {bound_ms:.4f} ms (bytes: "
+                         f"{nbytes}), share {bound_ms / kernel_ms:.4f}; plain build {plain_ms:.3f} ms (one warm "
+                         f"call)")
+                out[name] = {"kernel_ms": kernel_ms, "host_ms": host_ms, "bound_ms": bound_ms,
+                             "plain_ms": plain_ms, "ops": ops.ops, "plain_ops": plain_ops.ops,
+                             "plain_reads": plain_reads}
+            print(line + f" [{card}]", flush=True)
+    return out
+
+
 def build_all():
     """Build every registered kernel library in parallel, one nvcc each,
     and the host C++ oracle of path L with g++ beside them."""
@@ -3094,6 +3194,9 @@ def main():
 
     phase("18 the Hilbert key codec (K1) at the main path's shapes")
     sfc_codec_phase(dev, card)
+
+    phase("19 the linked-octree build (L1) at the benchmark cells' shapes")
+    linked_octree_phase(dev, card)
 
     for e in (err4, err5, err6, err7, err9, err10, err11, err12, err14):
         for k, v in e.max.items():

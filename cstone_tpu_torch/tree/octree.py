@@ -7,6 +7,12 @@ Warren-Salmon placeholder-bit prefixes, sorted once, and linked with
 vectorized binary searches. Arrays are padded to a static capacity;
 unassigned slots carry the all-ones sentinel prefix (-1 in the signed
 storage), which sorts behind every valid node.
+
+build_linked_octree runs on CUDA tensors as two launches of
+csrc/octree.cu around one sort (ops/linked_octree.py) and on CPU tensors
+as the plain torch build below, which the kernels equal bit for bit; the
+input's device chooses, and each build counts its route in the trace
+counters `octree.kernel` and `octree.plain`.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from typing import Callable
 
 import torch
 
+from ..ops import linked_octree
 from ..ops.keys64 import key_const, srl, usort
 from ..ops.primitives import multi_searchsorted, searchsorted
 from ..sfc.keys import (
@@ -29,6 +36,7 @@ from ..sfc.keys import (
     octal_digit,
     tree_level,
 )
+from ..utils import trace
 
 __all__ = [
     "LinkedOctree", "internal_capacity", "build_linked_octree", "locate_node",
@@ -99,18 +107,37 @@ def build_linked_octree(leaves: torch.Tensor, n_leaf, cap_nodes: int | None = No
     """Build the linked octree from a padded cornerstone array
     (octree.hpp:186-214).
 
-    leaves: (cap_leaf+1,) padded cornerstone keys; n_leaf valid nodes.
+    leaves: (cap_leaf+1,) padded cornerstone keys; n_leaf valid nodes (an
+    int or a 0-d integer tensor). CUDA leaves take the kernels, which read
+    nothing back to the host; CPU leaves the plain build.
     """
+    cap_leaf = leaves.shape[0] - 1
+    if cap_nodes is None:
+        cap_nodes = cap_leaf + internal_capacity(cap_leaf)
+    # every valid row must survive the [:cap_nodes] cut of the sorted rows
+    if cap_nodes > 2 * cap_leaf:
+        raise ValueError(f"cap_nodes={cap_nodes} exceeds 2*cap_leaf={2 * cap_leaf}")
+    cap_parents = max(1, (cap_nodes - 1) // 8 + 1)
+
+    dev = leaves.device
+    if dev.type == "cuda":
+        trace.count("octree.kernel")
+        if isinstance(n_leaf, torch.Tensor):
+            n_leaf = n_leaf.to(device=dev, dtype=torch.int64)
+        else:  # filled on the card: an upload of a host int would wait for it
+            n_leaf = torch.full((), int(n_leaf), dtype=torch.int64, device=dev)
+        *arrays, n_internal = linked_octree.build(leaves, n_leaf, cap_nodes, cap_parents)
+        return LinkedOctree(*arrays, leaves=leaves, n_leaf=n_leaf, n_internal=n_internal)
+    trace.count("octree.plain")
+    return _build_plain(leaves, n_leaf, cap_nodes, cap_parents)
+
+
+def _build_plain(leaves: torch.Tensor, n_leaf, cap_nodes: int, cap_parents: int) -> LinkedOctree:
+    """build_linked_octree in torch operations, the version CPU tensors take."""
     dt = leaves.dtype
     dev = leaves.device
     lmax = max_tree_level(dt)
     cap_leaf = leaves.shape[0] - 1
-    if cap_nodes is None:
-        cap_nodes = cap_leaf + internal_capacity(cap_leaf)
-    # every valid row must survive the [:cap_nodes] cut below
-    if cap_nodes > 2 * cap_leaf:
-        raise ValueError(f"cap_nodes={cap_nodes} exceeds 2*cap_leaf={2 * cap_leaf}")
-    cap_parents = max(1, (cap_nodes - 1) // 8 + 1)
 
     n_leaf = torch.as_tensor(n_leaf, dtype=torch.int64, device=dev)
     n_internal = torch.div(n_leaf - 1, 7, rounding_mode="floor")

@@ -2,8 +2,9 @@
 layer boundaries: Domain.sync's ten stages, the cell list's pack, pass
 and scatter, every collective of a comm, the passes of the global
 tree's and the focus tree's fixed points, mark_macs's walks (the plain
-walk on the CPU, one a focus round) and the Hilbert codec's calls (the
-plain codec on the CPU, `sfc.plain`).
+walk on the CPU, one a focus round), the Hilbert codec's calls (the
+plain codec on the CPU, `sfc.plain`) and the linked-octree builds (the
+plain build on the CPU, `octree.plain`).
 
 Off, a span is one shared null context and a profiler sees none of the
 program's ranges; on, the stages open once a sync, in order, nested
@@ -22,6 +23,7 @@ from cstone_tpu_torch.focus import octree_focus
 from cstone_tpu_torch.parallel import global_tree, run_ranks
 from cstone_tpu_torch.sfc import PERIODIC, hilbert, make_box
 from cstone_tpu_torch.traversal import cell_list_neighbor_counts, macs
+from cstone_tpu_torch.tree import octree
 from cstone_tpu_torch.utils import trace
 
 import torch_threads  # noqa: F401  (two intra-op threads per xdist worker)
@@ -82,14 +84,15 @@ def _wrap_collectives(comm) -> dict:
 class _Passes:
     """Counts the calls of the loop bodies' functions (the global tree's
     update_global_octree, the focus tree's focus_update_once and
-    mark_macs) and of the plain Hilbert codec's (ihilbert, ihilbert_top,
-    decode_hilbert), from every thread, while installed."""
+    mark_macs), of the plain Hilbert codec's (ihilbert, ihilbert_top,
+    decode_hilbert) and of the plain linked-octree build (_build_plain),
+    from every thread, while installed."""
 
     def __init__(self, monkeypatch):
         self.n = {}
         for module, name in ((global_tree, "update_global_octree"), (octree_focus, "focus_update_once"),
                              (macs, "mark_macs"), (hilbert, "ihilbert"), (hilbert, "ihilbert_top"),
-                             (hilbert, "decode_hilbert")):
+                             (hilbert, "decode_hilbert"), (octree, "_build_plain")):
             self.n[name] = 0
             monkeypatch.setattr(module, name, self._counted(name, getattr(module, name)))
 
@@ -179,9 +182,12 @@ def test_counters_equal_the_loops_passes(two_ranks):
     assert passes["mark_macs"] == focus  # one MAC walk a converge round, on the CPU the plain one
     codec = passes["ihilbert"] + passes["ihilbert_top"] + passes["decode_hilbert"]
     assert codec > 0 and codec % 2 == 0
+    builds = passes["_build_plain"]
+    assert builds > 0 and builds % 2 == 0
     for _, tally, _ in traced:
         assert tally["counts"] == {"tree.rounds": tree // 2, "focus.rounds": focus // 2,
-                                   "macs.plain": focus // 2, "sfc.plain": codec // 2}, mode
+                                   "macs.plain": focus // 2, "sfc.plain": codec // 2,
+                                   "octree.plain": builds // 2}, mode
 
 
 def test_one_rank_counts_tree_rounds_and_no_focus_rounds(monkeypatch):
@@ -190,8 +196,9 @@ def test_one_rank_counts_tree_rounds_and_no_focus_rounds(monkeypatch):
         _steps(None, "p2p", 1)  # equal buckets at one rank: fast_focus, no converge loop
     assert passes.n["focus_update_once"] == passes.n["mark_macs"] == 0
     codec = passes.n["ihilbert"] + passes.n["ihilbert_top"] + passes.n["decode_hilbert"]
-    assert tally.read()["counts"] == {"tree.rounds": passes.n["update_global_octree"], "sfc.plain": codec}
-    assert codec > 0
+    assert tally.read()["counts"] == {"tree.rounds": passes.n["update_global_octree"], "sfc.plain": codec,
+                                      "octree.plain": passes.n["_build_plain"]}
+    assert codec > 0 and passes.n["_build_plain"] > 0
     assert passes.n["update_global_octree"] > 0
 
 
