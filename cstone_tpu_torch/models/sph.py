@@ -1,8 +1,8 @@
 """Minimal SPH density step on top of the Domain (counterpart of
 cstone_tpu/models/sph.py; reference: README.md:60-100): every step calls
-domain.sync, then computes the density from each particle's neighbours,
-by one of two routes: the fused cell-list stencil, or the tree-traversal
-neighbour lists (find_neighbors).
+domain.sync, then computes the density from each particle's neighbours
+(`sph_density`), by one of two routes: the fused cell-list stencil, or
+the tree-traversal neighbour lists (find_neighbors).
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from ..ops.stencil import cubic_spline_w
 from ..traversal.celllist import cell_list_sph_density
 from ..traversal.neighbors import _find_neighbors_impl
 
-__all__ = ["SphState", "sph_density_step"]
+__all__ = ["SphState", "sph_density_step", "sph_density"]
 
 
 @dataclass(frozen=True)
@@ -36,33 +36,19 @@ class SphState:
 def sph_density_step(domain: Domain, state: SphState, ng_max: int = 192, group_size: int = 64,
                      cand_leaf_cap: int = 128, cand_cap: int = 2048, chunk: int = 32,
                      cell_level: int = 0, cell_cap: int = 0) -> Tuple[SphState, torch.Tensor, SyncResult]:
-    """One density evaluation: sync + neighbour density sum.
+    """One density evaluation: sync + neighbour density sum (`sph_density`).
 
     Returns (new_state, rho (local_capacity,), sync_result); rho is valid
-    in [start_index, end_index).
-
-    With `cell_level`/`cell_cap` set (host choices: choose_cell_level from
-    max(h), cap from expected occupancy) the density runs the fused
-    cell-list kernel, and cell occupancy overflow folds into res.overflow.
-    Without them the tree-traversal route runs: neighbour index lists
-    (capped at ng_max) from find_neighbors over the whole buffer, then
-    sum_j m_j W(|r_ij| / h_i) on the nearest periodic image, plus the
-    self term. A neighbour stage whose candidates or lists exceeded
-    cand_cap, cand_leaf_cap or ng_max folds 1 into res.overflow, so the
-    caller grows the capacity and retries (reallocate.hpp:38-107).
+    in [start_index, end_index). The density's overflow folds into
+    res.overflow, so the caller grows the capacity and retries
+    (reallocate.hpp:38-107).
     """
     dstate, res = domain.sync(state.domain, state.x, state.y, state.z, state.h,
                               properties=(state.m,), n_local=state.n_local)
-    box = dstate.box
     (m_new,) = res.properties
-    if cell_level and cell_cap:
-        rho, cell_ovf = cell_list_sph_density(
-            res.keys, res.x, res.y, res.z, res.h, box, int(cell_level), int(cell_cap),
-            mass=m_new, curve=domain.curve, n_valid=res.n_with_halos)
-        ovf = cell_ovf
-    else:
-        rho, ovf = _tree_density(domain, res, box, m_new, int(ng_max), int(group_size),
-                                 int(cand_leaf_cap), int(cand_cap), int(chunk))
+    rho, ovf = sph_density(domain, res, dstate.box, m_new, ng_max=ng_max, group_size=group_size,
+                           cand_leaf_cap=cand_leaf_cap, cand_cap=cand_cap, chunk=chunk,
+                           cell_level=cell_level, cell_cap=cell_cap)
     res = dataclasses.replace(res, overflow=torch.maximum(res.overflow, ovf.to(res.overflow.dtype)))
     # carry only the owned particles into the next step: halos are found
     # anew each sync, and keeping them as locals would count them twice
@@ -71,6 +57,34 @@ def sph_density_step(domain: Domain, state: SphState, ng_max: int = 192, group_s
         domain=dstate, x=co(res, res.x), y=co(res, res.y), z=co(res, res.z),
         h=co(res, res.h), m=co(res, m_new), n_local=res.end_index - res.start_index)
     return new_state, rho, res
+
+
+def sph_density(domain: Domain, res: SyncResult, box, m: torch.Tensor, ng_max: int = 192,
+                group_size: int = 64, cand_leaf_cap: int = 128, cand_cap: int = 2048, chunk: int = 32,
+                cell_level: int = 0, cell_cap: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The density of a synced buffer: (rho (local_capacity,), overflow
+    0-d), rho valid in [start_index, end_index); `m` holds the masses in
+    the buffer's order (a property of the sync, or `reapply_sync` of
+    the input's).
+
+    rho_i = (1 / pi h_i^3) * (sum_{j != i} m_j W(|r_ij| / h_i) + m_i W(0))
+
+    With `cell_level`/`cell_cap` set (host choices: choose_cell_level from
+    max(h), cap from expected occupancy) the density runs the fused
+    cell-list kernel, and the overflow is True when a cell held more than
+    cell_cap particles. Without them the tree-traversal route runs:
+    neighbour index lists (capped at ng_max) from find_neighbors over the
+    whole buffer, then sum_j m_j W(|r_ij| / h_i) on the nearest periodic
+    image, plus the self term; the overflow is True when a neighbour
+    stage's candidates or lists exceeded cand_cap, cand_leaf_cap or
+    ng_max.
+    """
+    if cell_level and cell_cap:
+        return cell_list_sph_density(
+            res.keys, res.x, res.y, res.z, res.h, box, int(cell_level), int(cell_cap),
+            mass=m, curve=domain.curve, n_valid=res.n_with_halos)
+    return _tree_density(domain, res, box, m, int(ng_max), int(group_size),
+                         int(cand_leaf_cap), int(cand_cap), int(chunk))
 
 
 def _tree_density(domain: Domain, res: SyncResult, box, m, ng_max, group_size, cand_leaf_cap,

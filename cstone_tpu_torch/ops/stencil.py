@@ -53,6 +53,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils import trace
 from .cuda_lib import CudaLibrary, LaunchCounts, check_launch, ptr, register_launches, stream_of
 
 __all__ = [
@@ -225,11 +226,14 @@ def stencil_density(px, py, pz, h, valid, lengths, periodic, level, mass=None) -
     """(n_cells, cap) float32 sums S_i = sum_{j != i} m_j W(r_ij / h_i) (B2);
     m_j = 1 when `mass` is None. On the card the terms are summed with
     float atomics, so the last bits of a sum vary from run to run (within
-    rtol 1e-5 of stencil_density_plain)."""
+    rtol 1e-5 of stencil_density_plain). Counts its route under the trace
+    counters `density.kernel` (a launch) and `density.plain` (the CPU)."""
     planes = (px, py, pz, h) + (() if mass is None else (mass,))
     _check(planes, valid, lengths, periodic, level)
     if px.device.type == "cpu":
+        trace.count("density.plain")
         return stencil_density_plain(px, py, pz, h, valid, lengths, periodic, level, mass)
+    trace.count("density.kernel")
     out = _launch_sym(True, px, py, pz, h, mass, valid, lengths, periodic, level)
     _LAUNCHES.launched("stencil_density", (px, py, pz, h, valid, lengths, periodic, level, mass), out)
     return out

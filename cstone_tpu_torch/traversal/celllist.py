@@ -254,26 +254,31 @@ def cell_list_sph_density(
     with the cubic-spline W, the interaction fused into the stencil kernel.
     `mass` is a scalar (uniform m, factored out of the sum) or an (n,)
     tensor in sorted order. `const_h` is accepted for API parity and does
-    not change the result.
+    not change the result. The pack (with the mass plane), the pass and
+    the self term, normalisation and scatter back open the spans
+    density.pack, density.pass and density.scatter (utils/trace.py).
     """
     del const_h
-    perm, _ = rowmajor_cell_perm(int(level), curve, device=xs.device)
     per_particle_m = isinstance(mass, torch.Tensor) and mass.ndim == 1
-    fields = (xs, ys, zs, hs) + ((mass.to(torch.float32),) if per_particle_m else ())
-    packed, valid, pidx, overflow = ell_pack_gather(keys_sorted, perm, fields, cap, int(level),
-                                                    n_valid=n_valid)
-    px, py, pz, ph = packed[:4]
-    pm = torch.where(valid, packed[4], 0.0) if per_particle_m else None
-    wsum = stencil_density(px, py, pz, ph, valid, box.lengths, _periodic_flags(box), int(level),
-                           mass=pm)
-    # self term m_i * W(0) = m_i (unnormalised cubic spline) + normalisation
-    inv_h = torch.where(valid, 1.0 / ph, 0.0)
-    if per_particle_m:
-        rho_ell = float(np.float32(1.0 / np.pi)) * ((wsum + pm) * inv_h * inv_h * inv_h)
-    else:
-        norm = float(np.float32(mass) / np.float32(np.pi))
-        rho_ell = norm * ((wsum + 1.0) * inv_h * inv_h * inv_h)
-    return _scatter_back(rho_ell, valid, pidx, keys_sorted.shape[0]), overflow
+    with trace.span("density.pack"):
+        perm, _ = rowmajor_cell_perm(int(level), curve, device=xs.device)
+        fields = (xs, ys, zs, hs) + ((mass.to(torch.float32),) if per_particle_m else ())
+        packed, valid, pidx, overflow = ell_pack_gather(keys_sorted, perm, fields, cap, int(level),
+                                                        n_valid=n_valid)
+        px, py, pz, ph = packed[:4]
+        pm = torch.where(valid, packed[4], 0.0) if per_particle_m else None
+    with trace.span("density.pass"):
+        wsum = stencil_density(px, py, pz, ph, valid, box.lengths, _periodic_flags(box), int(level),
+                               mass=pm)
+    with trace.span("density.scatter"):
+        # self term m_i * W(0) = m_i (unnormalised cubic spline) + normalisation
+        inv_h = torch.where(valid, 1.0 / ph, 0.0)
+        if per_particle_m:
+            rho_ell = float(np.float32(1.0 / np.pi)) * ((wsum + pm) * inv_h * inv_h * inv_h)
+        else:
+            norm = float(np.float32(mass) / np.float32(np.pi))
+            rho_ell = norm * ((wsum + 1.0) * inv_h * inv_h * inv_h)
+        return _scatter_back(rho_ell, valid, pidx, keys_sorted.shape[0]), overflow
 
 
 def stencil_stats(offsets: torch.Tensor, perm: torch.Tensor, level: int) -> Tuple[torch.Tensor, torch.Tensor]:

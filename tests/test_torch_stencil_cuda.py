@@ -8,10 +8,13 @@ caps, a lane-table cap above 1024 with the lanes on either argument, and
 the wrap pair split across the two tables; B4 (the one-sided mode of
 csrc/stencil_sym.cu) against impl="xla" and against its plain version on
 rows of 0/1/32/33/64 slots at levels 2-5, periodic and open, at caps above
-1024 and on the wrap pairs; and every B1 and B3 launch of the tiered cell list on the arguments it made
-them with. Skips without an NVIDIA GPU and nvcc; chip_smoke.py phase 3 runs
-the same checks. Tolerance: counts bit-equal, density sums within rtol
-1e-5 (summation order differs, and varies from launch to launch)."""
+1024 and on the wrap pairs; every B1 and B3 launch of the tiered cell list on the arguments it made
+them with; and the SPH density cell's pass (B2 with per-particle masses
+at level 5, cap 128, 2M particles) within the benchmark's bound of its
+plain reference. Skips without an NVIDIA GPU and nvcc; chip_smoke.py
+phase 3 runs the same checks. Tolerance: counts bit-equal, density sums
+within rtol 1e-5 (summation order differs, and varies from launch to
+launch)."""
 
 import numpy as np
 import pytest
@@ -142,6 +145,40 @@ def test_launches_repeat(cuda_device):
     torch.cuda.synchronize()
     assert torch.equal(a, b)
     np.testing.assert_allclose(da.cpu().numpy(), db.cpu().numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_density_with_masses_within_the_reference_bound(cuda_device):
+    """The pass of the cell uniform-2M.density: cell_list_sph_density at
+    level 5 and cap 128 on 2M uniform particles with per-particle masses
+    (h 0.009-0.0125, masses uniform in [0.5, 1.5] / n): one B2 launch a
+    call (trace counter `density.kernel` 1, `density.plain` 0), and every
+    density within the benchmark's written bound of its plain reference
+    (benchmark/reference/compare_density.py, density.py)."""
+    from benchmark.reference.compare_density import density_bound, density_faults
+    from benchmark.reference.density import sph_density as reference_density
+    from cstone_tpu_torch.utils import trace
+
+    n, level, cap = 2_000_000, 5, 128
+    rng = np.random.RandomState(23)
+    pos = rng.uniform(0.0, 1.0, size=(3, n)).astype(np.float32)
+    h = rng.uniform(0.009, 0.0125, n).astype(np.float32)
+    m = rng.uniform(0.5, 1.5, n).astype(np.float32) / n
+    x, y, z, h, m = (torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device) for a in (*pos, h, m))
+    box = make_box(0.0, 1.0, boundaries=1, device=cuda_device)
+    keys, order = usort(compute_sfc_keys(x, y, z, box, np.uint64))
+    cols = tuple(c[order].contiguous() for c in (x, y, z, h, m))
+    before = stencil.launches()["stencil_density"]
+    with trace.collect() as tally:
+        rho, ovf = celllist.cell_list_sph_density(keys, *cols[:4], box, level, cap, mass=cols[4])
+    torch.cuda.synchronize()
+    assert not bool(ovf)
+    assert tally.read()["counts"] == {"density.kernel": 1}
+    assert stencil.launches()["stencil_density"] == before + 1
+    ref, near, _ = reference_density(*cols, 0.0, 1.0)
+    assert float(near.double().mean()) > 50.0
+    worst = float(((rho.double() - ref.double()).abs() / density_bound(ref, near)).max())
+    print(f"the densities' largest gap from the reference: {worst:.4g} of the bound")
+    assert int(density_faults(rho, ref, near).sum()) == 0, worst
 
 
 def cross_tables(dev, level, periodic, op, n=6000, seed=3, frac_b=0.3):

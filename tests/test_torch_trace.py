@@ -3,8 +3,10 @@ layer boundaries: Domain.sync's ten stages, the cell list's pack, pass
 and scatter, every collective of a comm, the passes of the global
 tree's and the focus tree's fixed points, mark_macs's walks (the plain
 walk on the CPU, one a focus round), the Hilbert codec's calls (the
-plain codec on the CPU, `sfc.plain`) and the linked-octree builds (the
-plain build on the CPU, `octree.plain`).
+plain codec on the CPU, `sfc.plain`), the linked-octree builds (the
+plain build on the CPU, `octree.plain`), and the SPH density's pack,
+pass and scatter with its route (the plain pass on the CPU,
+`density.plain`).
 
 Off, a span is one shared null context and a profiler sees none of the
 program's ranges; on, the stages open once a sync, in order, nested
@@ -14,6 +16,8 @@ counters equal the loops' passes; and tracing changes no output bit.
 2,000 uniform particles in the periodic unit cube, one rank and two
 (1,000 a rank), p2p and pool modes, a cold and a warm sync each."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -22,7 +26,7 @@ from cstone_tpu_torch.domain import Domain
 from cstone_tpu_torch.focus import octree_focus
 from cstone_tpu_torch.parallel import global_tree, run_ranks
 from cstone_tpu_torch.sfc import PERIODIC, hilbert, make_box
-from cstone_tpu_torch.traversal import cell_list_neighbor_counts, macs
+from cstone_tpu_torch.traversal import cell_list_neighbor_counts, cell_list_sph_density, macs
 from cstone_tpu_torch.tree import octree
 from cstone_tpu_torch.utils import trace
 
@@ -32,6 +36,7 @@ N, H, LEVEL, CELL_CAP, CAP = 2000, 0.05, 3, 64, 2000
 STAGES = ("sync.box", "sync.keys", "sync.tree", "sync.assign", "sync.exchange", "sync.focus", "sync.halos",
           "sync.layout", "sync.halo_exchange", "sync.overflow")
 CELLLIST = ("celllist.pack", "celllist.pass", "celllist.scatter")
+DENSITY = ("density.pack", "density.pass", "density.scatter")
 COLLECTIVES = ("all_gather", "all_reduce", "all_reduce_flag", "all_to_all", "ragged_all_to_all", "ppermute")
 SYNCS = 2  # a cold and a warm sync
 FIELDS = ("keys", "x", "y", "z", "h", "start_index", "end_index", "n_with_halos", "sort_order", "layout",
@@ -225,3 +230,31 @@ def _assert_bit_equal(on, off):
                 assert b[k] is None, k
             else:
                 assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), k
+
+
+def _density(traced: bool):
+    """One sync, then cell_list_sph_density with per-particle masses;
+    (densities, overflow, the tally's reading or None, the profiler's
+    program ranges)."""
+    xyz = _particles()
+    box = make_box(0.0, 1.0, boundaries=PERIODIC, device="cpu")
+    dom = Domain(bucket_size=32, tree_capacity=1024, device="cpu")
+    _, res = dom.sync(dom.init_state(box=box, boundaries=(1, 1, 1)), *xyz.unbind(0), torch.full((N,), H))
+    m = 0.5 + torch.from_numpy(np.random.default_rng(3).random(N, dtype=np.float32))
+    with contextlib.ExitStack() as stack:
+        tally = stack.enter_context(trace.collect()) if traced else None
+        prof = stack.enter_context(torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]))
+        rho, ovf = cell_list_sph_density(res.keys, res.x, res.y, res.z, res.h, box, LEVEL, CELL_CAP,
+                                         mass=dom.reapply_sync(res, m), n_valid=res.n_with_halos)
+    ranges = sorted((e.start_ns(), e.name()) for e in prof.profiler.kineto_results.events() if e.name() in DENSITY)
+    return rho, ovf, None if tally is None else tally.read(), [name for _, name in ranges]
+
+
+def test_density_opens_its_spans_in_order_and_counts_its_route():
+    rho, ovf, tally, ranges = _density(traced=True)
+    assert ranges == list(DENSITY)
+    assert {n: s["calls"] for n, s in tally["spans"].items()} == dict.fromkeys(DENSITY, 1)
+    assert tally["counts"] == {"density.plain": 1}  # the plain pass on the CPU; no density.kernel
+    off_rho, off_ovf, _, off_ranges = _density(traced=False)
+    assert off_ranges == []
+    assert torch.equal(rho, off_rho) and bool(ovf) == bool(off_ovf) is False
