@@ -7,8 +7,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
   1. card: nvidia-smi name and power limit, torch's device name; refuses
      to run without CUDA (there is no CPU fallback);
   2. build: compiles every registered kernel source (cuda_lib.libraries():
-     csrc/mark_macs.cu, neighbors_v1.cu, neighbors_v2.cu, octree.cu,
-     sfc.cu, stencil_sym.cu) with nvcc, one process each, all started together,
+     csrc/csarray.cu, mark_macs.cu, neighbors_v1.cu, neighbors_v2.cu,
+     octree.cu, sfc.cu, stencil_sym.cu) with nvcc, one process each, all started together,
      and prints ptxas' registers, shared memory and spills per kernel;
   3. kernel vs plain version on the card: B1/B2 (the half-stencil kernel)
      at levels 3 and 5, cap 64, periodic and open, uniform and Gaussian,
@@ -283,6 +283,18 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      queued builds, device_time_ms, and the ms a build issued back to
      back), its bound (bytes over 3.35 TB/s) and the plain build's ms
      (one warm call).
+ 20. the cornerstone fixed point's kernels (csrc/csarray.cu, T1) at the
+     benchmark cells' tree shapes: the trees of phase 19's uniform and
+     Gaussian TREE_N samples with uint64 keys, converged by
+     compute_octree, and a warm sync's round on them: the counts of the
+     sample drifted by up to a tenth of its spacing, the decision, the
+     emission, the new counts and the decision on them. Checks each call
+     bit-equal to its plain function (tree/csarray's *_plain) on the card
+     over the whole capacity, one launch a call, and no host read inside
+     it. Prints each call's torch operations against the plain
+     function's, and each function's ms (device time of TREE_REPS queued
+     calls, device_time_ms) beside its bound (bytes over 3.35 TB/s) and
+     the plain function's ms (one warm call).
 Each path's launch counts (B1-B6 and K1's sfc_encode, sfc_decode) are set to 0 just before it is driven and read
 just after (paths E and F each over their 4 steps; path G in each rank
 process, summed; path H over its two routes; path J over (a), plus (b)'s
@@ -3102,6 +3114,100 @@ def linked_octree_phase(dev, card) -> dict:
     return out
 
 
+def csarray_phase(dev, card) -> dict:
+    """Phase 20: T1 (the cornerstone fixed point's kernels, csrc/csarray.cu)
+    against the plain functions on the card, every output over the whole
+    capacity, on a warm sync's round over the 2M uniform and the 2M
+    Gaussian tree at TREE_CAP, uint64 keys; one launch a call, no host read
+    inside one; returns each function's times by tree."""
+    import warnings
+
+    import torch
+
+    from cstone_tpu_torch.ops import csarray as kernels
+    from cstone_tpu_torch.ops.keys64 import usort
+    from cstone_tpu_torch.sfc import PERIODIC, compute_sfc_keys, make_box
+    from cstone_tpu_torch.tree import csarray
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    samples = {"uniform": torch.rand(3, TREE_N, device=dev, generator=g),
+               "gauss": (torch.randn(3, TREE_N, device=dev, generator=g) * TREE_SIGMA + 0.5).clamp(0.0, 1.0)}
+    box = make_box(0.0, 1.0, boundaries=PERIODIC, device=dev)
+    cap = TREE_CAP
+    n_codes = torch.tensor(TREE_N, dtype=torch.int64, device=dev)
+    max_count = 0xFFFFFFFF - 1
+    # each function's bytes: its inputs read and its outputs written once
+    # (the counts' searches touch 21 particle keys a boundary: not counted)
+    key_bytes = (cap + 1) * 8
+    nbytes = {"counts": key_bytes + cap * 8, "decide": key_bytes + cap * 8 + cap * 4 + 1,
+              "emit": key_bytes + cap * 4 + cap * 8 * 2 + key_bytes}
+    plain = {"counts": csarray.compute_node_counts_plain, "decide": csarray.rebalance_decision_plain,
+             "emit": csarray.rebalance_tree_plain}
+    out = {}
+    for name, pos in samples.items():
+        keys, _ = usort(compute_sfc_keys(pos[0], pos[1], pos[2], box, np.uint64))
+        spacing = (1.0 / TREE_N) ** (1.0 / 3.0)
+        moved = (pos + (torch.rand(pos.shape, device=dev, generator=g) - 0.5) * (0.2 * spacing)).clamp(0.0, 1.0)
+        drifted, _ = usort(compute_sfc_keys(moved[0], moved[1], moved[2], box, np.uint64))
+        tree = csarray.compute_octree(keys, BUCKET, capacity=cap)
+        calls = []  # (function, kernel route, its plain function's arguments)
+
+        def held(fn, *args):
+            """One kernel call: one launch, no host read, bit-equal to plain."""
+            torch.cuda.synchronize()
+            before = kernels.launches()
+            with OpCounter() as ops:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    got = getattr(csarray, fn)(*args)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            after = kernels.launches()
+            kind = {"compute_node_counts": "counts", "rebalance_decision": "decide", "rebalance_tree": "emit"}[fn]
+            check({k: after[k] - before[k] for k in after} == {**dict.fromkeys(after, 0), kind: 1},
+                  f"T1, {name} tree, {fn}: {after} launches after {before} for one call")
+            with warnings.catch_warnings(record=True) as reads, OpCounter() as plain_ops:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    want = plain[kind](*args)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            got_t, want_t = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            for a, b in zip(got_t, want_t):
+                check(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b),
+                      f"T1, {name} tree, {fn}: differs from the plain function's")
+            calls.append((kind, args, ops.ops, plain_ops.ops, sum("synchroniz" in str(w.message) for w in reads)))
+            return got
+
+        counts = held("compute_node_counts", tree.keys, drifted, max_count, n_codes)
+        ops, converged = held("rebalance_decision", tree.keys, counts, tree.n_nodes, BUCKET)
+        new_keys, new_n = held("rebalance_tree", tree.keys, ops, tree.n_nodes)
+        new_counts = held("compute_node_counts", new_keys, drifted, max_count, n_codes)
+        _, converged2 = held("rebalance_decision", new_keys, new_counts, new_n, BUCKET)
+        n_ops = [int((ops[:int(tree.n_nodes)] == v).sum()) for v in (0, 8, 64)]
+        times = {}
+        launch = {"counts": kernels.node_counts, "decide": kernels.decide,
+                  "emit": lambda k, o, _n: kernels.emit(k, o)}
+        for kind in ("counts", "decide", "emit"):
+            args = next(c[1] for c in calls if c[0] == kind)  # the first call's
+            kernel_ms = device_time_ms(lambda: launch[kind](*args), TREE_REPS)
+            plain_ms = timed_ms(lambda: plain[kind](*args))[1]
+            bound_ms = nbytes[kind] / HBM_PEAK * 1e3
+            times[kind] = {"kernel_ms": kernel_ms, "bound_ms": bound_ms, "plain_ms": plain_ms}
+            print(f"T1 {name} 2M, {kind}: {kernel_ms:.4f} ms (device time of {TREE_REPS} queued calls), bound "
+                  f"{bound_ms:.4f} ms (bytes: {nbytes[kind]}), share {bound_ms / kernel_ms:.4f}; plain "
+                  f"{plain_ms:.3f} ms (one warm call) [{card}]", flush=True)
+        ops_line = ", ".join(f"{k} {o} (plain {p}, host reads {r})" for k, _, o, p, r in calls)
+        print(f"T1 {name} 2M, uint64 keys: {int(tree.n_nodes)} leaves, the drifted round's ops merge/split8/split64 "
+              f"{n_ops}, {int(new_n)} leaves after, converged {bool(converged)} then {bool(converged2)}; five calls "
+              f"bit-equal to the plain functions over capacity {cap}, one launch each, host reads 0; torch "
+              f"operations a call: {ops_line} [{card}]", flush=True)
+        out[name] = {"times": times, "ops": [c[2] for c in calls], "plain_ops": [c[3] for c in calls],
+                     "plain_reads": [c[4] for c in calls]}
+    return out
+
+
 def build_all():
     """Build every registered kernel library in parallel, one nvcc each,
     and the host C++ oracle of path L with g++ beside them."""
@@ -3197,6 +3303,9 @@ def main():
 
     phase("19 the linked-octree build (L1) at the benchmark cells' shapes")
     linked_octree_phase(dev, card)
+
+    phase("20 the cornerstone fixed point's kernels (T1) at the benchmark cells' tree shapes")
+    csarray_phase(dev, card)
 
     for e in (err4, err5, err6, err7, err9, err10, err11, err12, err14):
         for k, v in e.max.items():

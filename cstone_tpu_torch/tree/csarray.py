@@ -23,11 +23,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..ops import csarray as kernels
 from ..ops.keys64 import torch_key_dtype, ult
 from ..ops.primitives import searchsorted
 from ..sfc.keys import (log8_ceil, max_tree_level, node_range, octal_digit, span_sfc_range, span_sfc_range_count,
                         tree_level)
-from ..utils.device import resolve_device
+from ..utils import trace
+from ..utils.device import int64_on, resolve_device
 
 __all__ = [
     "MAX_UINT32",
@@ -114,6 +116,21 @@ def find_node_above(tree_keys: torch.Tensor, n_nodes, key: torch.Tensor) -> torc
 
 
 def compute_node_counts(tree_keys, codes, max_count=MAX_UINT32, n_codes=None) -> torch.Tensor:
+    """Particles per leaf (csarray.hpp:187-254). int64. CUDA keys launch
+    the counts kernel of csrc/csarray.cu, CPU keys take
+    compute_node_counts_plain; the result is the same."""
+    if tree_keys.device.type == "cuda":
+        trace.count("csarray.kernel")
+        if isinstance(n_codes, torch.Tensor):
+            n_codes = n_codes.to(device=tree_keys.device, dtype=torch.int64)
+        elif n_codes is not None:
+            n_codes = int(n_codes)
+        return kernels.node_counts(tree_keys, codes, int(max_count), n_codes)
+    trace.count("csarray.plain")
+    return compute_node_counts_plain(tree_keys, codes, max_count, n_codes)
+
+
+def compute_node_counts_plain(tree_keys, codes, max_count=MAX_UINT32, n_codes=None) -> torch.Tensor:
     """Particles per leaf via one vectorized binary search
     (csarray.hpp:187-254). int64.
 
@@ -160,8 +177,21 @@ def _sibling_and_level(tree_keys: torch.Tensor, n_nodes):
 
 
 def rebalance_decision(tree_keys, counts, n_nodes, bucket_size):
-    """Per-node op codes {0: merge, 1: keep, 8/64/512/4096: split} and a
-    convergence flag, a 0-d bool tensor (csarray.hpp:285-348)."""
+    """Per-node op codes {0: merge, 1: keep, 8/64/512/4096: split}, int32,
+    and a convergence flag, a 0-d bool tensor (csarray.hpp:285-348). CUDA
+    keys launch the decision kernel of csrc/csarray.cu, CPU keys take
+    rebalance_decision_plain; the result is the same."""
+    if tree_keys.device.type == "cuda":
+        trace.count("csarray.kernel")
+        n_nodes = int64_on(n_nodes, tree_keys.device)
+        return kernels.decide(tree_keys, counts.to(torch.int64), n_nodes, int(bucket_size))
+    trace.count("csarray.plain")
+    return rebalance_decision_plain(tree_keys, counts, n_nodes, bucket_size)
+
+
+def rebalance_decision_plain(tree_keys, counts, n_nodes, bucket_size):
+    """rebalance_decision in torch operations, the version CPU tensors
+    take."""
     lmax = max_tree_level(tree_keys.dtype)
     cap = tree_keys.shape[0] - 1
     idx = torch.arange(cap, device=tree_keys.device)
@@ -191,7 +221,20 @@ def rebalance_decision(tree_keys, counts, n_nodes, bucket_size):
 
 
 def rebalance_tree(tree_keys, node_ops, n_nodes):
-    """Emit the rebalanced tree from op codes (csarray.hpp:350-409).
+    """Emit the rebalanced tree from int32 op codes (csarray.hpp:350-409):
+    (new_keys (cap+1,), new_n_nodes). CUDA keys take one scan and the
+    emission kernel of csrc/csarray.cu, CPU keys rebalance_tree_plain; the
+    result is the same."""
+    if tree_keys.device.type == "cuda":
+        trace.count("csarray.kernel")
+        return kernels.emit(tree_keys, node_ops)
+    trace.count("csarray.plain")
+    return rebalance_tree_plain(tree_keys, node_ops, n_nodes)
+
+
+def rebalance_tree_plain(tree_keys, node_ops, n_nodes):
+    """Emit the rebalanced tree from op codes (csarray.hpp:350-409) in
+    torch operations, the version CPU tensors take.
 
     Output slot j is produced by the unique source m with exc[m] <= j <
     inc[m] (inclusive/exclusive scans of the op codes); its key is the

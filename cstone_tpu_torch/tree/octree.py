@@ -37,6 +37,7 @@ from ..sfc.keys import (
     tree_level,
 )
 from ..utils import trace
+from ..utils.device import int64_on
 
 __all__ = [
     "LinkedOctree", "internal_capacity", "build_linked_octree", "locate_node",
@@ -122,10 +123,7 @@ def build_linked_octree(leaves: torch.Tensor, n_leaf, cap_nodes: int | None = No
     dev = leaves.device
     if dev.type == "cuda":
         trace.count("octree.kernel")
-        if isinstance(n_leaf, torch.Tensor):
-            n_leaf = n_leaf.to(device=dev, dtype=torch.int64)
-        else:  # filled on the card: an upload of a host int would wait for it
-            n_leaf = torch.full((), int(n_leaf), dtype=torch.int64, device=dev)
+        n_leaf = int64_on(n_leaf, dev)
         *arrays, n_internal = linked_octree.build(leaves, n_leaf, cap_nodes, cap_parents)
         return LinkedOctree(*arrays, leaves=leaves, n_leaf=n_leaf, n_internal=n_internal)
     trace.count("octree.plain")

@@ -4,9 +4,10 @@ and scatter, every collective of a comm, the passes of the global
 tree's and the focus tree's fixed points, mark_macs's walks (the plain
 walk on the CPU, one a focus round), the Hilbert codec's calls (the
 plain codec on the CPU, `sfc.plain`), the linked-octree builds (the
-plain build on the CPU, `octree.plain`), and the SPH density's pack,
-pass and scatter with its route (the plain pass on the CPU,
-`density.plain`).
+plain build on the CPU, `octree.plain`), the cornerstone fixed point's
+counts, decisions and emissions (the plain functions on the CPU,
+`csarray.plain`), and the SPH density's pack, pass and scatter with its
+route (the plain pass on the CPU, `density.plain`).
 
 Off, a span is one shared null context and a profiler sees none of the
 program's ranges; on, the stages open once a sync, in order, nested
@@ -27,7 +28,7 @@ from cstone_tpu_torch.focus import octree_focus
 from cstone_tpu_torch.parallel import global_tree, run_ranks
 from cstone_tpu_torch.sfc import PERIODIC, hilbert, make_box
 from cstone_tpu_torch.traversal import cell_list_neighbor_counts, cell_list_sph_density, macs
-from cstone_tpu_torch.tree import octree
+from cstone_tpu_torch.tree import csarray, octree
 from cstone_tpu_torch.utils import trace
 
 import torch_threads  # noqa: F401  (two intra-op threads per xdist worker)
@@ -39,6 +40,7 @@ CELLLIST = ("celllist.pack", "celllist.pass", "celllist.scatter")
 DENSITY = ("density.pack", "density.pass", "density.scatter")
 COLLECTIVES = ("all_gather", "all_reduce", "all_reduce_flag", "all_to_all", "ragged_all_to_all", "ppermute")
 SYNCS = 2  # a cold and a warm sync
+CSARRAY_PLAIN = ("compute_node_counts_plain", "rebalance_decision_plain", "rebalance_tree_plain")
 FIELDS = ("keys", "x", "y", "z", "h", "start_index", "end_index", "n_with_halos", "sort_order", "layout",
           "halo_flags", "leaf_counts", "overflow", "overflow_detail", "global_ids", "pool_perm")
 
@@ -90,14 +92,16 @@ class _Passes:
     """Counts the calls of the loop bodies' functions (the global tree's
     update_global_octree, the focus tree's focus_update_once and
     mark_macs), of the plain Hilbert codec's (ihilbert, ihilbert_top,
-    decode_hilbert) and of the plain linked-octree build (_build_plain),
-    from every thread, while installed."""
+    decode_hilbert), of the plain linked-octree build (_build_plain) and
+    of the fixed point's plain functions (CSARRAY_PLAIN), from every
+    thread, while installed."""
 
     def __init__(self, monkeypatch):
         self.n = {}
         for module, name in ((global_tree, "update_global_octree"), (octree_focus, "focus_update_once"),
                              (macs, "mark_macs"), (hilbert, "ihilbert"), (hilbert, "ihilbert_top"),
-                             (hilbert, "decode_hilbert"), (octree, "_build_plain")):
+                             (hilbert, "decode_hilbert"), (octree, "_build_plain"),
+                             *((csarray, name) for name in CSARRAY_PLAIN)):
             self.n[name] = 0
             monkeypatch.setattr(module, name, self._counted(name, getattr(module, name)))
 
@@ -189,10 +193,12 @@ def test_counters_equal_the_loops_passes(two_ranks):
     assert codec > 0 and codec % 2 == 0
     builds = passes["_build_plain"]
     assert builds > 0 and builds % 2 == 0
+    fixed_point = sum(passes[name] for name in CSARRAY_PLAIN)
+    assert fixed_point > 0 and fixed_point % 2 == 0
     for _, tally, _ in traced:
         assert tally["counts"] == {"tree.rounds": tree // 2, "focus.rounds": focus // 2,
                                    "macs.plain": focus // 2, "sfc.plain": codec // 2,
-                                   "octree.plain": builds // 2}, mode
+                                   "octree.plain": builds // 2, "csarray.plain": fixed_point // 2}, mode
 
 
 def test_one_rank_counts_tree_rounds_and_no_focus_rounds(monkeypatch):
@@ -201,8 +207,11 @@ def test_one_rank_counts_tree_rounds_and_no_focus_rounds(monkeypatch):
         _steps(None, "p2p", 1)  # equal buckets at one rank: fast_focus, no converge loop
     assert passes.n["focus_update_once"] == passes.n["mark_macs"] == 0
     codec = passes.n["ihilbert"] + passes.n["ihilbert_top"] + passes.n["decode_hilbert"]
+    fixed_point = sum(passes.n[name] for name in CSARRAY_PLAIN)
     assert tally.read()["counts"] == {"tree.rounds": passes.n["update_global_octree"], "sfc.plain": codec,
-                                      "octree.plain": passes.n["_build_plain"]}
+                                      "octree.plain": passes.n["_build_plain"], "csarray.plain": fixed_point}
+    # a count and a decision, then a decision, an emission, a count and a decision a round
+    assert fixed_point == 2 * SYNCS + 4 * passes.n["update_global_octree"]
     assert codec > 0 and passes.n["_build_plain"] > 0
     assert passes.n["update_global_octree"] > 0
 
