@@ -56,7 +56,11 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      steps, then one "v1" pass (B6); checks the mean count 57.9 +- 0.5,
      that v2, v1 and the cell list agree on the same sync except for at
      most 10 particles differing by 1 (threshold flips across the
-     periodic wrap: each route computes the image its own way), and the
+     periodic wrap: each route computes the image its own way), then
+     find_neighbors with index lists on the default route (B5's list
+     mode) at ng_max 200 and at 48 (rows that overflow), each launch
+     bit-equal to its plain twin in counts and lists, the counts equal to
+     the v2 counts and the list mode timed; and the
      last B5 and B6 launches bit-equal to their plain versions on the
      arguments they were given;
   7. path C, a Domain whose focus tree is not its global tree: 1M uniform
@@ -348,6 +352,10 @@ POOL_DRIFT_STEPS = 3
 # this sync, above bench.py's 3584; bench.py's tile=1024 has no
 # counterpart in the port (the B5 kernel tiles by the group size)
 NB_KW = dict(group_size=256, cand_leaf_cap=320, cand_cap=4096, run_cap=48, frontier_cap=256)
+# the benchmark cell uniform-2M.search (benchmark/configs/uniform-2M-h012-ngmax200.json):
+# 2M uniform particles in the periodic unit cube, h = H, index lists of NG_MAX a row
+SEARCH_N, NG_MAX = 2_000_000, 200
+SEARCH_KW = dict(group_size=64, cand_leaf_cap=256, frontier_cap=64, run_cap=48)
 # the group settings of tests/test_neighbors.py
 NB_TEST_KW = dict(group_size=32, cand_cap=8192, cand_leaf_cap=640)
 
@@ -361,6 +369,8 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
                             "cstone_tpu/ops/pallas_neighbors_v2.py:103"),
     "pairwise_count": ("cstone_tpu_torch/csrc/neighbors_v1.cu",
                        "cstone_tpu/ops/pallas_neighbors.py:31"),
+    "pairwise_list_runs": ("cstone_tpu_torch/csrc/neighbors_v2.cu",
+                           "cstone_tpu/traversal/neighbors.py:330 (XLA lists; no Pallas kernel)"),
 }
 
 
@@ -1240,8 +1250,106 @@ def find_neighbors_phase(dev, card):
         print(f"{name} at {times[name]['shape']}: kernel {times[name]['ms']:.4f} ms, "
               f"plain {times[name]['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), share of bound "
               f"{b_ms / times[name]['ms']:.4f} [{card}]", flush=True)
+    list_launches, path_b = list_mode(res, view, state.box, counts, err, card)
     keep = {"res": res, "box": state.box, "view": view, "counts": counts[:N]}  # path H's inputs
-    return {k: launches[k] for k in ("pairwise_count_runs", "pairwise_count")}, err, times, keep
+    times["pairwise_list_runs"] = {**search_cell_list_mode(dev, err, card), "path_b": path_b}
+    launches = {k: launches[k] for k in ("pairwise_count_runs", "pairwise_count")}
+    return {**launches, "pairwise_list_runs": list_launches}, err, times, keep
+
+
+def list_bound(counts, ng_max):
+    """(bound_ms, bound_by) of B5's list mode over the targets of `counts`:
+    d2, the compare and the append of each hit, and the positions and h
+    read, the counts and the rows of ng_max int64 slots written once."""
+    n = counts.numel()
+    return bound(float(counts.double().sum()) * (OPS_D2 + OPS_CMP + 1), n * (16 + 4 + 8 * ng_max))
+
+
+def list_mode(res, view, box, counts, err, card):
+    """Phase 6's index lists: find_neighbors(with_indices=True) on the
+    default route (B5's list mode on the card) at ng_max NG_MAX, the
+    benchmark cell's, and at 48, below the mean count; each launch
+    bit-equal to its plain twin, the counts to the v2 counts; the list
+    mode timed at NG_MAX against its bound. Returns (the list mode's
+    launches on path B, counted from a reset just before them; its
+    times)."""
+    import torch
+
+    from cstone_tpu_torch.ops import neighbors_v2
+    from cstone_tpu_torch.ops.cuda_lib import record_launches
+    from cstone_tpu_torch.traversal import find_neighbors
+
+    reset_all_launches()
+    for ng_max in (NG_MAX, 48):
+        with record_launches() as calls:
+            got_counts, lists = find_neighbors(res.x, res.y, res.z, res.h, view, box, with_indices=True,
+                                               ng_max=ng_max, n_targets=N, **NB_KW)
+        [(name, args, (kc, kl))] = calls
+        check(name == "pairwise_list_runs", f"the default route for index lists launched {name}")
+        want_c, want_l = plain_of(name)(*args)
+        err.counts(name, kc, want_c, f"phase-6 inputs, ng_max {ng_max}: counts")
+        err.counts(name, kl, want_l, f"phase-6 inputs, ng_max {ng_max}: lists")
+        check(torch.equal(got_counts[:N], counts[:N]), f"list-mode counts differ from the v2 counts at ng_max {ng_max}")
+        over = int((kc > ng_max).sum())
+        print(f"B5 list mode at ng_max {ng_max}: counts and lists bit-equal to the plain twin, "
+              f"{over} rows overflow, lists {tuple(lists.shape)} [{card}]", flush=True)
+    n_launches = all_launches()["pairwise_list_runs"]
+    check(n_launches == 2, f"path B's two index-list calls launched B5's list mode {n_launches} times")
+    args = args[:-1] + (NG_MAX,)
+    ms = device_time_ms(lambda: neighbors_v2.pairwise_list_runs(*args), 10)
+    b_ms, b_by = list_bound(counts[:N], NG_MAX)
+    shape = f"{N} particles, {args[0].shape[0]} groups of {args[0].shape[1]}, ng_max {NG_MAX}"
+    print(f"pairwise_list_runs at {shape}: kernel {ms:.4f} ms device, bound {b_ms:.4f} ms ({b_by}), "
+          f"share of bound {b_ms / ms:.4f} [{card}]", flush=True)
+    return n_launches, {"ms": ms, "shape": shape, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def search_cell_list_mode(dev, err, card) -> dict:
+    """B5's list mode at the shape of the benchmark cell uniform-2M.search:
+    SEARCH_N uniform particles at h = H, bucket 64, tree capacity
+    TREE_CAP, find_neighbors(with_indices=True) at the cell's group size,
+    capacities and NG_MAX on one sync; the launch bit-equal to its plain
+    twin in counts and lists, its counts to B5's count mode, timed on the
+    card against its bound. Returns the times."""
+    import torch
+
+    from cstone_tpu_torch import multichip
+    from cstone_tpu_torch.domain import Domain, sync_with_retry
+    from cstone_tpu_torch.ops import neighbors_v2
+    from cstone_tpu_torch.ops.cuda_lib import record_launches
+    from cstone_tpu_torch.traversal import find_neighbors
+
+    setup = multichip.uniform_setup(SEARCH_N, dev, SEED)
+    h = torch.full((SEARCH_N,), H, dtype=torch.float32, device=dev)
+
+    def warm(caps):
+        domain = Domain(bucket_size=BUCKET, tree_capacity=caps["tree"], device=dev)
+        state = domain.init_state(box=setup["box"], boundaries=(1, 1, 1))
+        return domain, *domain.sync(state, *setup["xyz"], h)
+
+    (domain, state, res), _ = sync_with_retry(warm, {"tree": TREE_CAP})
+    view = domain.ns_view(res, state.box)
+    with record_launches() as calls:
+        counts, _ = find_neighbors(res.x, res.y, res.z, res.h, view, state.box, with_indices=True, ng_max=NG_MAX,
+                                   n_targets=SEARCH_N, **SEARCH_KW)
+    [(name, args, (kc, kl))] = calls
+    check(name == "pairwise_list_runs", f"the cell's index lists launched {name}")
+    (want_c, want_l), plain_ms = timed_ms(lambda: plain_of(name)(*args))
+    what = f"uniform-2M.search's shape, {SEARCH_N} particles, groups of {SEARCH_KW['group_size']}"
+    err.counts(name, kc, want_c, what + ": counts")
+    err.counts(name, kl, want_l, what + ": lists")
+    del want_c, want_l
+    check(torch.equal(kc, neighbors_v2.pairwise_count_runs(*args[:-1])), f"list-mode counts differ from B5's ({what})")
+    mean_nb = float(counts[:SEARCH_N].double().mean())
+    over = int((kc > NG_MAX).sum())
+    ms = device_time_ms(lambda: neighbors_v2.pairwise_list_runs(*args), 10)
+    b_ms, b_by = list_bound(counts[:SEARCH_N], NG_MAX)
+    shape = (f"uniform-2M.search's shape: {SEARCH_N} particles, h {H}, {args[0].shape[0]} groups of "
+             f"{args[0].shape[1]}, ng_max {NG_MAX} (plain: one call)")
+    print(f"pairwise_list_runs at {shape}: counts and lists bit-equal to the plain twin, mean neighbours "
+          f"{mean_nb:.3f}, {over} rows overflow; kernel {ms:.4f} ms device, plain {plain_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}), share of bound {b_ms / ms:.4f} [{card}]", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "shape": shape, "bound_ms": b_ms, "bound_by": b_by}
 
 
 # ----------------------------------------------------------------------------

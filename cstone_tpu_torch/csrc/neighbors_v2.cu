@@ -1,8 +1,10 @@
-// Run-streaming pairwise neighbour counts for NVIDIA Hopper (sm_90a).
+// Run-streaming pairwise neighbour counts and lists for NVIDIA Hopper
+// (sm_90a).
 //
 // Replaces the Pallas TPU kernel cstone_tpu/ops/pallas_neighbors_v2.py:103
 // _kernel (_call :251-283, wrapper pairwise_count_runs :206), the default
-// counts path of find_neighbors.
+// counts path of find_neighbors. The list mode (cstone_list_runs, no TPU
+// counterpart) is the same tile loop writing each target's neighbours.
 //
 // Per group of G SFC-consecutive targets, the group's candidate particles
 // are a few contiguous runs of the SFC-sorted coordinate arrays
@@ -45,6 +47,15 @@
 //
 // Rounding: each operation is rounded on its own (__f*_rn, --fmad=false),
 // in the operation order of the plain PyTorch version.
+//
+// List mode: the same template with LIST set. A thread owns its targets'
+// rows of ng_max int64 slots, so on a hit it writes the candidate's index
+// at the row's next slot while the count is below ng_max, and counts on
+// (counts may exceed ng_max; a pair is listed exactly when count mode
+// counts it). Tiles are taken in run order, and runs from merge_leaf_runs
+// are sorted and disjoint, so each row is ascending. After the walk the
+// CTA pads the rows with -1, a warp a row at a time over its tail: a
+// group's G rows are one contiguous block, so these writes coalesce.
 //
 // C interface: the entry point launches on the given stream and returns
 // cudaGetLastError() (0 on success).
@@ -98,12 +109,15 @@ struct Targets {
     float x[TPT], y[TPT], z[TPT], r2[TPT];
     int self_j[TPT];  // this target's slot in the current tile (when it holds it)
     int count[TPT];
+    int64_t* row[TPT];  // list mode: the target's ng_max slots
 };
 
-// The tests of one staged tile of m candidates against the thread's targets.
-template <int MODE, bool SELF>
+// The tests of one staged tile of m candidates c0 .. c0 + m - 1 against
+// the thread's targets.
+template <int MODE, bool SELF, bool LIST>
 __device__ __forceinline__ void test_tile(const float4* __restrict__ c4, int m, Targets& q,
-                                          float sx, float sy, float sz, const Box& box) {
+                                          float sx, float sy, float sz, const Box& box,
+                                          int64_t c0, int ng_max) {
 #pragma unroll 4  // overlaps the independent tests of consecutive candidates
     for (int j = 0; j < m; ++j) {
         const float4 c = c4[j];
@@ -123,25 +137,35 @@ __device__ __forceinline__ void test_tile(const float4* __restrict__ c4, int m, 
             }
             const float d2 =
                 __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-            q.count[u] += (d2 < q.r2[u]) && (!SELF || j != q.self_j[u]);
+            const bool hit = (d2 < q.r2[u]) && (!SELF || j != q.self_j[u]);
+            if (LIST) {
+                if (hit) {
+                    if (q.count[u] < ng_max) q.row[u][q.count[u]] = c0 + j;
+                    ++q.count[u];
+                }
+            } else {
+                q.count[u] += hit;
+            }
         }
     }
 }
 
-template <int MODE>
+template <int MODE, bool LIST>
 __device__ __forceinline__ void run_tile(bool self, const float4* __restrict__ c4, int m,
                                          Targets& q, float sx, float sy, float sz,
-                                         const Box& box) {
-    if (self) test_tile<MODE, true>(c4, m, q, sx, sy, sz, box);
-    else test_tile<MODE, false>(c4, m, q, sx, sy, sz, box);
+                                         const Box& box, int64_t c0, int ng_max) {
+    if (self) test_tile<MODE, true, LIST>(c4, m, q, sx, sy, sz, box, c0, ng_max);
+    else test_tile<MODE, false, LIST>(c4, m, q, sx, sy, sz, box, c0, ng_max);
 }
 
+// LIST: lists holds G rows of ng_max slots a group, written as above
+template <bool LIST>
 __global__ void __launch_bounds__(1024 / TPT)
-count_runs_kernel(const float* __restrict__ targets, const float* __restrict__ r2, int G,
-                  const int32_t* __restrict__ run_start, const int32_t* __restrict__ run_len,
-                  int R, const float* __restrict__ xs, const float* __restrict__ ys,
-                  const float* __restrict__ zs, const float* __restrict__ box_params,
-                  int32_t* __restrict__ out) {
+runs_kernel(const float* __restrict__ targets, const float* __restrict__ r2, int G,
+            const int32_t* __restrict__ run_start, const int32_t* __restrict__ run_len, int R,
+            const float* __restrict__ xs, const float* __restrict__ ys,
+            const float* __restrict__ zs, const float* __restrict__ box_params,
+            int32_t* __restrict__ out, int ng_max, int64_t* __restrict__ lists) {
     extern __shared__ float4 tiles[];  // [2][TILE]
     __shared__ float warp_ext[6][32];
     const int S = blockDim.x;
@@ -164,6 +188,7 @@ count_runs_kernel(const float* __restrict__ targets, const float* __restrict__ r
         q.x[u] = q.y[u] = q.z[u] = 0.0f;
         q.r2[u] = -1.0f;
         q.count[u] = 0;
+        q.row[u] = LIST && i < G ? lists + (g0 + i) * ng_max : nullptr;
         if (i < G) {
             q.x[u] = targets[3 * (g0 + i) + 0];
             q.y[u] = targets[3 * (g0 + i) + 1];
@@ -256,9 +281,9 @@ count_runs_kernel(const float* __restrict__ targets, const float* __restrict__ r
 #pragma unroll
             for (int u = 0; u < TPT; ++u) q.self_j[u] = static_cast<int>(g0 + t + u * S - c0);
         }
-        if (each) run_tile<IMAGE_EACH>(self, c4, m, q, 0.0f, 0.0f, 0.0f, box);
-        else if (shift) run_tile<IMAGE_SHIFT>(self, c4, m, q, s[0], s[1], s[2], box);
-        else run_tile<IMAGE_NONE>(self, c4, m, q, 0.0f, 0.0f, 0.0f, box);
+        if (each) run_tile<IMAGE_EACH, LIST>(self, c4, m, q, 0.0f, 0.0f, 0.0f, box, c0, ng_max);
+        else if (shift) run_tile<IMAGE_SHIFT, LIST>(self, c4, m, q, s[0], s[1], s[2], box, c0, ng_max);
+        else run_tile<IMAGE_NONE, LIST>(self, c4, m, q, 0.0f, 0.0f, 0.0f, box, c0, ng_max);
         __syncthreads();  // the tile is read before the next stage overwrites it
         r = nr;
         base = nbase;
@@ -268,6 +293,21 @@ count_runs_kernel(const float* __restrict__ targets, const float* __restrict__ r
     for (int u = 0; u < TPT; ++u) {
         const int i = t + u * S;
         if (i < G) out[g0 + i] = q.count[u];
+    }
+    if (LIST) {
+        // the tiles are read (the loop's last barrier): their memory holds
+        // each row's first free slot
+        int* filled = reinterpret_cast<int*>(tiles);
+#pragma unroll
+        for (int u = 0; u < TPT; ++u) {
+            const int i = t + u * S;
+            if (i < G) filled[i] = min(q.count[u], ng_max);
+        }
+        __syncthreads();
+        for (int i = wid; i < G; i += n_warps) {
+            int64_t* row = lists + (g0 + i) * ng_max;
+            for (int k = filled[i] + lane; k < ng_max; k += 32) row[k] = -1;
+        }
     }
 }
 
@@ -281,7 +321,22 @@ extern "C" int cstone_count_runs(const float* targets, const float* r2, const in
                                  const float* box, int32_t* out, void* stream) {
     const int S = 32 * ((group_size + 32 * TPT - 1) / (32 * TPT));
     const size_t smem = static_cast<size_t>(2) * S * TPT * sizeof(float4);
-    count_runs_kernel<<<n_groups, S, smem, static_cast<cudaStream_t>(stream)>>>(
-        targets, r2, group_size, run_start, run_len, R, xs, ys, zs, box, out);
+    runs_kernel<false><<<n_groups, S, smem, static_cast<cudaStream_t>(stream)>>>(
+        targets, r2, group_size, run_start, run_len, R, xs, ys, zs, box, out, 0, nullptr);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The list mode on the same grid: counts as above, and lists
+// (n_groups * G rows of ng_max int64) the first ng_max neighbours of each
+// target in run order, padded with -1.
+extern "C" int cstone_list_runs(const float* targets, const float* r2, const int32_t* run_start,
+                                const int32_t* run_len, int n_groups, int group_size, int R,
+                                const float* xs, const float* ys, const float* zs,
+                                const float* box, int ng_max, int32_t* out, int64_t* lists,
+                                void* stream) {
+    const int S = 32 * ((group_size + 32 * TPT - 1) / (32 * TPT));
+    const size_t smem = static_cast<size_t>(2) * S * TPT * sizeof(float4);
+    runs_kernel<true><<<n_groups, S, smem, static_cast<cudaStream_t>(stream)>>>(
+        targets, r2, group_size, run_start, run_len, R, xs, ys, zs, box, out, ng_max, lists);
     return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
-"""Run-streaming neighbor counts: `merge_leaf_runs`, the hand-written CUDA
-kernel (B5) and its plain PyTorch version.
+"""Run-streaming neighbor counts and lists: `merge_leaf_runs`, the
+hand-written CUDA kernel (B5), its list mode, and their plain PyTorch
+versions.
 
 Replaces cstone_tpu/ops/pallas_neighbors_v2.py: `merge_leaf_runs` (:36,
 ported bit-equal) and the Pallas TPU kernel `_kernel` (:103, wrapper
@@ -9,7 +10,11 @@ Contract: per group of G SFC-consecutive targets (global index g*G + t),
 count the candidates c of the group's contiguous particle runs with
 c != g*G + t and d2 < r2_t, the displacement taking the minimum image
 k = floor(d / L + 1/2) on periodic dims, as the TPU kernel does. Targets
-with r2 < 0 count 0.
+with r2 < 0 count 0. The list mode (pairwise_list_runs, no TPU
+counterpart) returns the same counts and, per target, its first ng_max
+neighbours in run order, padded with -1: ascending slot order, since the
+runs from merge_leaf_runs are sorted and disjoint. A pair is listed
+exactly when the count mode counts it.
 
 Kernel design (csrc/neighbors_v2.cu): one CTA per group, two targets per
 thread, the runs staged as float4 tiles with double-buffered cp.async;
@@ -20,9 +25,12 @@ agree, one hoisted shift (or none) serves every pair bit for bit; only
 tiles whose range holds two k values take the per-pair image. The self
 test runs only in tiles that overlap the group's own particles.
 pairwise_count_runs_tiled_plain makes the same per-tile decisions in
-PyTorch for the tests. The TPU kernel's 1024-element window alignment,
-clamped-window mask and group_block padding are HBM-slice workarounds and
-are gone. Counts are int32 (uint32 in the JAX package).
+PyTorch for the tests. The list mode is a template instance of the same
+tile loop: a thread writes its targets' hits into their rows as it counts
+them, and the CTA pads the rows with -1 at the end. The TPU kernel's
+1024-element window alignment, clamped-window mask and group_block
+padding are HBM-slice workarounds and are gone. Counts are int32 (uint32
+in the JAX package).
 
 CPU tensors take the plain version; CUDA tensors always launch the kernel,
 and a build or launch failure raises.
@@ -44,6 +52,8 @@ __all__ = [
     "pairwise_count_runs",
     "pairwise_count_runs_plain",
     "pairwise_count_runs_tiled_plain",
+    "pairwise_list_runs",
+    "pairwise_list_runs_plain",
     "load_library",
     "launches",
     "reset_launches",
@@ -56,10 +66,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.cstone_count_runs.argtypes = [p, p, p, p, i, i, i, p, p, p, p, p, p]
     lib.cstone_count_runs.restype = i
+    lib.cstone_list_runs.argtypes = [p, p, p, p, i, i, i, p, p, p, p, i, p, p, p]
+    lib.cstone_list_runs.restype = i
 
 
 LIBRARY = CudaLibrary("neighbors_v2.cu", _bind)
-_LAUNCHES = LaunchCounts("pairwise_count_runs")
+_LAUNCHES = LaunchCounts("pairwise_count_runs", "pairwise_list_runs")
 
 
 def load_library() -> ctypes.CDLL:
@@ -155,6 +167,19 @@ def _check(targets, r2, run_start, run_len, xs, ys, zs, box_params):
         raise ValueError(f"unsupported device {dev}")
 
 
+def _kernel_args(targets, r2, run_start, run_len, xs, ys, zs, box_params) -> Tuple[list, list]:
+    """(the contiguous inputs, runs as int32, to keep alive until the
+    launch is queued; the C entry points' leading arguments: their
+    pointers, the group count and size and the run cap)."""
+    n_groups, G, _ = targets.shape
+    args = [a.contiguous() for a in (targets, r2)]
+    runs = [a.to(torch.int32).contiguous() for a in (run_start, run_len)]
+    coords = [a.contiguous() for a in (xs, ys, zs, box_params.to(torch.float32))]
+    cargs = [ptr(args[0]), ptr(args[1]), ptr(runs[0]), ptr(runs[1]), n_groups, G, run_start.shape[1],
+             *(ptr(a) for a in coords)]
+    return args + runs + coords, cargs
+
+
 def pairwise_count_runs(targets, r2, run_start, run_len, xs, ys, zs, box_params) -> torch.Tensor:
     """(n_groups, G) int32 neighbor counts by run streaming (B5).
 
@@ -168,16 +193,39 @@ def pairwise_count_runs(targets, r2, run_start, run_len, xs, ys, zs, box_params)
         return pairwise_count_runs_plain(targets, r2, run_start, run_len, xs, ys, zs, box_params)
     n_groups, G, _ = targets.shape
     lib = load_library()
-    args = [a.contiguous() for a in (targets, r2)]
-    runs = [a.to(torch.int32).contiguous() for a in (run_start, run_len)]
-    coords = [a.contiguous() for a in (xs, ys, zs, box_params.to(torch.float32))]
+    _keep, cargs = _kernel_args(targets, r2, run_start, run_len, xs, ys, zs, box_params)
     out = torch.empty((n_groups, G), dtype=torch.int32, device=targets.device)
-    err = lib.cstone_count_runs(ptr(args[0]), ptr(args[1]), ptr(runs[0]), ptr(runs[1]),
-                                n_groups, G, run_start.shape[1], *(ptr(a) for a in coords),
-                                ptr(out), stream_of(targets))
+    err = lib.cstone_count_runs(*cargs, ptr(out), stream_of(targets))
     check_launch(err, "pairwise_count_runs")
     _LAUNCHES.launched("pairwise_count_runs", (targets, r2, run_start, run_len, xs, ys, zs, box_params), out)
     return out
+
+
+def pairwise_list_runs(targets, r2, run_start, run_len, xs, ys, zs, box_params,
+                       ng_max: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B5's list mode: (counts (n_groups, G) int32, lists (n_groups, G,
+    ng_max) int64). The arguments are pairwise_count_runs's and the row
+    width ng_max. Counts are full counts, bit-equal to
+    pairwise_count_runs's, and may exceed ng_max; a row holds the target's
+    first min(count, ng_max) neighbours in run order (ascending slot order
+    for the sorted, disjoint runs of merge_leaf_runs), then -1. Empty
+    input launches nothing."""
+    _check(targets, r2, run_start, run_len, xs, ys, zs, box_params)
+    ng_max = int(ng_max)
+    if targets.device.type == "cpu":
+        return pairwise_list_runs_plain(targets, r2, run_start, run_len, xs, ys, zs, box_params, ng_max)
+    n_groups, G, _ = targets.shape
+    counts = torch.empty((n_groups, G), dtype=torch.int32, device=targets.device)
+    lists = torch.empty((n_groups, G, ng_max), dtype=torch.int64, device=targets.device)
+    if n_groups * G == 0:
+        return counts, lists
+    lib = load_library()
+    _keep, cargs = _kernel_args(targets, r2, run_start, run_len, xs, ys, zs, box_params)
+    err = lib.cstone_list_runs(*cargs, ng_max, ptr(counts), ptr(lists), stream_of(targets))
+    check_launch(err, "pairwise_list_runs")
+    _LAUNCHES.launched("pairwise_list_runs",
+                       (targets, r2, run_start, run_len, xs, ys, zs, box_params, ng_max), (counts, lists))
+    return counts, lists
 
 
 def _runs_to_candidates(run_start: torch.Tensor, run_len: torch.Tensor):
@@ -196,17 +244,16 @@ def _runs_to_candidates(run_start: torch.Tensor, run_len: torch.Tensor):
     return torch.where(j < total[:, None], cidx, -1), seg, offset
 
 
-def pairwise_count_runs_plain(targets, r2, run_start, run_len, xs, ys, zs, box_params,
-                              max_pairs: int = 1 << 25) -> torch.Tensor:
-    """Plain version of pairwise_count_runs: the runs flattened into
-    candidate lists, then chunked dense pair tests with the kernel's
-    floor(d / L + 1/2) image."""
+def _runs_within(targets, r2, run_start, run_len, xs, ys, zs, box_params, max_pairs: int):
+    """The plain pair tests of the runs flattened into candidate lists, a
+    chunk of groups at a time with the kernel's floor(d / L + 1/2) image:
+    yields (g0, g1, candidate indices (g1 - g0, C) in run order, -1 past a
+    group's total; within (g1 - g0, G, C) bool)."""
     n_groups, G, _ = targets.shape
     cidx, _, _ = _runs_to_candidates(run_start, run_len)
     C = cidx.shape[1]
     bp = box_params.to(torch.float32)
     pl, il = bp[6:9] * bp[0:3], bp[3:6]
-    out = torch.zeros((n_groups, G), dtype=torch.int32, device=targets.device)
     lane = torch.arange(G, device=targets.device)
     chunk = max(1, max_pairs // max(1, G * C))
     for g0 in range(0, n_groups, chunk):
@@ -215,10 +262,39 @@ def pairwise_count_runs_plain(targets, r2, run_start, run_len, xs, ys, zs, box_p
         safe = torch.clamp(ci, min=0)
         tgt_idx = torch.arange(g0, g1, device=targets.device)[:, None] * G + lane[None, :]
         ok = (ci[:, None, :] >= 0) & (ci[:, None, :] != tgt_idx[:, :, None])
-        within = pair_within(tuple(targets[g0:g1, :, a] for a in range(3)), r2[g0:g1],
-                             (xs[safe], ys[safe], zs[safe]), ok, IMAGE_FLOOR, pl, il)
+        yield g0, g1, ci, pair_within(tuple(targets[g0:g1, :, a] for a in range(3)), r2[g0:g1],
+                                      (xs[safe], ys[safe], zs[safe]), ok, IMAGE_FLOOR, pl, il)
+
+
+def pairwise_count_runs_plain(targets, r2, run_start, run_len, xs, ys, zs, box_params,
+                              max_pairs: int = 1 << 25) -> torch.Tensor:
+    """Plain version of pairwise_count_runs: the runs flattened into
+    candidate lists, then chunked dense pair tests with the kernel's
+    floor(d / L + 1/2) image."""
+    n_groups, G, _ = targets.shape
+    out = torch.zeros((n_groups, G), dtype=torch.int32, device=targets.device)
+    for g0, g1, _, within in _runs_within(targets, r2, run_start, run_len, xs, ys, zs, box_params, max_pairs):
         out[g0:g1] = within.sum(dim=-1, dtype=torch.int32)
     return out
+
+
+def pairwise_list_runs_plain(targets, r2, run_start, run_len, xs, ys, zs, box_params, ng_max: int,
+                             max_pairs: int = 1 << 25) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of pairwise_list_runs, bit-equal in counts and lists:
+    pairwise_count_runs_plain's tests, each target's hits ranked in
+    candidate (run) order and the first ng_max written to its row."""
+    n_groups, G, _ = targets.shape
+    counts = torch.zeros((n_groups, G), dtype=torch.int32, device=targets.device)
+    lists = torch.full((n_groups, G, int(ng_max)), -1, dtype=torch.int64, device=targets.device)
+    for g0, g1, ci, within in _runs_within(targets, r2, run_start, run_len, xs, ys, zs, box_params,
+                                           max_pairs):
+        counts[g0:g1] = within.sum(dim=-1, dtype=torch.int32)
+        w = within.to(torch.int64)
+        rank = torch.cumsum(w, dim=-1) - w
+        keep = within & (rank < ng_max)
+        b, t, c = torch.nonzero(keep, as_tuple=True)
+        lists[g0 + b, t, rank[b, t, c]] = ci[b, c]
+    return counts, lists
 
 
 def tile_images(targets, r2, run_start, run_len, xs, ys, zs, box_params, tile: int):
@@ -296,4 +372,5 @@ def pairwise_count_runs_tiled_plain(targets, r2, run_start, run_len, xs, ys, zs,
     return hit.sum(dim=-1, dtype=torch.int32)
 
 
-register_launches(_LAUNCHES, plain={"pairwise_count_runs": pairwise_count_runs_plain})
+register_launches(_LAUNCHES, plain={"pairwise_count_runs": pairwise_count_runs_plain,
+                                    "pairwise_list_runs": pairwise_list_runs_plain})

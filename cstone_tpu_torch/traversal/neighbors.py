@@ -10,16 +10,32 @@ with dist^2(i, j) < (2 h_i)^2, periodic-aware; counts include neighbors
 beyond ng_max, index lists are capped at ng_max.
 
 Three routes for the pair tests, named as in the JAX package:
-  "v2" (default for counts): the candidate leaves merge into contiguous
-       particle runs streamed by the B5 kernel (ops/neighbors_v2.py);
-       minimum image floor(d / L + 1/2) per pair;
+  "v2" (default for counts, and for index lists on CUDA tensors): the
+       candidate leaves merge into contiguous particle runs streamed by
+       the B5 kernel (ops/neighbors_v2.py), its list mode for index lists
+       (on CPU tensors the plain twins); minimum image floor(d / L + 1/2)
+       per pair;
   "v1" or True: candidates are gathered, wrapped once to the image nearest
        the group centre and tested by the B6 kernel (ops/neighbors_v1.py);
-  False: chunked dense pair tests in PyTorch with a per-pair round(d / L)
-       image; the only route that emits index lists (with_indices).
+       counts only;
+  False (default for index lists on CPU tensors, the JAX package's
+       route): chunked dense pair tests in PyTorch with a per-pair
+       round(d / L) image.
 Each route keeps the JAX route's image arithmetic, so the counts of each
 route are bit-equal to its JAX counterpart; between routes, pairs at
-exactly 2h across a periodic wrap may flip.
+exactly 2h across a periodic wrap may flip. Index lists hold each
+target's first ng_max neighbours: where its count is at most ng_max, the
+routes give the same count and the same neighbours as a set (up to those
+wrap ties); the row's order is candidate order on the PyTorch route and
+ascending slot order on "v2".
+
+Spans (utils/trace.py): `neighbors.groups` (the group boxes and the BFS),
+`neighbors.runs` (the candidates: merged runs on "v2", flattened lists on
+the others), `neighbors.pass` (the pair tests and the output rows), and
+in find_neighbors `neighbors.check` (check_nb_stats' host reads).
+Counters: `neighbors.kernel` or `neighbors.plain`, one a pass, by route:
+a B5 or B6 launch on CUDA tensors, else the plain twins or the PyTorch
+route.
 """
 
 from __future__ import annotations
@@ -31,18 +47,28 @@ import numpy as np
 import torch
 
 from ..ops.neighbors_v1 import pairwise_count
-from ..ops.neighbors_v2 import merge_leaf_runs, pairwise_count_runs
+from ..ops.neighbors_v2 import merge_leaf_runs, pairwise_count_runs, pairwise_list_runs
 from ..ops.pairs import IMAGE_NONE, IMAGE_ROUND, pair_within
 from ..sfc.box import Box
 from ..sfc.encode import HILBERT
 from ..tree.octree import LinkedOctree
+from ..utils import trace
 from .boxoverlap import min_distance_boxes
 from .geometry import node_geometry
 from .traversal import batched_collect_leaves_bfs
 
 __all__ = [
-    "OctreeNsView", "NbStats", "make_ns_view", "find_neighbors", "check_nb_stats",
+    "OctreeNsView", "NbStats", "CapacityError", "make_ns_view", "find_neighbors", "check_nb_stats",
 ]
+
+
+class CapacityError(RuntimeError):
+    """A capacity of the neighbor pass overflowed; `cap` names the
+    find_neighbors argument to raise."""
+
+    def __init__(self, cap: str, limit: int, needed: int, what: str):
+        super().__init__(f"{what} capacity {limit} exceeded (needed {needed}); raise {cap}")
+        self.cap = cap
 
 
 @dataclass(frozen=True)
@@ -144,6 +170,18 @@ def _groups(x, y, z, h, view: OctreeNsView, box: Box, n: int, group_size: int,
     return _Groups(gx, gy, gz, gh, gvalid, g_center, g_size, leaf_idx, n_cand, fmax)
 
 
+def _to_rows(nbs: torch.Tensor, n_out: int, ng_max: int, t0: int = 0) -> torch.Tensor:
+    """(n_groups, G, ng_max) lists of the targets from slot t0 on ->
+    (n_out, ng_max) in particle order, -1-padded or cut (a view where the
+    groups cover exactly n_out slots)."""
+    nbs = nbs.reshape(-1, ng_max)
+    if t0:
+        nbs = torch.cat([nbs.new_full((t0, ng_max), -1), nbs])
+    if nbs.shape[0] < n_out:
+        nbs = torch.cat([nbs, nbs.new_full((n_out - nbs.shape[0], ng_max), -1)])
+    return nbs[:n_out]
+
+
 def _to_particles(counts: torch.Tensor, n_out: int, t0: int = 0) -> torch.Tensor:
     """(n_groups, G) of the targets from slot t0 on -> (n_out,) in particle
     order, zero-padded or cut."""
@@ -226,8 +264,8 @@ def _pairs_chunked(x, y, z, grp: _Groups, box: Box, cand_idx, cand_valid, chunk:
                    with_indices: bool, ng_max: int, t0: int = 0):
     """The XLA route: chunks of groups tested all-pairs in PyTorch with a
     per-pair round(d / L) image; optionally the first ng_max neighbor
-    indices per target in candidate order, -1 padded. The targets start
-    at slot t0."""
+    indices per target in candidate order, -1 padded, (n_groups, G,
+    ng_max). The targets start at slot t0."""
     dev = x.device
     n_groups, G = grp.gx.shape
     mode = IMAGE_ROUND if _periodic(box) else IMAGE_NONE
@@ -261,62 +299,66 @@ def _find_neighbors_impl(x, y, z, h, view: OctreeNsView, box: Box, ng_max: int, 
                          cand_leaf_cap: int, cand_cap: int, chunk: int, with_indices: bool,
                          n_targets: int, use_pallas=False, frontier_cap: int = 64,
                          run_cap: int = 48, target_offset: int = 0):
-    """(counts (len(x),) int32, index lists or None, NbStats). The targets
-    are the slots [target_offset, target_offset + n_targets) (the JAX
-    package's targets start at slot 0; an offset runs on the PyTorch
-    route only); every slot is a candidate. Slots outside the targets get
-    count 0 and no neighbours."""
+    """(counts (len(x),) int32, index lists (len(x), ng_max) int64 or
+    None, NbStats). The targets are the slots [target_offset,
+    target_offset + n_targets) (the JAX package's targets start at slot
+    0; an offset runs on the PyTorch route only); every slot is a
+    candidate. Slots outside the targets get count 0 and no neighbours.
+    "v2" with_indices runs B5's list mode (the plain twin on CPU tensors);
+    "v1" has no list mode and takes the PyTorch route for lists."""
     dev = x.device
     n_out = x.shape[0]
     t0 = int(target_offset)
     if t0 and use_pallas:
         raise ValueError("target_offset runs on the PyTorch route (use_pallas=False) only")
-    grp = _groups(x, y, z, h, view, box, n_targets, group_size, cand_leaf_cap, frontier_cap, t0)
-    leaf_max = grp.n_cand.max()
-    frontier_max = grp.frontier_max.max()
+    with trace.span("neighbors.groups"):
+        grp = _groups(x, y, z, h, view, box, n_targets, group_size, cand_leaf_cap, frontier_cap, t0)
+        leaf_max = grp.n_cand.max()
+        frontier_max = grp.frontier_max.max()
     no_pbc_fault = torch.zeros((), dtype=torch.bool, device=dev)
+    kernel = bool(use_pallas) and (use_pallas == "v2" or not with_indices)
+    route = "neighbors.kernel" if kernel and x.is_cuda else "neighbors.plain"
 
-    if use_pallas == "v2" and not with_indices:
-        args, n_runs = _runs_inputs(x, y, z, grp, view, box, run_cap)
-        counts = pairwise_count_runs(*args)
+    if use_pallas == "v2":
+        with trace.span("neighbors.runs"):
+            args, n_runs = _runs_inputs(x, y, z, grp, view, box, run_cap)
+        with trace.span("neighbors.pass"):
+            trace.count(route)
+            if with_indices:
+                counts, nbs = pairwise_list_runs(*args, ng_max)
+                nbs = _to_rows(nbs, n_out, ng_max)
+            else:
+                counts, nbs = pairwise_count_runs(*args), None
         stats = NbStats(leaf_max, frontier_max, _zero(dev), n_runs.max(), no_pbc_fault)
-        return _to_particles(counts, n_out), None, stats
+        return _to_particles(counts, n_out), nbs, stats
 
-    cand_idx, cand_valid, total_cand = _flatten_candidates(grp, view.layout, cand_leaf_cap, cand_cap)
-    if use_pallas and not with_indices:
-        args, bad = _dense_inputs(x, y, z, grp, box, cand_idx, cand_valid)
-        counts = pairwise_count(*args)
-        stats = NbStats(leaf_max, frontier_max, total_cand.max(), _zero(dev), bad)
-        return _to_particles(counts, n_out), None, stats
-
-    counts, nbs = _pairs_chunked(x, y, z, grp, box, cand_idx, cand_valid, chunk, with_indices, ng_max, t0)
-    stats = NbStats(leaf_max, frontier_max, total_cand.max(), _zero(dev), no_pbc_fault)
-    if with_indices:
-        nbs = nbs.reshape(-1, ng_max)
-        if t0:
-            nbs = torch.cat([nbs.new_full((t0, ng_max), -1), nbs])
-        if nbs.shape[0] < n_out:
-            nbs = torch.cat([nbs, nbs.new_full((n_out - nbs.shape[0], ng_max), -1)])
-        nbs = nbs[:n_out]
+    with trace.span("neighbors.runs"):
+        cand_idx, cand_valid, total_cand = _flatten_candidates(grp, view.layout, cand_leaf_cap, cand_cap)
+        args, bad = _dense_inputs(x, y, z, grp, box, cand_idx, cand_valid) if kernel else (None, no_pbc_fault)
+    with trace.span("neighbors.pass"):
+        trace.count(route)
+        if kernel:
+            counts, nbs = pairwise_count(*args), None
+        else:
+            counts, nbs = _pairs_chunked(x, y, z, grp, box, cand_idx, cand_valid, chunk, with_indices,
+                                         ng_max, t0)
+            if with_indices:
+                nbs = _to_rows(nbs, n_out, ng_max, t0)
+    stats = NbStats(leaf_max, frontier_max, total_cand.max(), _zero(dev), bad)
     return _to_particles(counts, n_out, t0), nbs, stats
 
 
 def check_nb_stats(stats: NbStats, cand_leaf_cap: int, frontier_cap: int, cand_cap: int,
                    run_cap: int) -> None:
-    """Raise if any capacity in the neighbor pass overflowed (results would
-    be silently incomplete otherwise)."""
-    if int(stats.leaf_max) > cand_leaf_cap:
-        raise RuntimeError(f"candidate leaf capacity {cand_leaf_cap} exceeded "
-                           f"(needed {int(stats.leaf_max)}); raise cand_leaf_cap")
-    if int(stats.frontier_max) > frontier_cap:
-        raise RuntimeError(f"traversal frontier capacity {frontier_cap} exceeded "
-                           f"(needed {int(stats.frontier_max)}); raise frontier_cap")
-    if int(stats.cand_max) > cand_cap:
-        raise RuntimeError(f"candidate capacity {cand_cap} exceeded "
-                           f"(needed {int(stats.cand_max)}); raise cand_cap")
-    if int(stats.run_max) > run_cap:
-        raise RuntimeError(f"run capacity {run_cap} exceeded (needed {int(stats.run_max)}); "
-                           "raise run_cap")
+    """Raise CapacityError if any capacity in the neighbor pass overflowed
+    (results would be silently incomplete otherwise), RuntimeError if the
+    periodic wrap's validity was violated."""
+    for cap, limit, needed, what in (("cand_leaf_cap", cand_leaf_cap, stats.leaf_max, "candidate leaf"),
+                                     ("frontier_cap", frontier_cap, stats.frontier_max, "traversal frontier"),
+                                     ("cand_cap", cand_cap, stats.cand_max, "candidate"),
+                                     ("run_cap", run_cap, stats.run_max, "run")):
+        if int(needed) > limit:
+            raise CapacityError(cap, limit, int(needed), what)
     if bool(stats.pbc_bad):
         raise RuntimeError("periodic wrap validity violated: 2h + group half-extent >= L/2; "
                            "reduce group_size or use the v2/XLA path")
@@ -343,18 +385,22 @@ def find_neighbors(
     """Neighbor counts (and optionally indices) for SFC-ordered particles.
 
     Semantics per findneighbors.hpp:95-165; counts (int32) may exceed
-    ng_max, index lists (int64) are capped at ng_max and padded with -1.
-    `use_pallas` picks the route by its JAX name: None gives "v2" for
-    counts and False for indices; "v1" or True the B6 kernel; False the
-    PyTorch chunk path. The JAX version's `tile` has no counterpart: the
-    B5 kernel tiles by the group size. Raises if a capacity overflowed.
+    ng_max, index lists (int64) are capped at ng_max and padded with -1
+    (the module docstring gives each route's row order). `use_pallas`
+    picks the route by its JAX name: None gives "v2" for counts, and for
+    indices "v2" (B5's list mode) on CUDA tensors and False on CPU
+    tensors (the JAX package's default); "v1" or True the B6 kernel;
+    False the PyTorch chunk path. The JAX version's `tile` has no
+    counterpart: the B5 kernel tiles by the group size. Raises if a
+    capacity overflowed.
     """
     n = int(x.shape[0]) if n_targets is None else int(n_targets)
     if use_pallas is None:
-        use_pallas = False if with_indices else "v2"
+        use_pallas = "v2" if not with_indices or x.is_cuda else False
     counts, nbs, stats = _find_neighbors_impl(
         x, y, z, h, view, box, int(ng_max), int(group_size), int(cand_leaf_cap), int(cand_cap),
         int(chunk), bool(with_indices), n, use_pallas=use_pallas,
         frontier_cap=int(frontier_cap), run_cap=int(run_cap))
-    check_nb_stats(stats, cand_leaf_cap, frontier_cap, cand_cap, run_cap)
+    with trace.span("neighbors.check"):
+        check_nb_stats(stats, cand_leaf_cap, frontier_cap, cand_cap, run_cap)
     return counts, nbs

@@ -19,6 +19,8 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 
+from ..utils import trace
+
 __all__ = ["batched_collect_leaves", "batched_collect_leaves_bfs", "batched_mark", "dual_traversal",
            "MARK_CHUNK", "mark_levels_log"]
 
@@ -119,6 +121,8 @@ def batched_collect_leaves_bfs(
     exceed out_cap (entries past it are dropped); frontier_counts
     (n_queries,) int64, the widest frontier seen: values > frontier_cap
     mean nodes were DROPPED and the caller must retry with a larger cap).
+    Each turn of the level loop reads one flag on the host (one more ends
+    it) and adds one to the trace counter `bfs.levels`.
     """
     dev = child_offsets.device
     cap_nodes = child_offsets.shape[0]
@@ -143,6 +147,7 @@ def batched_collect_leaves_bfs(
     rows = q_ids[:, None].expand(n_queries, F * 8)
 
     while bool((fcnt > 0).any()):
+        trace.count("bfs.levels")
         slot_valid = slot_ids[None, :] < fcnt[:, None] * 8
         children = (child_offsets[frontier][:, :, None] + k8).reshape(n_queries, F * 8)
         cc = torch.clamp(children, 0, cap_nodes - 1)

@@ -14,14 +14,15 @@ import torch_threads  # noqa: F401  (two intra-op threads per xdist worker)
 
 CSRC = pathlib.Path(cuda_lib.__file__).resolve().parent.parent / "csrc"
 LAUNCH_NAMES = {"stencil_counts", "stencil_density", "stencil_cross", "stencil_counts_asym",
-                "pairwise_count_runs", "pairwise_count", "sfc_encode", "sfc_decode", "mark_walk", "octree_layout",
-                "octree_link", "csarray_counts", "csarray_decide", "csarray_emit"}
+                "pairwise_count_runs", "pairwise_list_runs", "pairwise_count", "sfc_encode", "sfc_decode",
+                "mark_walk", "octree_layout", "octree_link", "csarray_counts", "csarray_decide", "csarray_emit"}
 REPLAYED = {
     "stencil_counts": stencil.stencil_counts_plain,
     "stencil_density": stencil.stencil_density_plain,
     "stencil_cross": stencil.stencil_cross_plain,
     "stencil_counts_asym": stencil.stencil_counts_asym_plain,
     "pairwise_count_runs": neighbors_v2.pairwise_count_runs_plain,
+    "pairwise_list_runs": neighbors_v2.pairwise_list_runs_plain,
     "pairwise_count": neighbors_v1.pairwise_count_plain,
 }
 

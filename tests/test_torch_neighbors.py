@@ -19,8 +19,10 @@ from cstone_tpu.tree import compute_octree
 from cstone_tpu.tree.octree import build_linked_octree
 from cstone_tpu_torch.domain import Domain
 from cstone_tpu_torch.interop import from_numpy_ns_view
+from cstone_tpu_torch.ops import neighbors_v2
 from cstone_tpu_torch.sfc import make_box
 from cstone_tpu_torch.traversal import neighbors as tnb
+from cstone_tpu_torch.utils.workloads import mixed_image_runs
 from tests.test_neighbors import _setup, brute_force_counts
 
 import torch_threads  # noqa: F401  (two intra-op threads per xdist worker)
@@ -117,3 +119,81 @@ def test_domain_ns_view_counts_vs_bruteforce(periodic):
     expect, _, _ = brute_force_counts(res.x.numpy(), res.y.numpy(), res.z.numpy(), res.h.numpy(),
                                       lims, periodic)
     np.testing.assert_array_equal(counts.numpy(), expect)
+
+
+def _v2_args(periodic, seed=5, ng_max=4):
+    """A synced 1,200-particle view of the unit box (h in [0.02, 0.05],
+    about 5 neighbours): (columns and view of find_neighbors, B5's
+    arguments for its groups of 32, the list mode's counts and lists by
+    slot from the "v2" route and from the PyTorch route)."""
+    rng = np.random.RandomState(seed)
+    n = 1200
+    pos = rng.uniform(0.0, 1.0, size=(n, 3)).astype(np.float32)
+    h = rng.uniform(0.02, 0.05, size=n).astype(np.float32)
+    box = make_box(0.0, 1.0, boundaries=int(periodic), device="cpu")
+    domain = Domain(bucket_size=16, tree_capacity=1024, device="cpu")
+    state = domain.init_state(box=box, boundaries=(int(periodic),) * 3)
+    state, res = domain.sync(state, *_port((pos[:, 0], pos[:, 1], pos[:, 2], h)))
+    view = domain.ns_view(res, state.box)
+    cols = (res.x, res.y, res.z, res.h)
+    kw = dict(ng_max=ng_max, group_size=32, cand_leaf_cap=640, cand_cap=8192, chunk=16, with_indices=True,
+              n_targets=n)
+    v2 = tnb._find_neighbors_impl(*cols, view, state.box, use_pallas="v2", **kw)
+    torch_route = tnb._find_neighbors_impl(*cols, view, state.box, use_pallas=False, **{**kw, "ng_max": 64})
+    return cols, view, state.box, v2, torch_route
+
+
+@pytest.mark.parametrize("periodic", [True, False], ids=["periodic", "open"])
+def test_list_twin_matches_pytorch_route(periodic):
+    """The "v2" route's lists (B5's list mode, its plain twin on the CPU)
+    against the PyTorch route's: equal counts; where a count is at most
+    ng_max the same neighbours, in ascending slot order; where it is more,
+    ng_max distinct neighbours of the full list and the full count."""
+    _, _, _, (counts, lists, _), (want_counts, want_lists, _) = _v2_args(periodic)
+    ng_max = lists.shape[1]
+    assert int(want_counts.max()) <= 64 and torch.equal(counts, want_counts)
+    fits = counts <= ng_max
+    assert 0 < int((~fits).sum()) < counts.numel()
+    got = lists[fits]
+    want = torch.where(want_lists[fits] >= 0, want_lists[fits], 1 << 40).sort(dim=1).values[:, :ng_max]
+    assert torch.equal(torch.where(got >= 0, got, 1 << 40), want)
+    for row, full in zip(lists[~fits], want_lists[~fits]):
+        assert bool((row >= 0).all()) and bool((row[1:] > row[:-1]).all())
+        assert set(row.tolist()) <= set(full[full >= 0].tolist())
+
+
+def test_list_mode_counts_bit_equal_count_mode_and_dead_targets_list_nothing():
+    """On B5's arguments with mixed images, the list twin's counts equal
+    pairwise_count_runs_plain's bit for bit and each row is its target's
+    first hits in run order; targets with r2 < 0 count 0 and list -1."""
+    args = tuple(torch.from_numpy(a) for a in mixed_image_runs(32, 24, True))
+    r2 = args[1].clone()
+    r2[3, :5] = -1.0
+    args = (args[0], r2) + args[2:]
+    counts, lists = neighbors_v2.pairwise_list_runs(*args, 6)
+    assert torch.equal(counts, neighbors_v2.pairwise_count_runs_plain(*args))
+    assert int((counts > 6).sum()) > 0 and int(counts[3, :5].abs().sum()) == 0
+    assert bool((lists[3, :5] == -1).all())
+    n_live = (lists >= 0).sum(dim=-1)
+    assert torch.equal(n_live, counts.clamp(max=6).long())
+    assert bool(((lists[..., 1:] > lists[..., :-1]) | (lists[..., 1:] == -1)).all())
+    wide_counts, wide = neighbors_v2.pairwise_list_runs_plain(*args, int(counts.max()))
+    assert torch.equal(wide_counts, counts) and torch.equal(wide[..., :6], lists)
+
+
+def test_list_route_choice(monkeypatch):
+    """On CPU tensors the default route for lists is the PyTorch route
+    (the JAX package's); "v2" takes B5's list mode (its plain twin here);
+    a target offset raises on "v2"."""
+    cols, view, box, _, _ = _v2_args(True)
+    launched = []
+    real = tnb.pairwise_list_runs
+    monkeypatch.setattr(tnb, "pairwise_list_runs", lambda *a: launched.append(1) or real(*a))
+    kw = dict(ng_max=16, group_size=32, cand_leaf_cap=640, cand_cap=8192, with_indices=True)
+    tnb.find_neighbors(*cols, view, box, **kw)
+    assert launched == []
+    tnb.find_neighbors(*cols, view, box, use_pallas="v2", **kw)
+    assert launched == [1]
+    with pytest.raises(ValueError, match="target_offset"):
+        tnb._find_neighbors_impl(*cols, view, box, 16, 32, 640, 8192, 16, True, 600, use_pallas="v2",
+                                 target_offset=8)

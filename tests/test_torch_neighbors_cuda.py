@@ -8,8 +8,11 @@ image, one hoisted shift or the per-pair image (mixed_image_runs); B6
 also on groups of 1, 33, 256 and 1024 targets over candidate counts that
 are no multiple of its tile, with empty groups, holes of -1 slots, a
 target's own index at tile edges and targets with r2 < 0
-(dense_groups). Skips without an NVIDIA GPU and nvcc; chip_smoke.py
-phase 3 runs the same checks. Tolerance: counts bit-equal."""
+(dense_groups); B5's list mode (the default route for index lists on
+the card) on find_neighbors' arguments with rows that overflow ng_max
+and on the mixed-image tiles. Skips without an NVIDIA GPU and nvcc;
+chip_smoke.py phases 3 and 6 run the same checks. Tolerance: counts and
+lists bit-equal."""
 
 import numpy as np
 import pytest
@@ -105,3 +108,36 @@ def test_dense_kernel_on_edge_groups(cuda_device, G, C):
     torch.cuda.synchronize()
     assert int(want.sum()) > 0 and int(want[1].sum()) == 0
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("gauss", [False, True])
+def test_list_kernel_matches_plain(cuda_device, periodic, gauss):
+    """find_neighbors with index lists on the default route: B5's list
+    mode, bit-equal to its plain twin in counts and lists, with rows that
+    overflow ng_max 12; its counts equal the count mode's."""
+    x, y, z, h, view, box = synced_view(cuda_device, 16384, periodic, gauss)
+    with record_launches() as calls:
+        counts, lists = neighbors.find_neighbors(x, y, z, h, view, box, with_indices=True, ng_max=12, **KW)
+    [(name, args, (got_counts, got_lists))] = calls
+    assert name == "pairwise_list_runs"
+    want_counts, want_lists = neighbors_v2.pairwise_list_runs_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got_counts, want_counts) and torch.equal(got_lists, want_lists)
+    assert int((got_counts > 12).sum()) > 0
+    assert torch.equal(got_counts, neighbors_v2.pairwise_count_runs(*args[:-1]))
+    assert torch.equal(lists[:16384], got_lists.reshape(-1, 12)[:16384])
+    assert torch.equal(counts[:16384], got_counts.reshape(-1)[:16384])
+
+
+@pytest.mark.parametrize("G,n_groups", [(32, 48), (256, 12)])
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("ng_max", [0, 5, 64])
+def test_list_kernel_mixed_images(cuda_device, G, n_groups, periodic, ng_max):
+    args = tuple(torch.from_numpy(a).to(cuda_device) for a in mixed_image_runs(G, n_groups, periodic))
+    got = neighbors_v2.pairwise_list_runs(*args, ng_max)
+    want = neighbors_v2.pairwise_list_runs_plain(*args, ng_max)
+    torch.cuda.synchronize()
+    assert int(want[0].sum()) > 0
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[0], neighbors_v2.pairwise_count_runs(*args))

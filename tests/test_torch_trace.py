@@ -6,8 +6,10 @@ walk on the CPU, one a focus round), the Hilbert codec's calls (the
 plain codec on the CPU, `sfc.plain`), the linked-octree builds (the
 plain build on the CPU, `octree.plain`), the cornerstone fixed point's
 counts, decisions and emissions (the plain functions on the CPU,
-`csarray.plain`), and the SPH density's pack, pass and scatter with its
-route (the plain pass on the CPU, `density.plain`).
+`csarray.plain`), the SPH density's pack, pass and scatter with its
+route (the plain pass on the CPU, `density.plain`), and find_neighbors'
+groups, runs, pass and check with its route (`neighbors.plain` on the
+CPU) and the BFS walk's level turns (`bfs.levels`).
 
 Off, a span is one shared null context and a profiler sees none of the
 program's ranges; on, the stages open once a sync, in order, nested
@@ -28,6 +30,7 @@ from cstone_tpu_torch.focus import octree_focus
 from cstone_tpu_torch.parallel import global_tree, run_ranks
 from cstone_tpu_torch.sfc import PERIODIC, hilbert, make_box
 from cstone_tpu_torch.traversal import cell_list_neighbor_counts, cell_list_sph_density, macs
+from cstone_tpu_torch.traversal import neighbors
 from cstone_tpu_torch.tree import csarray, octree
 from cstone_tpu_torch.utils import trace
 
@@ -38,6 +41,7 @@ STAGES = ("sync.box", "sync.keys", "sync.tree", "sync.assign", "sync.exchange", 
           "sync.layout", "sync.halo_exchange", "sync.overflow")
 CELLLIST = ("celllist.pack", "celllist.pass", "celllist.scatter")
 DENSITY = ("density.pack", "density.pass", "density.scatter")
+NEIGHBORS = ("neighbors.groups", "neighbors.runs", "neighbors.pass", "neighbors.check")
 COLLECTIVES = ("all_gather", "all_reduce", "all_reduce_flag", "all_to_all", "ragged_all_to_all", "ppermute")
 SYNCS = 2  # a cold and a warm sync
 CSARRAY_PLAIN = ("compute_node_counts_plain", "rebalance_decision_plain", "rebalance_tree_plain")
@@ -267,3 +271,35 @@ def test_density_opens_its_spans_in_order_and_counts_its_route():
     off_rho, off_ovf, _, off_ranges = _density(traced=False)
     assert off_ranges == []
     assert torch.equal(rho, off_rho) and bool(ovf) == bool(off_ovf) is False
+
+
+@pytest.mark.parametrize("route", ["v2", False, None])
+def test_find_neighbors_opens_its_spans_in_order_and_counts_its_route(route, monkeypatch):
+    """One sync, then find_neighbors with index lists: the four spans once
+    each, in order; one `neighbors.plain` a pass on the CPU (B5's plain
+    twin on "v2", the PyTorch route on False and by default); `bfs.levels`
+    equal to the BFS walk's level turns (its criterion's calls after the
+    root's); the outputs bit-equal with tracing off."""
+    xyz = _particles()
+    box = make_box(0.0, 1.0, boundaries=PERIODIC, device="cpu")
+    dom = Domain(bucket_size=32, tree_capacity=1024, device="cpu")
+    state, res = dom.sync(dom.init_state(box=box, boundaries=(1, 1, 1)), *xyz.unbind(0), torch.full((N,), H))
+    view = dom.ns_view(res, state.box)
+    calls = []
+    walk = neighbors.batched_collect_leaves_bfs
+
+    def counted(child_offsets, criterion, *args, **kw):
+        return walk(child_offsets, lambda q, n: calls.append(1) or criterion(q, n), *args, **kw)
+
+    monkeypatch.setattr(neighbors, "batched_collect_leaves_bfs", counted)
+    kw = dict(ng_max=64, group_size=32, cand_leaf_cap=512, cand_cap=8192, with_indices=True, use_pallas=route)
+    with trace.collect() as tally, \
+            torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        on = neighbors.find_neighbors(res.x, res.y, res.z, res.h, view, state.box, **kw)
+    ranges = sorted((e.start_ns(), e.name()) for e in prof.profiler.kineto_results.events() if e.name() in NEIGHBORS)
+    assert [name for _, name in ranges] == list(NEIGHBORS)
+    read = tally.read()
+    assert {n: c["calls"] for n, c in read["spans"].items()} == dict.fromkeys(NEIGHBORS, 1)
+    assert read["counts"] == {"neighbors.plain": 1, "bfs.levels": len(calls) - 1} and len(calls) > 2
+    off = neighbors.find_neighbors(res.x, res.y, res.z, res.h, view, state.box, **kw)
+    assert torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])

@@ -91,5 +91,6 @@ def test_check_nb_stats_raises_on_each_cap(cap):
     field = {"cand_leaf_cap": "leaf_max", "frontier_cap": "frontier_max", "cand_cap": "cand_max",
              "run_cap": "run_max", "pbc_bad": "pbc_bad"}[cap]
     ok[field] = True if cap == "pbc_bad" else ok[field] + 1
-    with pytest.raises(RuntimeError, match="periodic wrap" if cap == "pbc_bad" else f"raise {cap}"):
+    with pytest.raises(RuntimeError, match="periodic wrap" if cap == "pbc_bad" else f"raise {cap}") as err:
         tnb.check_nb_stats(tnb.NbStats(**{k: torch.tensor(v) for k, v in ok.items()}), **CAPS)
+    assert getattr(err.value, "cap", None) == (None if cap == "pbc_bad" else cap)
